@@ -1,0 +1,35 @@
+"""CLI dispatcher: ``python -m kaldi_aslp_tpu_torch.cli <tool> [args]``.
+
+Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
+reference binaries; the port has the online server and its client so
+far."""
+
+from __future__ import annotations
+
+import sys
+
+from kaldi_aslp_tpu_torch.cli import online_tools
+
+TOOLS = {
+    # aslp-onlinebin server + client
+    "aslp-online-nnet-vad-server": online_tools.online_nnet_vad_server,
+    "aslp-audio-provider-client": online_tools.audio_provider_client,
+}
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m kaldi_aslp_tpu_torch.cli <tool> [args]\n"
+              "tools:\n  " + "\n  ".join(sorted(TOOLS)), file=sys.stderr)
+        return 1
+    tool = argv[0]
+    if tool not in TOOLS:
+        print(f"unknown tool {tool!r}; run with --help for the list",
+              file=sys.stderr)
+        return 1
+    return TOOLS[tool](argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,86 @@
+"""Acoustic-score bridge: network outputs -> decoder log-likelihoods.
+
+Port of kaldi_aslp_tpu/decoder/decodable.py (``PdfPrior``,
+``NnetForwardOptions``, ``nnet_forward``; reference:
+src/aslp-nnet/nnet-decodable.{h,cc}, nnet-pdf-prior.{h,cc},
+src/aslp-nnetbin/aslp-nnet-forward.cc).  The network runs once over
+[1, T, D] on the device its parameters live on; log-softmax and the
+prior are plain torch ops."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from kaldi_aslp_tpu_torch.models.nnet import Nnet
+from kaldi_aslp_tpu_torch.utils.config import Config
+
+
+class PdfPrior:
+    """log-prior subtraction (reference: nnet-pdf-prior.h:57-63)."""
+
+    def __init__(self, counts: np.ndarray, prior_scale: float = 1.0,
+                 prior_floor: float = 1e-10):
+        counts = np.asarray(counts, np.float64)
+        rel = counts / max(counts.sum(), 1.0)
+        # zero/low-count pdfs get a huge POSITIVE log-prior so the
+        # subtraction drives their pseudo-loglike to -inf, removing them
+        # from the search (reference: nnet-pdf-prior.cc sets 1e10)
+        self.log_priors = np.where(
+            rel < prior_floor, 1e10,
+            np.log(np.maximum(rel, prior_floor)) * prior_scale,
+        ).astype(np.float32)
+
+    def subtract(self, log_post: torch.Tensor) -> torch.Tensor:
+        return log_post - torch.from_numpy(self.log_priors).to(
+            log_post.device)
+
+
+@dataclasses.dataclass
+class NnetForwardOptions(Config):
+    apply_log: bool = True
+    no_softmax: bool = False   # model output is already log-likelihood-ish
+    blank_scale: float = 1.0   # CTC blank posterior scaling (--scale-blank)
+    time_shift: int = 0
+    skip_width: int = 1        # frame skipping, copy mode
+
+
+@torch.inference_mode()
+def nnet_forward(
+    net: Nnet,
+    feats: np.ndarray,
+    opts: Optional[NnetForwardOptions] = None,
+    prior: Optional[PdfPrior] = None,
+) -> np.ndarray:
+    """aslp-nnet-forward equivalent: [T, D] -> [T, P] scores for
+    decoding, on the device of ``net``'s parameters.
+
+    Returns log-posteriors minus log-priors (scaled pseudo
+    log-likelihoods)."""
+    opts = opts or NnetForwardOptions()
+    device = next(net.parameters()).device
+    T = len(feats)
+    x = np.asarray(feats, np.float32)
+    if opts.skip_width > 1:
+        # copy mode: evaluate every k-th frame, replicate scores
+        x = x[np.arange(0, T, opts.skip_width)]
+    if opts.time_shift:
+        x = np.concatenate(
+            [x[opts.time_shift:], np.repeat(x[-1:], opts.time_shift, 0)])
+    y, _ = net(torch.from_numpy(np.array(x[None])).to(device))
+    y = y[0]
+    if not opts.no_softmax:
+        y = torch.log_softmax(y, dim=-1)
+    elif opts.apply_log:
+        y = torch.log(torch.clamp(y, min=1e-20))
+    if opts.blank_scale != 1.0:
+        y[:, 0] += float(np.log(opts.blank_scale))
+    if prior is not None:
+        y = prior.subtract(y)
+    out = y.cpu().numpy()
+    if opts.skip_width > 1:
+        out = np.repeat(out, opts.skip_width, axis=0)[:T]
+    return out

@@ -1,0 +1,252 @@
+"""Exact dense Viterbi over packed WFST arc arrays, in PyTorch.
+
+Port of kaldi_aslp_tpu/decoder/viterbi.py (``PackedGraph``,
+``_eps_diameter``, ``_split``, ``_eps_relax_host``, ``_viterbi_scan``,
+``ViterbiDecoder``; reference: src/decoder/faster-decoder.h:61).
+
+The DP is dense over graph states: per frame one segment max over the
+emitting arcs (``scatter_reduce(..., "amax")``), then K rounds of epsilon
+relaxation, K = the graph's epsilon diameter.  Backpointers are arc ids
+and the backtrace runs on the host.  The winning arc of a state is the
+largest arc id among its arcs within 1e-6 of the state's best score,
+exactly as in the JAX scan (viterbi.py:130-135, :147-151), so ties give
+the same words and alignments.
+
+The JAX decoder pads arcs (cost 1e30, id -1), states (to 64) and chunk
+lengths so XLA compiles few programs.  PyTorch runs eagerly, so the port
+does not pad."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple, Union
+
+import numpy as np
+import torch
+
+from kaldi_aslp_tpu.fst.fst import Fst
+
+NEG_INF = -1e30
+
+
+@dataclass
+class PackedGraph:
+    """Host-side packed form of an Fst for the dense DP."""
+
+    src: np.ndarray
+    dst: np.ndarray
+    ilabel: np.ndarray   # transition-ids; 0 = eps
+    olabel: np.ndarray
+    weight: np.ndarray   # costs (-log prob)
+    final: np.ndarray    # [S] final costs (inf = non-final)
+    start: int
+    num_states: int
+    eps_diameter: int
+
+    @classmethod
+    def from_fst(cls, fst: Fst) -> "PackedGraph":
+        arrs = fst.to_arrays()
+        eps_mask = arrs["ilabel"] == 0
+        diameter = _eps_diameter(
+            arrs["src"][eps_mask], arrs["dst"][eps_mask],
+            arrs["num_states"])
+        return cls(
+            src=arrs["src"], dst=arrs["dst"], ilabel=arrs["ilabel"],
+            olabel=arrs["olabel"], weight=arrs["weight"],
+            final=arrs["final"], start=arrs["start"],
+            num_states=arrs["num_states"], eps_diameter=diameter)
+
+
+def _eps_diameter(src: np.ndarray, dst: np.ndarray, n: int) -> int:
+    """Longest eps-arc chain.  The scan does exactly this many
+    relaxation rounds per frame, so under-estimating it silently
+    produces wrong scores; eps cycles (no finite diameter) are a hard
+    error: run remove-eps/determinize on the graph first."""
+    if len(src) == 0:
+        return 0
+    depth = np.zeros(n, np.int32)
+    for _ in range(n + 1):
+        new = depth.copy()
+        np.maximum.at(new, dst, depth[src] + 1)
+        if (new == depth).all():
+            return int(depth.max())
+        depth = new
+    raise ValueError(
+        "epsilon-cycle detected in decode graph: epsilon relaxation does "
+        "not converge; remove epsilon cycles (determinize/rmepsilon) "
+        "before packing")
+
+
+def _split(graph: PackedGraph):
+    em = graph.ilabel > 0
+    ep = ~em
+    return (
+        (graph.src[em], graph.dst[em], graph.ilabel[em],
+         graph.weight[em], np.where(em)[0]),
+        (graph.src[ep], graph.dst[ep], graph.weight[ep], np.where(ep)[0]),
+    )
+
+
+def _eps_relax_host(scores: np.ndarray, bp: np.ndarray,
+                    eps_arcs, iters: int):
+    """Host epsilon relaxation for the initial state distribution."""
+    src, dst, w, idx = eps_arcs
+    for _ in range(max(iters, 1)):
+        if len(src) == 0:
+            break
+        cand = scores[src] - w
+        for a in range(len(src)):
+            if cand[a] > scores[dst[a]]:
+                scores[dst[a]] = cand[a]
+                bp[dst[a]] = idx[a]
+    return scores, bp
+
+
+def _seg_max_arg(cand, dst, arc_ids, num_states):
+    """Per destination state: the best candidate score (at least NEG_INF)
+    and the largest arc id within 1e-6 of it (-1 where no arc)."""
+    best = torch.full((num_states,), NEG_INF, dtype=cand.dtype,
+                      device=cand.device)
+    best = best.scatter_reduce(0, dst, cand, reduce="amax",
+                               include_self=True)
+    is_best = cand >= best[dst] - 1e-6
+    winner = torch.full((num_states,), -1, dtype=arc_ids.dtype,
+                        device=cand.device)
+    winner = winner.scatter_reduce(
+        0, dst, torch.where(is_best, arc_ids, -1), reduce="amax",
+        include_self=True)
+    return best, winner
+
+
+class _DeviceArcs:
+    """The emitting and epsilon arcs of a graph as tensors on a device."""
+
+    def __init__(self, em, ep, tid_to_pdf: np.ndarray,
+                 device: torch.device):
+        em_src, em_dst, em_il, em_w, em_idx = em
+        ep_src, ep_dst, ep_w, ep_idx = ep
+
+        def t(a, dtype):
+            return torch.from_numpy(np.asarray(a)).to(device, dtype)
+
+        self.em_src, self.em_dst = t(em_src, torch.long), t(em_dst, torch.long)
+        self.em_pdf = t(tid_to_pdf[em_il], torch.long)
+        self.em_w, self.em_idx = t(em_w, torch.float32), t(em_idx, torch.long)
+        self.ep_src, self.ep_dst = t(ep_src, torch.long), t(ep_dst, torch.long)
+        self.ep_w, self.ep_idx = t(ep_w, torch.float32), t(ep_idx, torch.long)
+
+
+def _viterbi_scan(loglikes: torch.Tensor, init_scores: torch.Tensor,
+                  arcs: _DeviceArcs, acoustic_scale: float,
+                  num_states: int, eps_iters: int):
+    """Returns (final_scores [S], bp [T, S] arc ids) for
+    ``loglikes [T, P]`` (kaldi_aslp_tpu/decoder/viterbi.py:_viterbi_scan)."""
+    scores = init_scores
+    all_bps = []
+    for t in range(loglikes.shape[0]):
+        acoustic = acoustic_scale * loglikes[t][arcs.em_pdf]
+        cand = scores[arcs.em_src] - arcs.em_w + acoustic
+        new_scores, bp = _seg_max_arg(cand, arcs.em_dst, arcs.em_idx,
+                                      num_states)
+        bp = torch.where(new_scores > NEG_INF, bp, -1)
+        if len(arcs.ep_src) > 0:
+            for _ in range(eps_iters):
+                cand_e = new_scores[arcs.ep_src] - arcs.ep_w
+                best, winner = _seg_max_arg(cand_e, arcs.ep_dst,
+                                            arcs.ep_idx, num_states)
+                improved = best > new_scores
+                new_scores = torch.where(improved, best, new_scores)
+                bp = torch.where(improved, winner, bp)
+        scores = new_scores
+        all_bps.append(bp)
+    return scores, torch.stack(all_bps)
+
+
+class ViterbiDecoder:
+    """Exact Viterbi decode/align over a packed graph.
+
+    decode(loglikes) -> (words, alignment, score); loglikes are [T, P]
+    per-pdf acoustic log-likelihoods, mapped from transition ids by the
+    ``tid_to_pdf`` LUT (reference: DecodableMatrixScaledMapped)."""
+
+    def __init__(self, graph: PackedGraph, tid_to_pdf: np.ndarray,
+                 acoustic_scale: float = 1.0,
+                 word_ins_penalty: float = 0.0,
+                 device: Union[str, torch.device] = "cpu"):
+        if word_ins_penalty:
+            # extra cost on every word-emitting arc (reference:
+            # --word-ins-penalty in the scoring sweep)
+            graph = PackedGraph(
+                graph.src, graph.dst, graph.ilabel, graph.olabel,
+                graph.weight + word_ins_penalty * (graph.olabel > 0),
+                graph.final, graph.start, graph.num_states,
+                graph.eps_diameter)
+        self.graph = graph
+        self.tid_to_pdf = np.asarray(tid_to_pdf, np.int64)
+        self.acoustic_scale = float(acoustic_scale)
+        self.device = torch.device(device)
+        self._em, self._ep = _split(graph)
+        self._arcs = _DeviceArcs(self._em, self._ep, self.tid_to_pdf,
+                                 self.device)
+
+    def _init(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Start-state scores + host eps closure backpointers."""
+        g = self.graph
+        init = np.full(g.num_states, NEG_INF, np.float32)
+        init[g.start] = 0.0
+        init_bp = np.full(g.num_states, -1, np.int64)
+        return _eps_relax_host(init, init_bp, self._ep, g.eps_diameter)
+
+    def _scan(self, loglikes: np.ndarray, init: np.ndarray):
+        """Run the DP on the decoder's device; host (final, bps)."""
+        g = self.graph
+        final, bps = _viterbi_scan(
+            torch.from_numpy(np.array(loglikes, np.float32)).to(self.device),
+            torch.from_numpy(init).to(self.device), self._arcs,
+            self.acoustic_scale, g.num_states, max(g.eps_diameter, 1))
+        return final.cpu().numpy(), bps.cpu().numpy()
+
+    def decode(self, loglikes: np.ndarray
+               ) -> Tuple[List[int], np.ndarray, float]:
+        T = loglikes.shape[0]
+        init, init_bp = self._init()
+        if T > 0:
+            final_scores, bps = self._scan(loglikes, init)
+        else:
+            final_scores = init
+            bps = np.zeros((0, self.graph.num_states), np.int64)
+        return self._finish(final_scores, bps, T, init_bp)
+
+    def _finish(self, final_scores: np.ndarray, bps: np.ndarray,
+                T: int, init_bp: np.ndarray
+                ) -> Tuple[List[int], np.ndarray, float]:
+        """Final-state selection + host backtrace through arc-id
+        backpointers."""
+        g = self.graph
+        total = final_scores - g.final
+        end_state = int(np.argmax(total))
+        if not np.isfinite(total[end_state]) or total[end_state] <= NEG_INF:
+            raise RuntimeError("no complete path found (empty decode)")
+        ali = np.zeros(T, np.int32)
+        words_rev: List[int] = []
+        s = end_state
+        t = T - 1
+        while t >= 0:
+            a = int(bps[t, s])
+            if a < 0:
+                raise RuntimeError(f"broken backpointer at t={t} s={s}")
+            if g.olabel[a] > 0:
+                words_rev.append(int(g.olabel[a]))
+            if g.ilabel[a] > 0:
+                ali[t] = g.ilabel[a]
+                t -= 1
+            s = int(g.src[a])
+        # initial epsilon chain (before frame 0)
+        while s != g.start:
+            a = int(init_bp[s])
+            if a < 0:
+                break
+            if g.olabel[a] > 0:
+                words_rev.append(int(g.olabel[a]))
+            s = int(g.src[a])
+        return list(reversed(words_rev)), ali, float(total[end_state])

@@ -1,0 +1,42 @@
+"""Frame-level components.
+
+Port of kaldi_aslp_tpu/models/simple.py; so far only ``AffineTransform``
+(:20-55), the flagship's output layer.  The rest of that module waits
+for a later slice."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from kaldi_aslp_tpu_torch.models.component import Component, register
+
+
+@register
+class AffineTransform(Component):
+    """y = x W^T + b (reference: nnet-affine-transform.h:34).
+
+    Params: w [out, in], b [out].  Init attrs mirror the proto:
+    param_stddev (gaussian weights), bias_mean/bias_range (uniform
+    bias)."""
+
+    token = "<AffineTransform>"
+
+    def __init__(self, input_dim, output_dim, **attrs):
+        super().__init__(input_dim, output_dim, **attrs)
+        self.w = nn.Parameter(torch.zeros(self.output_dim, self.input_dim))
+        self.b = nn.Parameter(torch.zeros(self.output_dim))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        stddev = float(self.attrs.get("param_stddev", 0.1))
+        bias_mean = float(self.attrs.get("bias_mean", -2.0))
+        bias_range = float(self.attrs.get("bias_range", 2.0))
+        w = stddev * torch.randn(self.w.shape, generator=generator)
+        b = bias_mean + bias_range * (
+            torch.rand(self.b.shape, generator=generator) - 0.5)
+        self.w.copy_(w)
+        self.b.copy_(b)
+
+    def forward(self, x, state=None, mask=None):
+        return torch.matmul(x, self.w.t()) + self.b, state

@@ -1,0 +1,79 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into ``kaldi_aslp_tpu_torch/_build/``
+at first use, then loaded with ``ctypes``.  The library name carries a
+hash of the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  ``nvcc``'s own output (``-Xptxas -v``:
+registers, shared memory, spills per kernel) is kept beside the library
+in a ``.log`` file."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of kaldi_aslp_tpu_torch are "
+            "built from csrc/ at first use and need the CUDA toolkit")
+    return nvcc
+
+
+def library_path(source_name: str) -> Path:
+    """Where ``csrc/<source_name>`` is built: named by a hash of the
+    source bytes and the compiler flags."""
+    src = CSRC_DIR / source_name
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+
+
+def load_library(source_name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source_name>`` if its library is missing, and load
+    it (once per process)."""
+    lib = _LOADED.get(source_name)
+    if lib is not None:
+        return lib
+    so = library_path(source_name)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               str(CSRC_DIR / source_name)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        so.with_suffix(".log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed on {source_name} (exit {proc.returncode}):\n"
+                f"{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _LOADED[source_name] = lib
+    return lib
