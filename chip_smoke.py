@@ -7,11 +7,12 @@ Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
   1. device   - fail without CUDA; print the card, its power limit and
                 the torch / CUDA versions;
-  2. build    - compile the LSTMP kernel from csrc/ with nvcc (sm_90a);
-  3. kernel   - hold the kernel against its plain PyTorch version on the
-                card at the flagship's widths (C=512, P=320) and the
-                shapes of the served path and of a training batch, and
-                time both with CUDA events;
+  2. build    - compile the three CUDA sources of csrc/ with nvcc
+                (sm_90a), one nvcc each, all at once;
+  3. kernel   - hold the LSTMP inference kernel against its plain PyTorch
+                version on the card at the flagship's widths (C=512,
+                P=320) and the shapes of the served path and of a
+                training batch, and time both with CUDA events;
   4. slice    - serve the flagship BLSTM-CTC (3 x BLSTMP, C=512, P=320,
                 40 fbank inputs, 72 CTC targets; random weights from a
                 numpy seed) through the port's online server, built by its
@@ -21,7 +22,27 @@ exits nonzero:
                 network forward must have launched the kernel 6 times
                 (3 layers x 2 directions);
   5. check    - one request's per-chunk acoustic scores from the card
-                against the port on the CPU (plain versions).
+                against the port on the CPU (plain versions);
+  6. train-kernels - hold the BLSTMP training kernels (forward and
+                backward) against their plain versions at C=512, P=320
+                with ragged masks, a nonzero initial state and nonzero
+                final-state cotangents, at (S, T, D) = (16, 200, 40),
+                (16, 200, 640) and (128, 400, 640), and the CTC alpha and
+                beta kernels at (S, T, U, V) = (128, 400, 40, 72) with
+                ragged lengths; time each beside its plain version;
+  7. train    - write a Kaldi ark/scp corpus (16 utterances of 200-400
+                frames and 10-40 labels, each 4 times) and train the bf16
+                flagship on it through the CLI, aslp-nnet-train-ctc-streams
+                --device=cuda, momentum 0.9: 4 steps on one batch of 16
+                streams; every step must launch the BLSTMP training
+                kernels 3 times each and the CTC kernels once each, the
+                loss must be finite and fall, and the model it writes
+                must load again;
+  8. train-check - one step's loss and parameter gradients on the card
+                against the port on the CPU (plain versions), 4 streams;
+  9. step-split - one flagship train step at the bench's shape (S=128,
+                T=400, U=40; bench.py:44) split into forward, loss,
+                backward and update by CUDA events.
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi prints them, and the result line.
 
@@ -36,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,6 +67,18 @@ KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 both sides, summation
 CROSS_CHECK_ATOL = 1e-3                    # log-domain scores, card vs CPU
 KERNEL_SHAPES = [(1, 16, 40), (1, 16, 640), (8, 200, 640), (128, 400, 640)]
 C, P, FEAT_DIM, TARGETS, LAYERS = 512, 320, 40, 72, 3
+# training kernels: bf16 streams and products on both sides, summed in
+# another order, so a stored bf16 value may land one step (2^-8 of
+# itself) away and carry that through the recurrence; held relative to
+# the largest |value| of each output
+TRAIN_KERNEL_RTOL = 2e-2
+TRAIN_SHAPES = [(16, 200, 40), (16, 200, 640), (128, 400, 640)]
+CTC_SHAPE = (128, 400, 40, 72)        # S, T, U, V (bench.py:44)
+CTC_TOL = dict(rtol=1e-4, atol=1e-4)  # float32 recursions
+TRAIN_STREAMS, TRAIN_STEPS = 16, 4
+# card vs CPU, one step: loss relative; gradients relative to each
+# parameter's largest |gradient| (bf16 products through three layers)
+CROSS_LOSS_RTOL, CROSS_GRAD_RTOL = 1e-3, 5e-2
 SAMPLE_RATE = 16000
 CHUNK_BYTES = 2 * SAMPLE_RATE // 4        # 250 ms of int16 PCM
 
@@ -308,6 +342,332 @@ def cross_check(paths, recorded):
         raise RuntimeError(f"card vs CPU scores differ by {worst}")
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
+
+
+def hold(name: str, got, want, names, rtol: float):
+    """Max absolute and relative errors of ``got`` against ``want``;
+    raises past ``rtol`` or on a value that is not finite."""
+    rel, worst = {}, 0.0
+    for n, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"{name} {n}: {g.dtype} {tuple(g.shape)} vs "
+                               f"plain {w.dtype} {tuple(w.shape)}")
+        if not torch.isfinite(g.float()).all():
+            raise RuntimeError(f"{name} {n} not finite")
+        rel[n] = rel_err(g, w)
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+        if rel[n] > rtol:
+            raise RuntimeError(f"{name} {n}: relative error {rel[n]} > "
+                               f"{rtol}")
+    return worst, rel
+
+
+def train_kernel_phase(dev):
+    from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
+    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+    from kaldi_aslp_tpu_torch.ops.ctc import ctc_emissions
+
+    bf16 = torch.bfloat16
+    results = {"fwd": [], "bwd": []}
+    for S, T, D in TRAIN_SHAPES:
+        rs = np.random.RandomState(S * 1000 + T + D + 1)
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+        lens = rs.randint(T // 4, T + 1, size=S)
+        lens[0] = T
+        mask = t((np.arange(T)[None, :] < lens[:, None]).astype(np.float32))
+        fwd_args = (t(rs.randn(S, T, D).astype(np.float32)).to(bf16), mask,
+                    t(uniform(rs, 2, 4 * C, D)).to(bf16),
+                    t(uniform(rs, 2, 4 * C, P)).to(bf16),
+                    t(uniform(rs, 2, P, C)).to(bf16), t(uniform(rs, 2, 3, C)),
+                    t(uniform(rs, 2, 4 * C)), t(uniform(rs, S, C, scale=0.5)),
+                    t(uniform(rs, S, P, scale=0.5)))
+        x, _, wx, wr, wrm, peep, _, init_c, _ = fwd_args
+        got = bt.bilstmp_train_fwd(*fwd_args)
+        want = bt.bilstmp_train_fwd_reference(*fwd_args)
+        torch.cuda.synchronize()
+        err_f, rel_f = hold("bilstmp_train_fwd", got, want,
+                            ("ys", "gates", "cs", "rprev", "c_T", "r_T"),
+                            TRAIN_KERNEL_RTOL)
+        _, gates, cs, rprev, _, _ = want
+        bwd_args = (t(rs.randn(S, T, 2 * P).astype(np.float32)).to(bf16),
+                    mask, x, gates, cs, rprev, wx, wr, wrm, peep, init_c,
+                    t(rs.randn(S, C).astype(np.float32)),
+                    t(rs.randn(S, P).astype(np.float32)))
+        got = bt.bilstmp_train_bwd(*bwd_args)
+        want = bt.bilstmp_train_bwd_reference(*bwd_args)
+        torch.cuda.synchronize()
+        err_b, rel_b = hold("bilstmp_train_bwd", got, want,
+                            ("dx", "d_init_c", "d_init_r", "dwx", "dwr",
+                             "dwrm", "dbias", "dpeep"), TRAIN_KERNEL_RTOL)
+        del got, want
+        reps = 3 if S * T > 10000 else 5
+        times = {
+            "fwd": (cuda_ms(lambda: bt.bilstmp_train_fwd(*fwd_args), reps, 1),
+                    cuda_ms(lambda: bt.bilstmp_train_fwd_reference(
+                        *fwd_args), 2, 1)),
+            "bwd": (cuda_ms(lambda: bt.bilstmp_train_bwd(*bwd_args), reps, 1),
+                    cuda_ms(lambda: bt.bilstmp_train_bwd_reference(
+                        *bwd_args), 2, 1))}
+        for kind, err, rel in (("fwd", err_f, rel_f), ("bwd", err_b, rel_b)):
+            ms, plain_ms = times[kind]
+            results[kind].append({"S": S, "T": T, "D": D, "max_abs_err": err,
+                                  "ms": ms, "plain_ms": plain_ms})
+            log("train_kernel", name=f"bilstmp_train_{kind}", S=S, T=T, D=D,
+                C=C, P=P, rel_err=rel, rtol=TRAIN_KERNEL_RTOL, ms=ms,
+                plain_ms=plain_ms)
+
+    S, T, U, V = CTC_SHAPE
+    rs = np.random.RandomState(7)
+    lab_lens = rs.randint(U // 4, U + 1, size=S).astype(np.int32)
+    in_lens = rs.randint(T // 2, T + 1, size=S).astype(np.int32)
+    lab_lens[0], in_lens[0] = U, T
+    in_lens = np.maximum(in_lens, 2 * lab_lens + 1).astype(np.int32)
+    log_probs = torch.log_softmax(
+        torch.from_numpy(rs.randn(S, T, V).astype(np.float32)).to(dev), -1)
+    labels = torch.from_numpy(
+        rs.randint(1, V, (S, U)).astype(np.int32)).to(dev)
+    lp_t, skip_ok, _, _, exp_lens = ctc_emissions(
+        log_probs, labels, torch.from_numpy(lab_lens).to(dev))
+    args = (lp_t, skip_ok, torch.from_numpy(in_lens).to(dev), exp_lens)
+    for name, kernel, plain in (
+            ("ctc_alpha", cab.ctc_alpha, cab.ctc_alpha_reference),
+            ("ctc_beta", cab.ctc_beta, cab.ctc_beta_reference)):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **CTC_TOL)
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: kernel(*args), 10)
+        plain_ms = cuda_ms(lambda: plain(*args), 3, 1)
+        results[name] = [{"S": S, "T": T, "U": U, "max_abs_err": err,
+                          "ms": ms, "plain_ms": plain_ms}]
+        log("train_kernel", name=name, S=S, T=T, U=U, V=V, max_abs_err=err,
+            tol=CTC_TOL, ms=ms, plain_ms=plain_ms)
+    return results
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+def write_train_files(workdir: str):
+    """The bf16 flagship as bench.py:_build_flagship lays it out (model's
+    init from numpy seed 4321) and a corpus of 16 utterances written 4
+    times over, so each batch of 16 streams holds the same utterances."""
+    from kaldi_aslp_tpu_torch.io import int_vector_writer, matrix_writer
+    from kaldi_aslp_tpu_torch.models import (
+        AffineTransform,
+        BLstmProjectedStreams,
+        Nnet,
+    )
+
+    rs = np.random.RandomState(4321)
+    net = Nnet()
+    dim = FEAT_DIM
+    for _ in range(LAYERS):
+        net.add(BLstmProjectedStreams(dim, 2 * P, cell_dim=C, bf16=True))
+        dim = 2 * P
+    net.add(AffineTransform(dim, TARGETS, param_stddev=0.04, bias_mean=0.0,
+                            bias_range=0.0))
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.copy_(torch.from_numpy(
+                (0.04 * rs.randn(*p.shape)).astype(np.float32)
+                if name.endswith(".w") else np.zeros(p.shape, np.float32)
+                if name.endswith(".b") else uniform(rs, *p.shape)))
+    model = f"{workdir}/flagship_bf16.zip"
+    net.save(model)
+    utts = [(rs.randn(rs.randint(200, 401), FEAT_DIM).astype(np.float32),
+             rs.randint(1, TARGETS, rs.randint(10, 41)).astype(np.int32))
+            for _ in range(TRAIN_STREAMS)]
+    with matrix_writer(f"ark,scp:{workdir}/feats.ark,{workdir}/feats.scp") \
+            as fw, int_vector_writer(f"ark:{workdir}/labels.ark") as lw:
+        for rep in range(TRAIN_STEPS):
+            for i, (feats, labels) in enumerate(utts):
+                fw[f"utt{i:02d}-{rep}"] = feats
+                lw[f"utt{i:02d}-{rep}"] = labels
+    return model, f"scp:{workdir}/feats.scp", f"ark:{workdir}/labels.ark"
+
+
+def train_counts():
+    from kaldi_aslp_tpu_torch.ops.bilstmp_train import (
+        bilstmp_train_bwd,
+        bilstmp_train_fwd,
+    )
+    from kaldi_aslp_tpu_torch.ops.ctc_alpha_beta import ctc_alpha, ctc_beta
+    return {"bilstmp_train_fwd": bilstmp_train_fwd,
+            "bilstmp_train_bwd": bilstmp_train_bwd,
+            "ctc_alpha": ctc_alpha, "ctc_beta": ctc_beta}
+
+
+def train_phase(model, feats, labels, workdir):
+    from kaldi_aslp_tpu_torch.cli.__main__ import main as cli_main
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
+    from kaldi_aslp_tpu_torch.train.trainer import CtcTrainer
+
+    wrappers = train_counts()
+    per_step_want = {"bilstmp_train_fwd": LAYERS, "bilstmp_train_bwd": LAYERS,
+                     "ctc_alpha": 1, "ctc_beta": 1}
+    steps = []
+    inner = CtcTrainer.step
+
+    def step(self, velocity, batch, learn_rate):
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        loss, aux = inner(self, velocity, batch, learn_rate)
+        loss = float(loss)   # syncs the card
+        steps.append({"loss": loss, "s": time.perf_counter() - t0,
+                      "streams": int(batch[0].shape[0]),
+                      "frames": int(aux["frames"]),
+                      "launches": {n: w.launches - before[n]
+                                   for n, w in wrappers.items()}})
+        return torch.tensor(loss), aux
+
+    out = f"{workdir}/trained.zip"
+    CtcTrainer.step = step
+    try:
+        for w in (*wrappers.values(), lstmp_forward):
+            w.launches = 0
+        rc = cli_main(["aslp-nnet-train-ctc-streams", "--device=cuda",
+                       "--momentum=0.9", f"--num-streams={TRAIN_STREAMS}",
+                       feats, labels, model, out])
+        launches = {n: w.launches for n, w in wrappers.items()}
+    finally:
+        CtcTrainer.step = inner
+    for i, st in enumerate(steps):
+        log("train_step", index=i, **st)
+    if rc != 0 or len(steps) < TRAIN_STEPS:
+        raise RuntimeError(f"trainer exit {rc}, {len(steps)} steps")
+    for st in steps:
+        if st["launches"] != per_step_want or st["streams"] != TRAIN_STREAMS:
+            raise RuntimeError(f"step launched {st['launches']} on "
+                               f"{st['streams']} streams, want "
+                               f"{per_step_want} on {TRAIN_STREAMS}")
+    losses = [st["loss"] for st in steps]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError(f"loss did not fall: {losses}")
+    if lstmp_forward.launches:
+        raise RuntimeError("training launched the inference kernel")
+    before, _ = Nnet.load(model, "cpu")
+    after, _ = Nnet.load(out, "cpu")
+    moved = 0.0
+    for (name, p), q in zip(after.state_dict().items(),
+                            before.state_dict().values()):
+        if not torch.isfinite(p).all():
+            raise RuntimeError(f"trained {name} not finite")
+        moved = max(moved, float((p - q).abs().max()))
+    if moved == 0.0:
+        raise RuntimeError("the written model equals the initial one")
+    log("train", steps=len(steps), losses=losses, launches=launches,
+        max_param_change=moved)
+    return launches
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+def train_cross_check(model, feats, labels):
+    from kaldi_aslp_tpu_torch.cli.train_tools import ctc_source
+    from kaldi_aslp_tpu_torch.data.sequence import (
+        CtcBatcher,
+        CtcBatcherOptions,
+    )
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    batch = next(iter(CtcBatcher(ctc_source(feats, labels),
+                                 CtcBatcherOptions(num_streams=4))))
+    out = {}
+    for device in ("cuda", "cpu"):
+        net, _ = Nnet.load(model, device)
+        net.train()
+        dev_batch = upload(batch, torch.device(device))
+        y, _ = net(dev_batch[0], mask=dev_batch[4])
+        loss, _ = ctc_batch_loss(y, *dev_batch[1:4])
+        loss.backward()
+        out[device] = (float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                     net.named_parameters()})
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = {n: rel_err(g, out["cpu"][1][n])
+                for n, g in out["cuda"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    log("train_check", streams=4, frames=int(batch.input_lengths.sum()),
+        loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0], loss_rel=loss_rel,
+        worst_grad=worst, worst_grad_rel=grad_rel[worst],
+        tol={"loss": CROSS_LOSS_RTOL, "grad": CROSS_GRAD_RTOL})
+    if loss_rel > CROSS_LOSS_RTOL or grad_rel[worst] > CROSS_GRAD_RTOL:
+        raise RuntimeError(f"card vs CPU: loss {loss_rel}, {worst} "
+                           f"{grad_rel[worst]}")
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+def step_split(model, dev):
+    """One flagship step at the bench's shape, split by CUDA events."""
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.train import CtcTrainer, init_velocity
+    from kaldi_aslp_tpu_torch.train.sgd import NnetTrainOptions
+
+    S, T, U, V = CTC_SHAPE
+    rs = np.random.RandomState(0)
+    feats = torch.from_numpy(rs.randn(S, T, FEAT_DIM).astype(np.float32)
+                             ).to(dev)
+    labels = torch.from_numpy(rs.randint(1, V, (S, U)).astype(np.int32)
+                              ).to(dev)
+    in_lens = torch.full((S,), T, dtype=torch.int32, device=dev)
+    lab_lens = torch.full((S,), U, dtype=torch.int32, device=dev)
+    mask = torch.ones((S, T), device=dev)
+    net, _ = Nnet.load(model, dev)
+    trainer = CtcTrainer(net, NnetTrainOptions(learn_rate=1e-4,
+                                               momentum=0.9))
+    velocity = init_velocity(net)
+    batch = (feats, labels, in_lens, lab_lens, mask)
+    trainer.step(velocity, batch, 1e-4)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splits = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for p in net.parameters():
+            p.grad = None
+        ev[0].record()
+        y, _ = net(feats, mask=mask)
+        ev[1].record()
+        loss, _ = ctc_batch_loss(y, labels, in_lens, lab_lens)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        trainer._update(velocity, 1e-4)
+        ev[4].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    med = np.median(np.asarray(splits), axis=0)
+    step_ms = float(med.sum())
+    log("step_split", S=S, T=T, U=U, forward_ms=float(med[0]),
+        loss_ms=float(med[1]), backward_ms=float(med[2]),
+        update_ms=float(med[3]), step_ms=step_ms,
+        audio_s_per_s=S * T * 0.01 / (step_ms / 1e3),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def kernel_record(name, source, replaces, launches, rows, timed=None):
+    """The kernel's JSON entry: the largest error over ``rows``, the times
+    of ``timed`` (by default the last row, the bench's shape)."""
+    timed = timed or rows[-1]
+    return {"name": name, "route": "cuda",
+            "source": "kaldi_aslp_tpu_torch/csrc/" + source,
+            "replaces": "kaldi_aslp_tpu/ops/" + replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -321,28 +681,51 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    from kaldi_aslp_tpu_torch.ops import build, lstmp
+    from kaldi_aslp_tpu_torch.ops import (
+        bilstmp_train,
+        build,
+        ctc_alpha_beta,
+        lstmp,
+    )
 
     t0 = time.perf_counter()
-    lstmp.build()
-    log("build", kernel="lstmp_forward", seconds=time.perf_counter() - t0,
-        library=str(build.library_path(lstmp.SOURCE).name))
+    modules = (lstmp, bilstmp_train, ctc_alpha_beta)
+    with ThreadPoolExecutor(len(modules)) as pool:
+        for future in [pool.submit(m.build) for m in modules]:
+            future.result()
+    log("build", seconds=time.perf_counter() - t0,
+        libraries=[build.library_path(m.SOURCE).name for m in modules])
 
     kernel_results = kernel_phase(dev)
     with tempfile.TemporaryDirectory() as workdir:
         paths = write_model_and_graph(workdir)
         launches, recorded = slice_phase(paths, "cuda")
         cross_check(paths, recorded)
+        train_results = train_kernel_phase(dev)
+        model, feats, labels = write_train_files(workdir)
+        train_launches = train_phase(model, feats, labels, workdir)
+        train_cross_check(model, feats, labels)
+        step_split(model, dev)
 
     served = next(r for r in kernel_results if (r["S"], r["T"]) == (1, 16)
                   and r["D"] == 2 * P)
-    print(json.dumps({"kernels": [{
-        "name": "lstmp_forward", "route": "cuda",
-        "source": "kaldi_aslp_tpu_torch/csrc/lstmp_forward.cu",
-        "replaces": "kaldi_aslp_tpu/ops/lstm_pallas.py:43",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_results),
-        "ms": served["ms"], "plain_ms": served["plain_ms"]}]}), flush=True)
+    records = [
+        kernel_record("lstmp_forward", "lstmp_forward.cu",
+                      "lstm_pallas.py:43", launches, kernel_results, served),
+        kernel_record("bilstmp_train_fwd", "bilstmp_train.cu",
+                      "lstm_pallas.py:1037",
+                      train_launches["bilstmp_train_fwd"],
+                      train_results["fwd"]),
+        kernel_record("bilstmp_train_bwd", "bilstmp_train.cu",
+                      "lstm_pallas.py:1261",
+                      train_launches["bilstmp_train_bwd"],
+                      train_results["bwd"]),
+        kernel_record("ctc_alpha", "ctc_alpha_beta.cu", "ctc_pallas.py:44",
+                      train_launches["ctc_alpha"], train_results["ctc_alpha"]),
+        kernel_record("ctc_beta", "ctc_alpha_beta.cu", "ctc_pallas.py:65",
+                      train_launches["ctc_beta"], train_results["ctc_beta"]),
+    ]
+    print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,21 @@
 """CLI dispatcher: ``python -m kaldi_aslp_tpu_torch.cli <tool> [args]``.
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
-reference binaries; the port has the online server and its client so
-far."""
+reference binaries; the port has the online server and its client and
+the CTC trainer so far."""
 
 from __future__ import annotations
 
 import sys
 
-from kaldi_aslp_tpu_torch.cli import online_tools
+from kaldi_aslp_tpu_torch.cli import online_tools, train_tools
 
 TOOLS = {
     # aslp-onlinebin server + client
     "aslp-online-nnet-vad-server": online_tools.online_nnet_vad_server,
     "aslp-audio-provider-client": online_tools.audio_provider_client,
+    # aslp-nnetbin trainers
+    "aslp-nnet-train-ctc-streams": train_tools.nnet_train_ctc_streams,
 }
 
 

@@ -70,7 +70,13 @@ def nnet_forward(
     if opts.time_shift:
         x = np.concatenate(
             [x[opts.time_shift:], np.repeat(x[-1:], opts.time_shift, 0)])
-    y, _ = net(torch.from_numpy(np.array(x[None])).to(device))
+    # the inference path, as the JAX package calls apply(train=False)
+    was_training = net.training
+    net.eval()
+    try:
+        y, _ = net(torch.from_numpy(np.array(x[None])).to(device))
+    finally:
+        net.train(was_training)
     y = y[0]
     if not opts.no_softmax:
         y = torch.log_softmax(y, dim=-1)

@@ -25,6 +25,7 @@ class Component(nn.Module):
     """Base component (reference: nnet-component.h:45)."""
 
     token: str = "<Component>"
+    updatable: bool = False   # has parameters the trainer updates
     recurrent: bool = False   # takes a mask [S, T] and threads a state
 
     def __init__(self, input_dim: int, output_dim: int, **attrs):
@@ -41,6 +42,11 @@ class Component(nn.Module):
 
     def init_state(self, num_streams: int, device: torch.device) -> Any:
         return None
+
+    def lr_coefs(self) -> Dict[str, float]:
+        """Learning-rate multipliers by top-level parameter name; absent
+        names take 1.0 (train/sgd.py)."""
+        return {}
 
     def forward(self, x: torch.Tensor, state: Any = None,
                 mask: Optional[torch.Tensor] = None

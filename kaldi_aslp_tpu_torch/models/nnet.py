@@ -94,8 +94,11 @@ class Nnet(nn.Module):
                 mask: Optional[torch.Tensor] = None):
         """Run the DAG (reference: Propagate nnet-nnet.cc:70-106).
 
-        Returns (outputs, new_states): outputs is a single tensor if the
-        net has one output, else a list."""
+        ``mask`` [S, T] goes to every recurrent component.  Training
+        threads through ``nn.Module.train()`` / ``.eval()``: each
+        component reads ``self.training``, where the JAX package passes
+        ``train=``.  Returns (outputs, new_states): outputs is a single
+        tensor if the net has one output, else a list."""
         input_list = (list(inputs) if isinstance(inputs, (list, tuple))
                       else [inputs])
         if len(input_list) != self.num_inputs:

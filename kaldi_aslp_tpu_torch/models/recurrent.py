@@ -1,4 +1,4 @@
-"""Recurrent components: LSTMP and bidirectional LSTMP, inference only.
+"""Recurrent components: LSTMP and bidirectional LSTMP.
 
 Port of kaldi_aslp_tpu/models/recurrent.py (``LstmProjectedStreams``
 :103-225 and ``_Bidirectional`` / ``BLstmProjectedStreams`` :398-514;
@@ -6,19 +6,32 @@ reference: src/aslp-nnet/nnet-lstm-projected-streams.h:46,
 nnet-blstm-projected-streams.h).
 
 Semantics kept from the JAX package:
-  - layout [S, T, D]; the input projection ``x W_gifo_x^T + b`` is one
-    float32 matmul hoisted out of the time loop, and the recurrence runs
-    in ops/lstmp.py (the CUDA kernel on the card, its plain version on
-    the CPU), as the TPU path runs ``_lstmp_kernel``;
-  - gate order g, i, f, o; the i and f peepholes act on c_prev, the o
-    peephole on the new, clipped c;
+  - layout [S, T, D]; gate order g, i, f, o; the i and f peepholes act
+    on c_prev, the o peephole on the new, clipped c;
   - the mask blends the carry, so right-padding is a no-op, and masked
     frames output 0;
   - the backward direction runs on the time-flipped input and mask from
     a zero state; only the forward direction's state is returned.
 
-Training (the custom-VJP Pallas cores) and the other cells (LSTM, CIFG,
-GRU, LC-BLSTM) are later slices."""
+PyTorch's train/eval flag (``nn.Module.train()`` / ``.eval()``) takes
+the place of JAX's ``train=`` argument:
+  - eval: the input projection ``x W_gifo_x^T + b`` is one float32
+    matmul and the recurrence runs in ops/lstmp.py (the inference CUDA
+    kernel on the card, its plain version on the CPU), as the TPU path
+    runs ``_lstmp_kernel``.  It runs under ``torch.no_grad()`` on every
+    device: the kernel has no backward, so an eval forward gives no
+    gradients anywhere rather than only on the CPU;
+  - training, bf16 BLSTMP: both directions go through
+    ops/bilstmp_train.py:BiLstmpTrainCore (the CUDA training kernels on
+    the card, their plain versions on the CPU), the counterpart of
+    ``_Bidirectional._apply_fused``.  The JAX package takes that core
+    only on the TPU or with the ``pallas`` attr; the port always does;
+  - training, float32: autograd through ``lstmp_forward_reference`` on
+    the CPU, as the JAX scan path; on CUDA it raises, since the kernels
+    it needs (``_lstmp_fwd_train_kernel``, ``_lstmp_bwd_kernel``) are
+    not ported yet.
+
+The other cells (LSTM, CIFG, GRU, LC-BLSTM) are later slices."""
 
 from __future__ import annotations
 
@@ -28,7 +41,11 @@ import torch
 from torch import nn
 
 from kaldi_aslp_tpu_torch.models.component import Component, register
-from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
+from kaldi_aslp_tpu_torch.ops.bilstmp_train import BiLstmpTrainCore
+from kaldi_aslp_tpu_torch.ops.lstmp import (
+    lstmp_forward,
+    lstmp_forward_reference,
+)
 
 
 @register
@@ -40,6 +57,7 @@ class LstmProjectedStreams(Component):
     peephole_{i,f,o}_c [C], w_r_m [P, C]."""
 
     token = "<LstmProjectedStreams>"
+    updatable = True
     recurrent = True
 
     def __init__(self, input_dim, output_dim, **attrs):
@@ -78,13 +96,30 @@ class LstmProjectedStreams(Component):
             state = self.init_state(S, x.device)
         if mask is None:
             mask = torch.ones((S, T), device=x.device)
+        if self.training:
+            return self._forward_train(x, state, mask)
+        with torch.no_grad():
+            ys, c, r = lstmp_forward(*self._recurrence_args(x, state, mask),
+                                     cell_clip=self.cell_clip)
+        return ys, {"c": c, "r": r}
+
+    def _recurrence_args(self, x, state, mask):
         xg = torch.matmul(x, self.w_gifo_x.t()) + self.bias
         peep = torch.stack([self.peephole_i_c, self.peephole_f_c,
                             self.peephole_o_c])
-        ys, c, r = lstmp_forward(
-            xg.contiguous(), mask.contiguous(), self.w_gifo_r, self.w_r_m,
-            peep, state["c"].contiguous(), state["r"].contiguous(),
-            cell_clip=self.cell_clip)
+        return (xg.contiguous(), mask.contiguous(), self.w_gifo_r,
+                self.w_r_m, peep, state["c"].contiguous(),
+                state["r"].contiguous())
+
+    def _forward_train(self, x, state, mask):
+        if x.device.type != "cpu" or self.attrs.get("bf16", False):
+            raise NotImplementedError(
+                "training a unidirectional LSTMP on the card, or with the "
+                "bf16 attr, needs the kernels _lstmp_fwd_train_kernel and "
+                "_lstmp_bwd_kernel (kaldi_aslp_tpu/ops/lstm_pallas.py:198, "
+                ":234), which are not ported yet")
+        ys, c, r = lstmp_forward_reference(
+            *self._recurrence_args(x, state, mask), cell_clip=self.cell_clip)
         return ys, {"c": c, "r": r}
 
 
@@ -95,6 +130,7 @@ class _Bidirectional(Component):
     The backward pass flips x and the mask in time; the masked carry
     makes the flipped-to-front padding a no-op."""
 
+    updatable = True
     recurrent = True
     cell_cls: type = None  # type: ignore
 
@@ -120,11 +156,27 @@ class _Bidirectional(Component):
             state = self.init_state(S, x.device)
         if mask is None:
             mask = torch.ones((S, T), device=x.device)
+        if (self.training and self.attrs.get("bf16", False)
+                and self.cell_cls is LstmProjectedStreams):
+            return self._forward_fused(x, state, mask)
         y_f, s_f = self.fwd(x, state["fwd"], mask=mask)
         y_b, _ = self.bwd(torch.flip(x, (1,)), None,
                           mask=torch.flip(mask, (1,)))
         y_b = torch.flip(y_b, (1,))
         return torch.cat([y_f, y_b], dim=-1), {"fwd": s_f}
+
+    def _forward_fused(self, x, state, mask):
+        """Both directions in one training core with bf16 products and
+        storage (kaldi_aslp_tpu/models/recurrent.py:_apply_fused)."""
+        f, b = self.fwd, self.bwd
+        ys, c, r = BiLstmpTrainCore.apply(
+            x, mask, f.w_gifo_x, b.w_gifo_x, f.w_gifo_r, f.w_r_m,
+            torch.stack([f.peephole_i_c, f.peephole_f_c, f.peephole_o_c]),
+            b.w_gifo_r, b.w_r_m,
+            torch.stack([b.peephole_i_c, b.peephole_f_c, b.peephole_o_c]),
+            f.bias, b.bias, state["fwd"]["c"], state["fwd"]["r"],
+            f.cell_clip)
+        return ys, {"fwd": {"c": c, "r": r}}
 
 
 @register

@@ -6,6 +6,8 @@ for a later slice."""
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 from torch import nn
 
@@ -18,9 +20,11 @@ class AffineTransform(Component):
 
     Params: w [out, in], b [out].  Init attrs mirror the proto:
     param_stddev (gaussian weights), bias_mean/bias_range (uniform
-    bias)."""
+    bias); training attrs: learn_rate_coef, bias_learn_rate_coef and
+    max_norm (row-norm clipping, train/sgd.py)."""
 
     token = "<AffineTransform>"
+    updatable = True
 
     def __init__(self, input_dim, output_dim, **attrs):
         super().__init__(input_dim, output_dim, **attrs)
@@ -39,4 +43,16 @@ class AffineTransform(Component):
         self.b.copy_(b)
 
     def forward(self, x, state=None, mask=None):
-        return torch.matmul(x, self.w.t()) + self.b, state
+        # a bf16 input (a bf16 BLSTMP's output) is widened to float32, as
+        # JAX promotes jnp.dot(bf16, f32); torch refuses mixed dtypes
+        return torch.matmul(x.to(self.w.dtype), self.w.t()) + self.b, state
+
+    def lr_coefs(self) -> Dict[str, float]:
+        return {
+            "w": float(self.attrs.get("learn_rate_coef", 1.0)),
+            "b": float(self.attrs.get("bias_learn_rate_coef", 1.0)),
+        }
+
+    @property
+    def max_norm(self) -> float:
+        return float(self.attrs.get("max_norm", 0.0))

@@ -1,0 +1,370 @@
+"""Bidirectional LSTMP training core: the hand-written CUDA kernels, their
+plain PyTorch versions, and the ``torch.autograd.Function`` around them.
+
+Port of the x-fused bidirectional core of kaldi_aslp_tpu/ops/lstm_pallas.py
+(``_bixfused_fwd_kernel``, ``_bixfused_bwd_kernel``, their wrappers
+``_bixfused_train_fwd`` / ``_bixfused_train_bwd``, the custom VJP
+``_get_bixfused_core`` and ``bilstmp_xfused_train_core``), which the JAX
+package's bf16 BLSTMP takes in training (models/recurrent.py:428-473).
+The kernels are ``csrc/bilstmp_train.cu``, built for ``sm_90a`` and bound
+with ``ctypes``; the note at the top of that file says how the TPU design
+was rethought for the H100.
+
+Rounding follows the TPU kernels: bf16 operands with float32 sums in
+every product, float32 cell math and state, the activated gates, c and
+r stored in bf16, the layer output bf16(r) * mask, dy rounded to bf16
+before the sweep, and dx emitted in bf16 per direction and summed in
+float32 before its last rounding.  The TPU padding of D to 128 lanes and
+of S to 128-row blocks is not ported.
+
+Stream layouts (d = direction, f then b; G = 4C):
+  gates [2, S, T, G], cs [2, S, T, C], rprev [2, S, T, P] bf16, where
+  rprev[d, :, t] is the r that frame t of direction d starts from
+  (direction f's t = 0 holds bf16(init_r), direction b's t = T-1 zero)."""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from kaldi_aslp_tpu_torch.ops.build import load_library
+
+SOURCE = "bilstmp_train.cu"
+BF16 = torch.bfloat16
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library(SOURCE)
+    signatures = {"bilstmp_train_fwd": 15, "bilstmp_train_bwd": 23}
+    for name, n_ptr in signatures.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernel library."""
+    _library()
+
+
+def _check(device: torch.device,
+           tensors: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]):
+    for name, (t, shape, dtype) in tensors.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and come back to float32."""
+    return t.to(BF16).float()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _empty(device: torch.device, dtype: torch.dtype, *shape: int):
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+# -- forward -----------------------------------------------------------------
+
+def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
+                      cell_clip: float = 50.0):
+    """Training forward of both directions.
+
+    x [S, T, D] bf16; mask [S, T]; wx [2, 4C, D], wr [2, 4C, P],
+    wrm [2, P, C] bf16 (the parameters' layouts, f then b); peep [2, 3, C],
+    bias [2, 4C], init_c [S, C], init_r [S, P] float32 (direction b
+    starts from zero).  Returns (ys [S, T, 2P] bf16, gates, cs, rprev,
+    c_T [S, C], r_T [S, P]) with the streams laid out as the module
+    docstring says and the final state of direction f in float32.
+
+    On a CUDA tensor this launches the kernel or raises; a CPU tensor
+    takes :func:`bilstmp_train_fwd_reference`.
+    ``bilstmp_train_fwd.launches`` counts calls into the C entry."""
+    S, T, D = x.shape
+    G, P = wr.shape[1], wr.shape[2]
+    C = G // 4
+    _check(x.device, {
+        "x": (x, (S, T, D), BF16), "mask": (mask, (S, T), torch.float32),
+        "wx": (wx, (2, G, D), BF16), "wr": (wr, (2, G, P), BF16),
+        "wrm": (wrm, (2, P, C), BF16),
+        "peep": (peep, (2, 3, C), torch.float32),
+        "bias": (bias, (2, G), torch.float32),
+        "init_c": (init_c, (S, C), torch.float32),
+        "init_r": (init_r, (S, P), torch.float32)})
+    if T == 0:
+        raise ValueError("x has no frames")
+    if x.device.type == "cpu":
+        return bilstmp_train_fwd_reference(x, mask, wx, wr, wrm, peep, bias,
+                                           init_c, init_r, cell_clip)
+    if x.device.type != "cuda":
+        raise ValueError(f"no BLSTMP kernel for device {x.device}")
+    dev, f32 = x.device, torch.float32
+    c_state = torch.stack([init_c, torch.zeros_like(init_c)])
+    r_state = torch.stack([init_r, torch.zeros_like(init_r)])
+    xg, m_buf = _empty(dev, f32, 2, S, T, G), _empty(dev, f32, 2, S, C)
+    gates = _empty(dev, BF16, 2, S, T, G)
+    cs = _empty(dev, BF16, 2, S, T, C)
+    rprev = _empty(dev, BF16, 2, S, T, P)
+    rprev[0, :, 0] = init_r.to(BF16)
+    rprev[1, :, T - 1] = 0
+    ys = _empty(dev, BF16, S, T, 2 * P)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.bilstmp_train_fwd(
+            x.data_ptr(), mask.data_ptr(), wx.data_ptr(), wr.data_ptr(),
+            wrm.data_ptr(), peep.data_ptr(), bias.data_ptr(), xg.data_ptr(),
+            c_state.data_ptr(), r_state.data_ptr(), m_buf.data_ptr(),
+            gates.data_ptr(), cs.data_ptr(), rprev.data_ptr(), ys.data_ptr(),
+            S, T, D, C, P, float(cell_clip), _stream(dev))
+        bilstmp_train_fwd.launches += 1
+    if err != 0:
+        raise RuntimeError(f"bilstmp_train_fwd failed: CUDA error {err}")
+    return ys, gates, cs, rprev, c_state[0], r_state[0]
+
+
+bilstmp_train_fwd.launches = 0
+
+
+def bilstmp_train_fwd_reference(x, mask, wx, wr, wrm, peep, bias, init_c,
+                                init_r, cell_clip: float = 50.0):
+    """Plain PyTorch version of the forward kernel: a loop over T with the
+    equations of lstm_pallas.py:_bixfused_fwd_kernel."""
+    S, T, D = x.shape
+    G, P = wr.shape[1], wr.shape[2]
+    C = G // 4
+    xg = [x.float() @ wx[d].float().t() for d in range(2)]   # [S, T, G]
+    wr_t = [wr[d].float().t() for d in range(2)]             # [P, G]
+    wrm_t = [wrm[d].float().t() for d in range(2)]           # [C, P]
+    c = [init_c, torch.zeros_like(init_c)]
+    r = [init_r, torch.zeros_like(init_r)]
+    gates = x.new_empty((2, S, T, G), dtype=BF16)
+    cs = x.new_empty((2, S, T, C), dtype=BF16)
+    rprev = x.new_empty((2, S, T, P), dtype=BF16)
+    rprev[0, :, 0] = init_r.to(BF16)
+    rprev[1, :, T - 1] = 0
+    ys = x.new_empty((S, T, 2 * P), dtype=BF16)
+    for step in range(T):
+        for d in range(2):
+            t = step if d == 0 else T - 1 - step
+            lin = bias[d] + (xg[d][:, t] + _bf(r[d]) @ wr_t[d])
+            g = torch.tanh(lin[:, :C])
+            i = torch.sigmoid(lin[:, C:2 * C] + peep[d, 0] * c[d])
+            f = torch.sigmoid(lin[:, 2 * C:3 * C] + peep[d, 1] * c[d])
+            cn = f * c[d] + i * g
+            if cell_clip > 0:
+                cn = torch.clamp(cn, -cell_clip, cell_clip)
+            o = torch.sigmoid(lin[:, 3 * C:] + peep[d, 2] * cn)
+            rn = _bf(o * torch.tanh(cn)) @ wrm_t[d]
+            mk = mask[:, t:t + 1]
+            c[d] = mk * cn + (1.0 - mk) * c[d]
+            r[d] = mk * rn + (1.0 - mk) * r[d]
+            gates[d, :, t] = torch.cat([g, i, f, o], dim=1).to(BF16)
+            cs[d, :, t] = c[d].to(BF16)
+            rb = r[d].to(BF16)
+            if d == 0 and t + 1 < T:
+                rprev[0, :, t + 1] = rb
+            if d == 1 and t >= 1:
+                rprev[1, :, t - 1] = rb
+            ys[:, t, d * P:(d + 1) * P] = (rb.float() * _bf(mk)).to(BF16)
+    return ys, gates, cs, rprev, c[0], r[0]
+
+
+# -- backward ----------------------------------------------------------------
+
+def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
+                      init_c, d_c_T, d_r_T, cell_clip: float = 50.0):
+    """Training backward of both directions (the reverse sweeps and the
+    weight-gradient reductions).
+
+    dy [S, T, 2P] bf16; d_c_T [S, C], d_r_T [S, P] float32 cotangents of
+    direction f's final state; the rest as :func:`bilstmp_train_fwd`
+    took or returned them.  Returns (dx [S, T, D] bf16, d_init_c, d_init_r,
+    dwx [2, 4C, D], dwr [2, 4C, P], dwrm [2, P, C], dbias [2, 4C],
+    dpeep [2, 3, C]), all but dx in float32 and unrounded.
+
+    On a CUDA tensor this launches the kernel or raises; a CPU tensor
+    takes :func:`bilstmp_train_bwd_reference`.
+    ``bilstmp_train_bwd.launches`` counts calls into the C entry."""
+    S, T, D = x.shape
+    G, P = wr.shape[1], wr.shape[2]
+    C = G // 4
+    _check(x.device, {
+        "dy": (dy, (S, T, 2 * P), BF16), "mask": (mask, (S, T), torch.float32),
+        "x": (x, (S, T, D), BF16), "gates": (gates, (2, S, T, G), BF16),
+        "cs": (cs, (2, S, T, C), BF16), "rprev": (rprev, (2, S, T, P), BF16),
+        "wx": (wx, (2, G, D), BF16), "wr": (wr, (2, G, P), BF16),
+        "wrm": (wrm, (2, P, C), BF16),
+        "peep": (peep, (2, 3, C), torch.float32),
+        "init_c": (init_c, (S, C), torch.float32),
+        "d_c_T": (d_c_T, (S, C), torch.float32),
+        "d_r_T": (d_r_T, (S, P), torch.float32)})
+    if x.device.type == "cpu":
+        return bilstmp_train_bwd_reference(dy, mask, x, gates, cs, rprev, wx,
+                                           wr, wrm, peep, init_c, d_c_T,
+                                           d_r_T, cell_clip)
+    if x.device.type != "cuda":
+        raise ValueError(f"no BLSTMP kernel for device {x.device}")
+    dev, f32 = x.device, torch.float32
+    wr_t = wr.transpose(1, 2).contiguous()
+    wrm_t = wrm.transpose(1, 2).contiguous()
+    dc_state = torch.stack([d_c_T, torch.zeros_like(d_c_T)])
+    dr_state = torch.stack([d_r_T, torch.zeros_like(d_r_T)])
+    acc = torch.zeros((2, S, 7 * C), dtype=f32, device=dev)
+    dgates = _empty(dev, BF16, 2, S, T, G)
+    m_out = _empty(dev, BF16, 2, S, T, C)
+    drn = _empty(dev, BF16, 2, S, T, P)
+    dx2, dx = _empty(dev, f32, 2, S, T, D), _empty(dev, BF16, S, T, D)
+    dwx, dwr = _empty(dev, f32, 2, G, D), _empty(dev, f32, 2, G, P)
+    dwrm, dbp = _empty(dev, f32, 2, P, C), _empty(dev, f32, 2, 7 * C)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.bilstmp_train_bwd(
+            dy.data_ptr(), mask.data_ptr(), x.data_ptr(), gates.data_ptr(),
+            cs.data_ptr(), rprev.data_ptr(), wx.data_ptr(), wr_t.data_ptr(),
+            wrm_t.data_ptr(), peep.data_ptr(), init_c.data_ptr(),
+            dc_state.data_ptr(), dr_state.data_ptr(), acc.data_ptr(),
+            dgates.data_ptr(), m_out.data_ptr(), drn.data_ptr(),
+            dx2.data_ptr(), dx.data_ptr(), dwx.data_ptr(), dwr.data_ptr(),
+            dwrm.data_ptr(), dbp.data_ptr(),
+            S, T, D, C, P, float(cell_clip), _stream(dev))
+        bilstmp_train_bwd.launches += 1
+    if err != 0:
+        raise RuntimeError(f"bilstmp_train_bwd failed: CUDA error {err}")
+    return (dx, dc_state[0], dr_state[0], dwx, dwr, dwrm, dbp[:, :G],
+            dbp[:, G:].reshape(2, 3, C))
+
+
+bilstmp_train_bwd.launches = 0
+
+
+def bilstmp_train_bwd_reference(dy, mask, x, gates, cs, rprev, wx, wr, wrm,
+                                peep, init_c, d_c_T, d_r_T,
+                                cell_clip: float = 50.0):
+    """Plain PyTorch version of the backward kernel: the reverse sweep of
+    lstm_pallas.py:_bixfused_bwd_kernel, then the weight-gradient sums
+    over all frames as products of the bf16 streams."""
+    S, T, D = x.shape
+    G, P = wr.shape[1], wr.shape[2]
+    C = G // 4
+    dyf = dy.float()
+    wr_f, wrm_f = wr.float(), wrm.float()
+    dc = [d_c_T, torch.zeros_like(d_c_T)]
+    dr = [d_r_T, torch.zeros_like(d_r_T)]
+    dgates = x.new_empty((2, S, T, G), dtype=BF16)
+    m_s = x.new_empty((2, S, T, C), dtype=BF16)
+    drn = x.new_empty((2, S, T, P), dtype=BF16)
+    dbias = torch.zeros((2, G), device=x.device)
+    dpeep = torch.zeros((2, 3, C), device=x.device)
+    zero_c = torch.zeros_like(init_c)
+    for step in range(T):
+        for d in range(2):
+            t = T - 1 - step if d == 0 else step
+            mk = mask[:, t:t + 1]
+            dr_after = dyf[:, t, d * P:(d + 1) * P] * mk + dr[d]
+            dr_new = _bf(mk * dr_after)
+            dm = dr_new @ wrm_f[d]
+            if d == 0:
+                cp = cs[0, :, t - 1].float() if t > 0 else init_c
+            else:
+                cp = cs[1, :, t + 1].float() if t < T - 1 else zero_c
+            acts = gates[d, :, t].float()
+            g, i = acts[:, :C], acts[:, C:2 * C]
+            f, o = acts[:, 2 * C:3 * C], acts[:, 3 * C:]
+            cu = f * cp + i * g
+            c = torch.clamp(cu, -cell_clip, cell_clip) if cell_clip > 0 \
+                else cu
+            tc = torch.tanh(c)
+            m_s[d, :, t] = (o * tc).to(BF16)
+            dcv = mk * dc[d] + dm * o * (1.0 - tc * tc)
+            do_lin = dm * tc * o * (1.0 - o)
+            dcv = dcv + do_lin * peep[d, 2]
+            if cell_clip > 0:
+                dcv = torch.where(cu.abs() < cell_clip, dcv, 0.0)
+            di_lin = dcv * g * i * (1.0 - i)
+            df_lin = dcv * cp * f * (1.0 - f)
+            dg_lin = dcv * i * (1.0 - g * g)
+            dc[d] = (dcv * f + di_lin * peep[d, 0] + df_lin * peep[d, 1]
+                     + (1.0 - mk) * dc[d])
+            dgl = torch.cat([dg_lin, di_lin, df_lin, do_lin], dim=1)
+            dgates[d, :, t] = dgl.to(BF16)
+            dbias[d] += dgl.sum(0)
+            dpeep[d, 0] += (di_lin * cp).sum(0)
+            dpeep[d, 1] += (df_lin * cp).sum(0)
+            dpeep[d, 2] += (do_lin * c).sum(0)
+            dr[d] = (1.0 - mk) * dr_after + dgates[d, :, t].float() @ wr_f[d]
+            drn[d, :, t] = dr_new.to(BF16)
+    dg = dgates.float().reshape(2, S * T, G)
+    dx2 = dg @ wx.float()                                     # [2, S*T, D]
+    dx = (_bf(dx2[0]) + _bf(dx2[1])).to(BF16).reshape(S, T, D)
+    dg_t = dg.transpose(1, 2)
+    dwx = dg_t @ x.float().reshape(S * T, D)
+    dwr = dg_t @ rprev.float().reshape(2, S * T, P)
+    dwrm = drn.float().reshape(2, S * T, P).transpose(1, 2) \
+        @ m_s.float().reshape(2, S * T, C)
+    return dx, dc[0], dr[0], dwx, dwr, dwrm, dbias, dpeep
+
+
+# -- autograd ----------------------------------------------------------------
+
+class BiLstmpTrainCore(torch.autograd.Function):
+    """Custom-VJP bidirectional LSTMP core, the counterpart of
+    ``_get_bixfused_core`` / ``bilstmp_xfused_train_core``.
+
+    Takes the float32 parameters in the component's own layouts
+    (w_gifo_x [4C, D], w_gifo_r [4C, P], w_r_m [P, C], peep [3, C],
+    bias [4C] per direction) and casts them to bf16 inside, so their
+    gradients come back in float32 unrounded, as JAX returns them
+    (torch casts a gradient to its input's dtype).  Returns
+    (ys [S, T, 2P] bf16, c_T [S, C], r_T [S, P])."""
+
+    @staticmethod
+    def forward(ctx, x, mask, wf_gifo_x, wb_gifo_x, wf_gifo_r, wf_r_m,
+                peep_f, wb_gifo_r, wb_r_m, peep_b, bias_f, bias_b, init_c,
+                init_r, cell_clip):
+        xb = x.to(BF16).contiguous()
+        wx = torch.stack([wf_gifo_x, wb_gifo_x]).to(BF16)
+        wr = torch.stack([wf_gifo_r, wb_gifo_r]).to(BF16)
+        wrm = torch.stack([wf_r_m, wb_r_m]).to(BF16)
+        peep = torch.stack([peep_f, peep_b]).float()
+        bias = torch.stack([bias_f, bias_b]).float()
+        mask = mask.float().contiguous()
+        init_c = init_c.float().contiguous()
+        ys, gates, cs, rprev, c_T, r_T = bilstmp_train_fwd(
+            xb, mask, wx, wr, wrm, peep, bias, init_c,
+            init_r.float().contiguous(), cell_clip)
+        ctx.save_for_backward(xb, mask, gates, cs, rprev, wx, wr, wrm, peep,
+                              init_c)
+        ctx.cell_clip = cell_clip
+        ctx.x_dtype = x.dtype
+        return ys, c_T, r_T
+
+    @staticmethod
+    def backward(ctx, d_ys, d_c, d_r):
+        xb, mask, gates, cs, rprev, wx, wr, wrm, peep, init_c = \
+            ctx.saved_tensors
+        S, T, _ = xb.shape
+        P = rprev.shape[-1]
+        if d_ys is None:
+            d_ys = xb.new_zeros((S, T, 2 * P))
+        d_c = init_c.new_zeros(init_c.shape) if d_c is None else d_c
+        d_r = init_c.new_zeros((S, P)) if d_r is None else d_r
+        dx, dic, dir_, dwx, dwr, dwrm, dbias, dpeep = bilstmp_train_bwd(
+            d_ys.to(BF16).contiguous(), mask, xb, gates, cs, rprev, wx, wr,
+            wrm, peep, init_c, d_c.float().contiguous(),
+            d_r.float().contiguous(), ctx.cell_clip)
+        return (dx.to(ctx.x_dtype), None, dwx[0], dwx[1], dwr[0], dwrm[0],
+                dpeep[0], dwr[1], dwrm[1], dpeep[1], dbias[0], dbias[1],
+                dic, dir_, None)

@@ -74,6 +74,19 @@ def _check(xg, mask, w_gifo_r, w_r_m, peep, c0, r0) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_autograd(*tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a graph through ``tensors``.
+
+    The inference kernel has no backward: its outputs would carry no
+    gradient on the card while the plain version's carry one on the CPU.
+    Call it under ``torch.no_grad()`` (as the eval path does), or train
+    through the training kernels."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "lstmp_forward's CUDA kernel has no backward; call it under "
+            "torch.no_grad() or train through the training kernels")
+
+
 def lstmp_forward(xg: torch.Tensor, mask: torch.Tensor,
                   w_gifo_r: torch.Tensor, w_r_m: torch.Tensor,
                   peep: torch.Tensor, c0: torch.Tensor, r0: torch.Tensor,
@@ -81,15 +94,17 @@ def lstmp_forward(xg: torch.Tensor, mask: torch.Tensor,
     """(ys [S, T, P], c_T [S, C], r_T [S, P]) from the precomputed input
     projection ``xg [S, T, 4C]`` (bias included).
 
-    On a CUDA tensor this launches the kernel or raises; a CPU tensor
-    takes :func:`lstmp_forward_reference`.  ``lstmp_forward.launches``
-    counts calls into the kernel's C entry."""
+    On a CUDA tensor this launches the kernel or raises (also when
+    autograd would need its backward, see :func:`refuse_autograd`); a
+    CPU tensor takes :func:`lstmp_forward_reference`.
+    ``lstmp_forward.launches`` counts calls into the kernel's C entry."""
     _check(xg, mask, w_gifo_r, w_r_m, peep, c0, r0)
     if xg.device.type == "cpu":
         return lstmp_forward_reference(xg, mask, w_gifo_r, w_r_m, peep,
                                        c0, r0, cell_clip)
     if xg.device.type != "cuda":
         raise ValueError(f"no LSTMP kernel for device {xg.device}")
+    refuse_autograd(xg, mask, w_gifo_r, w_r_m, peep, c0, r0)
     S, T, G = xg.shape
     C, P = G // 4, w_r_m.shape[0]
     # the kernel carries the state in place in c and r
