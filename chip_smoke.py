@@ -7,12 +7,14 @@ Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
   1. device   - fail without CUDA; print the card, its power limit and
                 the torch / CUDA versions;
-  2. build    - compile the three CUDA sources of csrc/ with nvcc
+  2. build    - compile the four CUDA sources of csrc/ with nvcc
                 (sm_90a), one nvcc each, all at once;
   3. kernel   - hold the LSTMP inference kernel against its plain PyTorch
                 version on the card at the flagship's widths (C=512,
                 P=320) and the shapes of the served path and of a
-                training batch, and time both with CUDA events;
+                training batch, and at the LSTM hybrid's (C=800, P=512)
+                and the shapes of its cross-validation run; time both
+                with CUDA events;
   4. slice    - serve the flagship BLSTM-CTC (3 x BLSTMP, C=512, P=320,
                 40 fbank inputs, 72 CTC targets; random weights from a
                 numpy seed) through the port's online server, built by its
@@ -42,7 +44,38 @@ exits nonzero:
                 against the port on the CPU (plain versions), 4 streams;
   9. step-split - one flagship train step at the bench's shape (S=128,
                 T=400, U=40; bench.py:44) split into forward, loss,
-                backward and update by CUDA events.
+                backward and update by CUDA events;
+ 10. lstm-train-kernels - hold the unidirectional LSTMP training kernels
+                (forward and backward) against their plain versions at the
+                LSTM hybrid's widths (C=800, P=512) with ragged masks, a
+                nonzero initial state and nonzero final-state cotangents:
+                float32 at (S, T) = (16, 20), (100, 20), (128, 400), bf16
+                at (100, 20), (128, 400); time each beside its plain
+                version; then the bf16 rounding check on one frame at
+                (S, T) = (100, 1): the kernel's float32 outputs to the
+                float32 tolerance, and few stored bf16 values that differ
+                at all;
+ 11. bptt-train - write an ark/scp corpus of frame targets (a function of
+                the features) and train the full-width LSTM hybrid (2 x
+                LSTMP, C=800, P=512, 40 inputs, 3019 pdfs, float32; random
+                weights from a numpy seed) through the CLI,
+                aslp-nnet-train-lstm-streams --device=cuda, 16 streams of
+                20-frame chunks, targets delay 5, momentum 0.9: every step
+                must launch each training kernel twice (once per layer)
+                and the inference kernel never, the loss must be finite
+                and its last quarter's mean below its first quarter's, and
+                the model it writes must load again and differ from the
+                initial one; then --cross-validate=true must leave the
+                parameters unchanged, print FRAME_ACCURACY and launch the
+                inference kernel twice per chunk;
+ 12. bptt-check - one chunk's loss and parameter gradients on the card
+                against the port on the CPU (plain versions), the same
+                chunk's eval() outputs and loss (the cross-validation
+                forward, on the inference kernel), and one float32 BLSTMP
+                layer's gradients;
+ 13. bptt-step-split - one LSTM hybrid step at the reference's defaults
+                (S=100, T=20) split into forward, loss, backward and
+                update by CUDA events, with frames/s and peak memory.
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi prints them, and the result line.
 
@@ -65,8 +98,16 @@ import torch
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 both sides, summation
 #                                          order differs, contractive cell
 CROSS_CHECK_ATOL = 1e-3                    # log-domain scores, card vs CPU
-KERNEL_SHAPES = [(1, 16, 40), (1, 16, 640), (8, 200, 640), (128, 400, 640)]
 C, P, FEAT_DIM, TARGETS, LAYERS = 512, 320, 40, 72, 3
+# the LSTM hybrid (kaldi_aslp_tpu/models/flagship.py:build_lstm_hybrid)
+HYBRID_C, HYBRID_P, HYBRID_PDFS, HYBRID_LAYERS = 800, 512, 3019, 2
+# (S, T, D, C, P): the flagship's served path and training batch, then the
+# hybrid's cross-validation chunks (16 and 100 streams of 20 frames, both
+# layers' input widths)
+KERNEL_SHAPES = [(1, 16, 40, C, P), (1, 16, 640, C, P), (8, 200, 640, C, P),
+                 (128, 400, 640, C, P)] + [
+    (S, 20, D, HYBRID_C, HYBRID_P) for S in (16, 100)
+    for D in (FEAT_DIM, HYBRID_P)]
 # training kernels: bf16 streams and products on both sides, summed in
 # another order, so a stored bf16 value may land one step (2^-8 of
 # itself) away and carry that through the recurrence; held relative to
@@ -81,6 +122,34 @@ TRAIN_STREAMS, TRAIN_STEPS = 16, 4
 CROSS_LOSS_RTOL, CROSS_GRAD_RTOL = 1e-3, 5e-2
 SAMPLE_RATE = 16000
 CHUNK_BYTES = 2 * SAMPLE_RATE // 4        # 250 ms of int16 PCM
+# (S, T, bf16): float32 at the CLI's, the reference's default and the
+# bench's shape, bf16 at the last two
+LSTM_TRAIN_SHAPES = [(16, 20, False), (100, 20, False), (128, 400, False),
+                     (100, 20, True), (128, 400, True)]
+# relative to each output's largest |value|: float32 mode, TF32 off,
+# summed in another order; bf16 mode as TRAIN_KERNEL_RTOL
+LSTM_F32_RTOL, LSTM_BF16_RTOL = 1e-4, 2e-2
+# The bf16 rounding check, on one frame: the kernel's float32 outputs
+# (d_init_c, d_init_r) to LSTM_F32_RTOL, and at most LSTM_BF16_SHARE of a
+# bf16 output's values may differ at all.  Over many frames it cannot
+# hold: where the two sides' float32 sums differ in the last bit, a bf16
+# product operand rounds the other way, and the recurrence spreads that.
+# The weight reductions (LSTM_REDUCTIONS) are the same torch code on both
+# sides, fed the stored bf16 dxg, so one such flip moves them by a bf16
+# step of one term: they keep LSTM_BF16_RTOL.  On one frame a version
+# that skips the bf16 rounding of the product operands lands 1.7e-3 or
+# more away in d_init_c and d_init_r and changes 9-27 % of the stored
+# values (the plain version with that fault, on the CPU)
+LSTM_ROUNDING_SHAPE, LSTM_BF16_SHARE = (100, 1), 1e-2
+LSTM_REDUCTIONS = ("d_w_gifo_r", "d_w_r_m", "dpeep")
+BPTT_STREAMS, BPTT_UTTS = 16, 48
+BPTT_ARGS = [f"--num-streams={BPTT_STREAMS}", "--batch-size=20",
+             "--targets-delay=5"]
+# card vs CPU, one float32 chunk: loss relative; gradients relative to
+# each parameter's largest |gradient|; the eval() outputs relative to
+# their largest |value|
+BPTT_LOSS_RTOL, BPTT_GRAD_RTOL, BPTT_EVAL_RTOL = 1e-4, 1e-3, 1e-4
+BPTT_SPLIT_SHAPE = (100, 20)   # the reference's num_stream, batch_size
 
 
 def log(phase: str, **fields) -> None:
@@ -125,22 +194,23 @@ def kernel_phase(dev):
     )
 
     results = []
-    for S, T, D in KERNEL_SHAPES:
-        rs = np.random.RandomState(S * 1000 + T + D)
+    for S, T, D, C_, P_ in KERNEL_SHAPES:
+        rs = np.random.RandomState(S * 1000 + T + D + C_)
 
         def t(a):
             return torch.from_numpy(a).to(dev)
         x = t(rs.randn(S, T, D).astype(np.float32))
-        w_x, bias = t(uniform(rs, 4 * C, D)), t(uniform(rs, 4 * C))
+        w_x, bias = t(uniform(rs, 4 * C_, D)), t(uniform(rs, 4 * C_))
         xg = (torch.matmul(x, w_x.t()) + bias).contiguous()
         lens = np.full(S, T)
         if S > 1:
             lens = rs.randint(T // 4, T + 1, size=S)
             lens[0] = T
         mask = t((np.arange(T)[None, :] < lens[:, None]).astype(np.float32))
-        args = (xg, mask, t(uniform(rs, 4 * C, P)), t(uniform(rs, P, C)),
-                t(uniform(rs, 3, C)), t(uniform(rs, S, C, scale=0.5)),
-                t(uniform(rs, S, P, scale=0.5)))
+        args = (xg, mask, t(uniform(rs, 4 * C_, P_)),
+                t(uniform(rs, P_, C_)), t(uniform(rs, 3, C_)),
+                t(uniform(rs, S, C_, scale=0.5)),
+                t(uniform(rs, S, P_, scale=0.5)))
         got = lstmp_forward(*args)
         want = lstmp_forward_reference(*args)
         torch.cuda.synchronize()
@@ -153,9 +223,10 @@ def kernel_phase(dev):
         ms = cuda_ms(lambda: lstmp_forward(*args), reps)
         plain_ms = cuda_ms(lambda: lstmp_forward_reference(*args),
                            max(reps // 4, 3))
-        results.append({"S": S, "T": T, "D": D, "max_abs_err": max(errs),
-                        "ms": ms, "plain_ms": plain_ms})
-        log("kernel", name="lstmp_forward", S=S, T=T, D=D, C=C, P=P,
+        results.append({"S": S, "T": T, "D": D, "C": C_,
+                        "max_abs_err": max(errs), "ms": ms,
+                        "plain_ms": plain_ms})
+        log("kernel", name="lstmp_forward", S=S, T=T, D=D, C=C_, P=P_,
             err_ys=errs[0], err_c=errs[1], err_r=errs[2], tol=KERNEL_TOL,
             ms=ms, plain_ms=plain_ms)
     return results
@@ -656,6 +727,404 @@ def step_split(model, dev):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def lstm_train_kernel_phase(dev):
+    from kaldi_aslp_tpu_torch.ops import lstmp_train as lt
+
+    results = {"fwd": [], "bwd": []}
+    for S, T, bf16 in LSTM_TRAIN_SHAPES:
+        fwd_args, bwd_args, (err_f, rel_f, share_f), (err_b, rel_b, share_b) \
+            = lstm_train_kernel_check(dev, S, T, bf16)
+        reps = 3 if T > 100 else 10
+        times = {
+            "fwd": (cuda_ms(lambda: lt.lstmp_train_fwd(*fwd_args), reps, 1),
+                    cuda_ms(lambda: lt.lstmp_train_fwd_reference(*fwd_args),
+                            max(reps // 3, 2), 1)),
+            "bwd": (cuda_ms(lambda: lt.lstmp_train_bwd(*bwd_args), reps, 1),
+                    cuda_ms(lambda: lt.lstmp_train_bwd_reference(*bwd_args),
+                            max(reps // 3, 2), 1))}
+        for kind, err, rel, share in (("fwd", err_f, rel_f, share_f),
+                                      ("bwd", err_b, rel_b, share_b)):
+            ms, plain_ms = times[kind]
+            results[kind].append({"S": S, "T": T, "bf16": bf16,
+                                  "max_abs_err": err, "ms": ms,
+                                  "plain_ms": plain_ms})
+            log("lstm_train_kernel", name=f"lstmp_train_{kind}", S=S, T=T,
+                C=HYBRID_C, P=HYBRID_P, bf16=bf16, rel_err=rel,
+                differing_share=share,
+                rtol=LSTM_BF16_RTOL if bf16 else LSTM_F32_RTOL, ms=ms,
+                plain_ms=plain_ms)
+    S, T = LSTM_ROUNDING_SHAPE
+    *_, (err_f, rel_f, share_f), (err_b, rel_b, share_b) = \
+        lstm_train_kernel_check(dev, S, T, True, one_frame=True)
+    log("lstm_rounding_check", S=S, T=T, C=HYBRID_C, P=HYBRID_P,
+        rel_err={**rel_f, **rel_b}, differing_share={**share_f, **share_b},
+        tol={"f32": LSTM_F32_RTOL, "bf16": LSTM_BF16_RTOL,
+             "bf16_share": LSTM_BF16_SHARE})
+    for kind, err in (("fwd", err_f), ("bwd", err_b)):
+        results[kind].append({"S": S, "T": T, "bf16": True,
+                              "max_abs_err": err})
+    return results
+
+
+def lstm_train_kernel_check(dev, S, T, bf16, one_frame=False):
+    """Both training kernels against their plain versions at the LSTM
+    hybrid's widths, ragged masks, a nonzero initial state and nonzero
+    final-state cotangents: (fwd_args, bwd_args, fwd reading, bwd
+    reading), each reading as :func:`hold_lstm` returns it."""
+    from kaldi_aslp_tpu_torch.ops import lstmp_train as lt
+
+    C_, P_ = HYBRID_C, HYBRID_P
+    rs = np.random.RandomState(S * 1000 + T + bf16)
+    st = torch.bfloat16 if bf16 else torch.float32
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    lens = rs.randint(T // 4, T + 1, size=S)
+    lens[0] = T
+    mask = t((np.arange(T)[None, :] < lens[:, None]).astype(np.float32))
+    fwd_args = (t(rs.randn(S, T, 4 * C_).astype(np.float32)).to(st),
+                mask, t(uniform(rs, 4 * C_, P_)), t(uniform(rs, P_, C_)),
+                t(uniform(rs, 3, C_)), t(uniform(rs, S, C_, scale=0.5)),
+                t(uniform(rs, S, P_, scale=0.5)))
+    got = lt.lstmp_train_fwd(*fwd_args)
+    want = lt.lstmp_train_fwd_reference(*fwd_args)
+    torch.cuda.synchronize()
+    fwd = hold_lstm("lstmp_train_fwd", got, want, ("gates", "cs", "rs"),
+                    bf16, one_frame)
+    _, mask, w_r, w_rm, peep, c0, r0 = fwd_args
+    bwd_args = (t(rs.randn(S, T, P_).astype(np.float32)).to(st), mask,
+                *want, w_r, w_rm, peep, c0, r0,
+                t(rs.randn(S, C_).astype(np.float32)),
+                t(rs.randn(S, P_).astype(np.float32)))
+    got = lt.lstmp_train_bwd(*bwd_args)
+    want = lt.lstmp_train_bwd_reference(*bwd_args)
+    torch.cuda.synchronize()
+    bwd = hold_lstm("lstmp_train_bwd", got, want,
+                    ("dxg", "d_init_c", "d_init_r", "d_w_gifo_r", "d_w_r_m",
+                     "dpeep"), bf16, one_frame)
+    return fwd_args, bwd_args, fwd, bwd
+
+
+def hold_lstm(name: str, got, want, names, bf16: bool, one_frame: bool):
+    """:func:`hold` at LSTM_F32_RTOL in float32 and LSTM_BF16_RTOL in
+    bf16; on ``one_frame`` in bf16, the rounding check instead (see
+    LSTM_BF16_SHARE).  Returns the largest absolute error, and each
+    output's relative error and share of differing elements."""
+    worst, rel, share = 0.0, {}, {}
+    for n, g, w in zip(names, got, want):
+        bf16_valued = g.dtype == torch.bfloat16
+        kernel_f32 = not bf16_valued and n not in LSTM_REDUCTIONS
+        rtol = LSTM_BF16_RTOL if bf16 and not (one_frame and kernel_f32) \
+            else LSTM_F32_RTOL
+        err, r = hold(name, [g], [w], [n], rtol)
+        worst, rel[n] = max(worst, err), r[n]
+        share[n] = float((g != w).float().mean())
+        if one_frame and bf16_valued and share[n] > LSTM_BF16_SHARE:
+            raise RuntimeError(f"{name} {n}: {share[n]} of the bf16 values "
+                               f"differ, more than {LSTM_BF16_SHARE}")
+    return worst, rel, share
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+def write_bptt_files(workdir: str):
+    """The full-width LSTM hybrid at the model's init (numpy seed 2468) and
+    a corpus of BPTT_UTTS utterances of 80-160 frames whose frame targets
+    are a function of the features: one of 32 pdfs, picked by the argmax
+    of a fixed projection of the frame."""
+    from kaldi_aslp_tpu_torch.io import int_vector_writer, matrix_writer
+    from kaldi_aslp_tpu_torch.models.flagship import build_lstm_hybrid
+
+    rs = np.random.RandomState(2468)
+    net = build_lstm_hybrid(FEAT_DIM, HYBRID_LAYERS, HYBRID_P, HYBRID_C,
+                            HYBRID_PDFS)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.copy_(torch.from_numpy(
+                (0.04 * rs.randn(*p.shape)).astype(np.float32)
+                if name.endswith(".w") else np.zeros(p.shape, np.float32)
+                if name.endswith(".b") else uniform(rs, *p.shape)))
+    model = f"{workdir}/lstm_hybrid.zip"
+    net.save(model)
+    proj = rs.randn(FEAT_DIM, 32)
+    pdfs = rs.choice(HYBRID_PDFS, 32, replace=False).astype(np.int32)
+    with matrix_writer(f"ark,scp:{workdir}/bptt_feats.ark,"
+                       f"{workdir}/bptt_feats.scp") as fw, \
+            int_vector_writer(f"ark:{workdir}/bptt_ali.ark") as tw:
+        for i in range(BPTT_UTTS):
+            feats = rs.randn(rs.randint(80, 161), FEAT_DIM).astype(np.float32)
+            fw[f"utt{i:02d}"] = feats
+            tw[f"utt{i:02d}"] = pdfs[np.argmax(feats @ proj, axis=1)]
+    return (model, f"scp:{workdir}/bptt_feats.scp",
+            f"ark:{workdir}/bptt_ali.ark")
+
+
+def bptt_counts():
+    from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
+    from kaldi_aslp_tpu_torch.ops.lstmp_train import (
+        lstmp_train_bwd,
+        lstmp_train_fwd,
+    )
+    return {"lstmp_train_fwd": lstmp_train_fwd,
+            "lstmp_train_bwd": lstmp_train_bwd,
+            "lstmp_forward": lstmp_forward}
+
+
+def run_cli(argv):
+    """The CLI's exit code and what it printed (echoed here too)."""
+    import contextlib
+    import io
+
+    from kaldi_aslp_tpu_torch.cli.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    print(out.getvalue(), end="", flush=True)
+    return rc, out.getvalue()
+
+
+def bptt_train_phase(model, feats, targets, workdir):
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.train.trainer import LstmStreamsTrainer
+
+    wrappers = bptt_counts()
+    per_step_want = {"lstmp_train_fwd": HYBRID_LAYERS,
+                     "lstmp_train_bwd": HYBRID_LAYERS, "lstmp_forward": 0}
+    steps = []
+    inner_step = LstmStreamsTrainer.step
+
+    def step(self, velocity, states, chunk, learn_rate):
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        states, loss, aux = inner_step(self, velocity, states, chunk,
+                                       learn_rate)
+        loss = float(loss)   # syncs the card
+        steps.append({"loss": loss, "s": time.perf_counter() - t0,
+                      "frames": int(aux["frames"]),
+                      "launches": {n: w.launches - before[n]
+                                   for n, w in wrappers.items()}})
+        return states, torch.tensor(loss), aux
+
+    out = f"{workdir}/lstm_hybrid_trained.zip"
+    LstmStreamsTrainer.step = step
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        rc, printed = run_cli(["aslp-nnet-train-lstm-streams",
+                               "--device=cuda", "--momentum=0.9", *BPTT_ARGS,
+                               feats, targets, model, out])
+        launches = {n: w.launches for n, w in wrappers.items()}
+    finally:
+        LstmStreamsTrainer.step = inner_step
+    losses = [st["loss"] for st in steps]
+    log("bptt_steps", steps=len(steps), losses=losses,
+        frames=[st["frames"] for st in steps],
+        step_s=[st["s"] for st in steps])
+    if rc != 0 or len(steps) < 8 or "FRAME_ACCURACY" not in printed:
+        raise RuntimeError(f"trainer exit {rc}, {len(steps)} steps")
+    for st in steps:
+        if st["launches"] != per_step_want:
+            raise RuntimeError(f"step launched {st['launches']}, want "
+                               f"{per_step_want}")
+    q = len(losses) // 4
+    first, last = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
+    if not np.isfinite(losses).all() or not last < first:
+        raise RuntimeError(f"loss did not fall: {losses}")
+    before, _ = Nnet.load(model, "cpu")
+    after, _ = Nnet.load(out, "cpu")
+    moved = 0.0
+    for (name, p), q_ in zip(after.state_dict().items(),
+                             before.state_dict().values()):
+        if not torch.isfinite(p).all():
+            raise RuntimeError(f"trained {name} not finite")
+        moved = max(moved, float((p - q_).abs().max()))
+    if moved == 0.0:
+        raise RuntimeError("the written model equals the initial one")
+    log("bptt_train", steps=len(steps), first_quarter_loss=first,
+        last_quarter_loss=last, launches=launches, max_param_change=moved)
+
+    # cross-validation: eval() forward on the inference kernel, no update
+    seen = {}
+    inner_eval = LstmStreamsTrainer.evaluate
+
+    def evaluate(self, chunks, num_streams, reporter=None):
+        params = {k: v.clone() for k, v in self.net.state_dict().items()}
+        seen["chunks"] = 0
+
+        def counted():
+            for chunk in chunks:
+                seen["chunks"] += 1
+                yield chunk
+        rep = inner_eval(self, counted(), num_streams, reporter)
+        seen["unchanged"] = all(torch.equal(v, params[k]) for k, v in
+                                self.net.state_dict().items())
+        return rep
+
+    LstmStreamsTrainer.evaluate = evaluate
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        rc, printed = run_cli(["aslp-nnet-train-lstm-streams",
+                               "--device=cuda", "--cross-validate=true",
+                               *BPTT_ARGS, feats, targets, out])
+        cv_launches = {n: w.launches for n, w in wrappers.items()}
+    finally:
+        LstmStreamsTrainer.evaluate = inner_eval
+    want = {"lstmp_train_fwd": 0, "lstmp_train_bwd": 0,
+            "lstmp_forward": HYBRID_LAYERS * seen.get("chunks", -1)}
+    log("bptt_cv", chunks=seen.get("chunks"), launches=cv_launches,
+        params_unchanged=seen.get("unchanged"))
+    if rc != 0 or "FRAME_ACCURACY" not in printed or cv_launches != want \
+            or not seen.get("unchanged") or not seen["chunks"]:
+        raise RuntimeError(f"cross-validation: exit {rc}, {cv_launches}, "
+                           f"want {want}, {seen}")
+    return launches
+
+
+# -- phase 12 ----------------------------------------------------------------
+
+def bptt_cross_check(model, feats, targets):
+    from kaldi_aslp_tpu_torch.cli.train_tools import frame_source
+    from kaldi_aslp_tpu_torch.data.sequence import (
+        SequenceDataReader,
+        SequenceReaderOptions,
+    )
+    from kaldi_aslp_tpu_torch.models import BLstmProjectedStreams, Nnet
+    from kaldi_aslp_tpu_torch.models.losses import xent_loss
+    from kaldi_aslp_tpu_torch.train.trainer import upload_chunk
+
+    chunk = next(iter(SequenceDataReader(
+        frame_source(feats, targets),
+        SequenceReaderOptions(num_streams=BPTT_STREAMS))))
+    rs = np.random.RandomState(3)
+    carried = {str(i): {"c": uniform(rs, BPTT_STREAMS, HYBRID_C, scale=0.5),
+                        "r": uniform(rs, BPTT_STREAMS, HYBRID_P, scale=0.5)}
+               for i in range(HYBRID_LAYERS)}
+    out, evals = {}, {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        net, _ = Nnet.load(model, dev)
+        x, tgt, mask, _ = upload_chunk(chunk, dev)
+        states = {k: {kk: torch.from_numpy(vv).to(dev)
+                      for kk, vv in v.items()} for k, v in carried.items()}
+        # the cross-validation forward: eval(), the inference kernel
+        net.eval()
+        with torch.no_grad():
+            y, _ = net(x, states, mask=mask)
+            loss, _ = xent_loss(y, tgt, mask)
+        evals[device] = (float(loss), y.cpu())
+        net.train()
+        y, _ = net(x, states, mask=mask)
+        loss, _ = xent_loss(y, tgt, mask)
+        loss.backward()
+        out[device] = (float(loss.detach()),
+                       {n: p.grad.cpu() for n, p in net.named_parameters()})
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = {n: rel_err(g, out["cpu"][1][n])
+                for n, g in out["cuda"][1].items()}
+    eval_loss_rel = abs(evals["cuda"][0] - evals["cpu"][0]) / abs(
+        evals["cpu"][0])
+    eval_out_rel = rel_err(evals["cuda"][1], evals["cpu"][1])
+    if not torch.isfinite(evals["cuda"][1]).all():
+        raise RuntimeError("eval() outputs on the card are not finite")
+
+    # one float32 BLSTMP layer: each direction through the training core
+    S, T = BPTT_STREAMS, 20
+    lens = rs.randint(T // 4, T + 1, size=S)
+    lens[0] = T
+    arrays = {"x": rs.randn(S, T, FEAT_DIM).astype(np.float32),
+              "mask": (np.arange(T)[None, :] < lens[:, None]).astype(
+                  np.float32),
+              "w": rs.randn(S, T, 2 * HYBRID_P).astype(np.float32)}
+    comp = BLstmProjectedStreams(FEAT_DIM, 2 * HYBRID_P, cell_dim=HYBRID_C)
+    with torch.no_grad():
+        for p in comp.parameters():
+            p.copy_(torch.from_numpy(uniform(rs, *p.shape)))
+    bi = {}
+    for device in ("cuda", "cpu"):
+        comp.to(device).train()
+        comp.zero_grad()
+        t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        ys, _ = comp(t["x"], mask=t["mask"])
+        (ys * t["w"]).sum().backward()
+        bi[device] = {n: p.grad.cpu() for n, p in comp.named_parameters()}
+    bi_rel = {n: rel_err(g, bi["cpu"][n]) for n, g in bi["cuda"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    bi_worst = max(bi_rel, key=bi_rel.get)
+    log("bptt_check", streams=S, frames=int(chunk.frame_mask.sum()),
+        loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0], loss_rel=loss_rel,
+        worst_grad=worst, worst_grad_rel=grad_rel[worst],
+        eval_loss_cuda=evals["cuda"][0], eval_loss_rel=eval_loss_rel,
+        eval_out_rel=eval_out_rel,
+        blstmp_worst_grad=bi_worst, blstmp_worst_grad_rel=bi_rel[bi_worst],
+        tol={"loss": BPTT_LOSS_RTOL, "grad": BPTT_GRAD_RTOL,
+             "eval_out": BPTT_EVAL_RTOL})
+    if loss_rel > BPTT_LOSS_RTOL or grad_rel[worst] > BPTT_GRAD_RTOL \
+            or bi_rel[bi_worst] > BPTT_GRAD_RTOL \
+            or eval_loss_rel > BPTT_LOSS_RTOL \
+            or eval_out_rel > BPTT_EVAL_RTOL:
+        raise RuntimeError(f"card vs CPU: loss {loss_rel}, {worst} "
+                           f"{grad_rel[worst]}, {bi_worst} {bi_rel[bi_worst]}"
+                           f", eval loss {eval_loss_rel}, eval outputs "
+                           f"{eval_out_rel}")
+
+
+# -- phase 13 ----------------------------------------------------------------
+
+def bptt_step_split(model, dev):
+    """One LSTM hybrid step at S=100, T=20, split by CUDA events."""
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.models.losses import xent_loss
+    from kaldi_aslp_tpu_torch.train import LstmStreamsTrainer, init_velocity
+    from kaldi_aslp_tpu_torch.train.sgd import NnetTrainOptions
+
+    S, T = BPTT_SPLIT_SHAPE
+    rs = np.random.RandomState(0)
+    feats = torch.from_numpy(rs.randn(S, T, FEAT_DIM).astype(np.float32)
+                             ).to(dev)
+    targets = torch.from_numpy(
+        rs.randint(0, HYBRID_PDFS, (S, T)).astype(np.int32)).to(dev)
+    mask = torch.ones((S, T), device=dev)
+    flags = torch.zeros((S,), dtype=torch.int32, device=dev)
+    net, _ = Nnet.load(model, dev)
+    trainer = LstmStreamsTrainer(net, NnetTrainOptions(learn_rate=1e-4,
+                                                       momentum=0.9))
+    velocity = init_velocity(net)
+    states = trainer.init_state(S)
+    states, _, _ = trainer.step(velocity, states,
+                                (feats, targets, mask, flags), 1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splits = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for p in net.parameters():
+            p.grad = None
+        ev[0].record()
+        y, new_states = net(feats, states, mask=mask)
+        ev[1].record()
+        loss, _ = xent_loss(y, targets, mask)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        trainer._update(velocity, 1e-4)
+        ev[4].record()
+        torch.cuda.synchronize()
+        states = {k: {kk: vv.detach() for kk, vv in v.items()}
+                  for k, v in new_states.items()}
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    med = np.median(np.asarray(splits), axis=0)
+    step_ms = float(med.sum())
+    log("bptt_step_split", S=S, T=T, C=HYBRID_C, P=HYBRID_P,
+        pdfs=HYBRID_PDFS, forward_ms=float(med[0]), loss_ms=float(med[1]),
+        backward_ms=float(med[2]), update_ms=float(med[3]), step_ms=step_ms,
+        frames_per_s=S * T / (step_ms / 1e3),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
 def kernel_record(name, source, replaces, launches, rows, timed=None):
     """The kernel's JSON entry: the largest error over ``rows``, the times
     of ``timed`` (by default the last row, the bench's shape)."""
@@ -686,10 +1155,11 @@ def main() -> int:
         build,
         ctc_alpha_beta,
         lstmp,
+        lstmp_train,
     )
 
     t0 = time.perf_counter()
-    modules = (lstmp, bilstmp_train, ctc_alpha_beta)
+    modules = (lstmp, bilstmp_train, ctc_alpha_beta, lstmp_train)
     with ThreadPoolExecutor(len(modules)) as pool:
         for future in [pool.submit(m.build) for m in modules]:
             future.result()
@@ -706,6 +1176,11 @@ def main() -> int:
         train_launches = train_phase(model, feats, labels, workdir)
         train_cross_check(model, feats, labels)
         step_split(model, dev)
+        lstm_results = lstm_train_kernel_phase(dev)
+        model, feats, targets = write_bptt_files(workdir)
+        bptt_launches = bptt_train_phase(model, feats, targets, workdir)
+        bptt_cross_check(model, feats, targets)
+        bptt_step_split(model, dev)
 
     served = next(r for r in kernel_results if (r["S"], r["T"]) == (1, 16)
                   and r["D"] == 2 * P)
@@ -725,6 +1200,14 @@ def main() -> int:
         kernel_record("ctc_beta", "ctc_alpha_beta.cu", "ctc_pallas.py:65",
                       train_launches["ctc_beta"], train_results["ctc_beta"]),
     ]
+    for kind, line in (("fwd", 198), ("bwd", 234)):
+        rows = lstm_results[kind]
+        # timed at the reference's default chunk, float32 as the model
+        timed = next(r for r in rows if (r["S"], r["T"], r["bf16"]) ==
+                     (*BPTT_SPLIT_SHAPE, False))
+        records.append(kernel_record(
+            f"lstmp_train_{kind}", "lstmp_train.cu", f"lstm_pallas.py:{line}",
+            bptt_launches[f"lstmp_train_{kind}"], rows, timed))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

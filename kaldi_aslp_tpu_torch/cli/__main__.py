@@ -1,8 +1,11 @@
 """CLI dispatcher: ``python -m kaldi_aslp_tpu_torch.cli <tool> [args]``.
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
-reference binaries; the port has the online server and its client and
-the CTC trainer so far."""
+reference binaries; the port has the online server and its client, the
+CTC trainer and the BPTT trainer so far.  As in the JAX package, the
+BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are one trainer:
+the architecture lives in the model file, and a model with a component
+the port lacks fails at load with the registry's error."""
 
 from __future__ import annotations
 
@@ -16,6 +19,12 @@ TOOLS = {
     "aslp-audio-provider-client": online_tools.audio_provider_client,
     # aslp-nnetbin trainers
     "aslp-nnet-train-ctc-streams": train_tools.nnet_train_ctc_streams,
+    "aslp-nnet-train-lstm-streams": train_tools.nnet_train_lstm_streams,
+    "aslp-nnet-train-lstm-streams-skip": train_tools.nnet_train_lstm_streams,
+    "aslp-nnet-train-blstm-streams": train_tools.nnet_train_lstm_streams,
+    "aslp-nnet-train-blstm-streams-lc": train_tools.nnet_train_lstm_streams,
+    "aslp-nnet-train-blstm-parallel": train_tools.nnet_train_lstm_streams,
+    "aslp-nnet-train-perutt": train_tools.nnet_train_lstm_streams,
 }
 
 

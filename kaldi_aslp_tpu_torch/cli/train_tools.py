@@ -1,22 +1,33 @@
 """Training CLI mains.
 
-Port of ``nnet_train_ctc_streams`` from kaldi_aslp_tpu/cli/train_tools.py
-(reference: src/aslp-nnetbin/aslp-nnet-train-ctc-streams.cc):
+Port of ``nnet_train_ctc_streams`` and ``nnet_train_lstm_streams`` from
+kaldi_aslp_tpu/cli/train_tools.py (reference:
+src/aslp-nnetbin/aslp-nnet-train-ctc-streams.cc and
+aslp-nnet-train-lstm-streams.cc):
 
-    aslp-nnet-train-ctc-streams [--device=cuda] feats-rspec labels-rspec
-        model-in [model-out]
+    aslp-nnet-train-ctc-streams [--device=cuda] feats-rspec
+        labels-rspec model-in [model-out]
+    aslp-nnet-train-lstm-streams [--device=cuda] feats-rspec
+        targets-rspec model-in [model-out]
 
-reads features and CTC label sequences from Kaldi tables, batches them
-with ``CtcBatcher``, runs one epoch of momentum SGD (or, with
-``--cross-validate``, only the loss) on ``--device`` (default ``cuda``;
-on a machine without CUDA it raises rather than run on the CPU), writes
-the model in the JAX package's zip format, and prints the "AvgLoss:"
-report.
+Each reads features and targets from Kaldi tables, runs one epoch of
+momentum SGD (or, with ``--cross-validate``, only the loss, in ``eval()``
+mode with no update) on ``--device`` (default ``cuda``; on a machine
+without CUDA it raises rather than run on the CPU), writes the model in
+the JAX package's zip format, and prints the "AvgLoss:" report.  The CTC
+tool batches whole utterances with ``CtcBatcher``; the BPTT tool cuts
+multi-stream chunks with ``SequenceDataReader`` and carries the state
+across them.
 
-Unlike the JAX tool, the features are not cut to the length of the label
-sequence (the JAX tool shares the frame trainer's source, which aligns
-frame targets; for CTC that cut drops every utterance), and the l1 and
-l2 penalties reach the update."""
+Where the JAX tools differ, and the port does not follow:
+  - the JAX CTC tool cuts the features to the length of the label
+    sequence (it shares the frame trainers' source, which aligns frame
+    targets; for CTC that cut drops every utterance); the port cuts only
+    in the BPTT tool, whose targets are per frame;
+  - the JAX tools pass only the learning rate and momentum to the update;
+    the port passes the l1 and l2 penalties too;
+  - the JAX BPTT tool's cross-validation still updates the parameters
+    chunk by chunk (only the save is skipped); the port's evaluates."""
 
 from __future__ import annotations
 
@@ -31,6 +42,8 @@ logger = get_logger("train-cli")
 
 CTC_USAGE = ("aslp-nnet-train-ctc-streams [--device=cuda] feats-rspec "
              "labels-rspec model-in [model-out]")
+LSTM_USAGE = ("aslp-nnet-train-lstm-streams [--device=cuda] feats-rspec "
+              "targets-rspec model-in [model-out]")
 
 
 @dataclasses.dataclass
@@ -58,17 +71,41 @@ def ctc_source(feats_rspec: str, labels_rspec: str):
         yield utt, feats, np.asarray(labels[utt])
 
 
+def frame_source(feats_rspec: str, targets_rspec: str):
+    """(key, feats [n, D], targets [n]) for every utterance with targets,
+    both cut to the shorter of the two (kaldi_aslp_tpu/cli/
+    train_tools.py:51-59)."""
+    from kaldi_aslp_tpu_torch.io import (
+        random_access_int_vector_reader,
+        sequential_matrix_reader,
+    )
+
+    targets = random_access_int_vector_reader(targets_rspec)
+    for utt, feats in sequential_matrix_reader(feats_rspec):
+        if utt not in targets:
+            logger.warning("no targets for %s, skipping", utt)
+            continue
+        tgt = np.asarray(targets[utt])
+        n = min(len(feats), len(tgt))
+        yield utt, feats[:n], tgt[:n]
+
+
+def _train_options(flags: TrainerFlags):
+    from kaldi_aslp_tpu_torch.train import NnetTrainOptions
+
+    return NnetTrainOptions(learn_rate=flags.learn_rate,
+                            momentum=flags.momentum,
+                            l1_penalty=flags.l1_penalty,
+                            l2_penalty=flags.l2_penalty)
+
+
 def nnet_train_ctc_streams(argv) -> int:
     from kaldi_aslp_tpu_torch.data.sequence import (
         CtcBatcher,
         CtcBatcherOptions,
     )
     from kaldi_aslp_tpu_torch.models import Nnet
-    from kaldi_aslp_tpu_torch.train import (
-        CtcTrainer,
-        NnetTrainOptions,
-        init_velocity,
-    )
+    from kaldi_aslp_tpu_torch.train import CtcTrainer, init_velocity
     from kaldi_aslp_tpu_torch.utils.device import resolve_device
 
     flags = TrainerFlags()
@@ -76,15 +113,43 @@ def nnet_train_ctc_streams(argv) -> int:
     args = parse_options(argv, [flags, bopts], CTC_USAGE, 3, 4)
     device = resolve_device(flags.device)
     net, states = Nnet.load(args[2], device)
-    trainer = CtcTrainer(net, NnetTrainOptions(
-        learn_rate=flags.learn_rate, momentum=flags.momentum,
-        l1_penalty=flags.l1_penalty, l2_penalty=flags.l2_penalty))
+    trainer = CtcTrainer(net, _train_options(flags))
     batches = CtcBatcher(ctc_source(args[0], args[1]), bopts)
     if flags.cross_validate:
         rep = trainer.evaluate(batches)
     else:
         _, rep = trainer.train_epoch(init_velocity(net), batches,
                                      flags.learn_rate)
+        if len(args) > 3:
+            net.save(args[3], states)
+    print(rep.report())
+    return 0
+
+
+def nnet_train_lstm_streams(argv) -> int:
+    """BPTT chunk trainer (reference: aslp-nnet-train-lstm-streams.cc):
+    multi-stream chunks with carried state and frame-level cross-entropy
+    targets."""
+    from kaldi_aslp_tpu_torch.data.sequence import (
+        SequenceDataReader,
+        SequenceReaderOptions,
+    )
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.train import LstmStreamsTrainer, init_velocity
+    from kaldi_aslp_tpu_torch.utils.device import resolve_device
+
+    flags = TrainerFlags()
+    sopts = SequenceReaderOptions()
+    args = parse_options(argv, [flags, sopts], LSTM_USAGE, 3, 4)
+    device = resolve_device(flags.device)
+    net, states = Nnet.load(args[2], device)
+    trainer = LstmStreamsTrainer(net, _train_options(flags))
+    chunks = SequenceDataReader(frame_source(args[0], args[1]), sopts)
+    if flags.cross_validate:
+        rep = trainer.evaluate(chunks, sopts.num_streams)
+    else:
+        _, rep = trainer.train_epoch(init_velocity(net), chunks,
+                                     flags.learn_rate, sopts.num_streams)
         if len(args) > 3:
             net.save(args[3], states)
     print(rep.report())

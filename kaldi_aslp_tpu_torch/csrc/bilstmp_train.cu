@@ -48,8 +48,11 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "device_math.cuh"
+
 namespace {
 
+using namespace aslp_cuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
@@ -57,21 +60,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStreamTile = 16;      // streams per block, per-step kernels
 constexpr int kStreamTileDr = 8;     // streams per block, dr kernel
 constexpr size_t kMaxSmem = 48 * 1024;
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // Tiled bf16 GEMM with float32 sums (wmma 16x16x16):

@@ -41,15 +41,15 @@
 
 #include <cuda_runtime.h>
 
+#include "device_math.cuh"
+
 namespace {
+
+using namespace aslp_cuda;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr size_t kMaxStaticSmem = 48 * 1024;
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // (A) gates + cell for cells [blockIdx.x * kWarps, +kWarps) and streams
 // [blockIdx.y * ST, +ST).  xg and mask point at time step t; their
@@ -99,10 +99,7 @@ gates_cell_kernel(const float* __restrict__ xg, long long xg_stride,
 #pragma unroll
   for (int k = 0; k < 4; ++k)
 #pragma unroll
-    for (int s = 0; s < ST; ++s)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[k][s] += __shfl_xor_sync(0xffffffffu, acc[k][s], off);
+    for (int s = 0; s < ST; ++s) acc[k][s] = warp_sum(acc[k][s]);
 
 #pragma unroll
   for (int s = 0; s < ST; ++s) {
@@ -157,10 +154,7 @@ project_kernel(const float* __restrict__ m, const float* __restrict__ w_rm,
     for (int s = 0; s < ST; ++s) acc[s] = fmaf(wv, m_sh[s * C + j], acc[s]);
   }
 #pragma unroll
-  for (int s = 0; s < ST; ++s)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], off);
+  for (int s = 0; s < ST; ++s) acc[s] = warp_sum(acc[s]);
 
 #pragma unroll
   for (int s = 0; s < ST; ++s) {

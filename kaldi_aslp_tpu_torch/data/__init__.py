@@ -1,1 +1,2 @@
-"""Training data feed (port of kaldi_aslp_tpu/data/): CTC stream batches."""
+"""Training data feed (port of kaldi_aslp_tpu/data/): truncated-BPTT
+chunks and CTC stream batches."""

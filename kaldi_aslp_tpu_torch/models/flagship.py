@@ -1,14 +1,18 @@
-"""Flagship model builder: the BLSTM-CTC acoustic model.
+"""Model builders: the BLSTM-CTC flagship and the LSTM hybrid.
 
-Port of kaldi_aslp_tpu/models/flagship.py:build_blstm_ctc (reference
-recipe: aslp_scripts/ctc/ + run_lstm.sh proto shapes).  The network is
-built with zero parameters; draw them with
-``net.reset_parameters(generator)`` or load them with ``Nnet.load``."""
+Port of kaldi_aslp_tpu/models/flagship.py:build_blstm_ctc and
+build_lstm_hybrid (reference recipes: aslp_scripts/ctc/ and run_lstm.sh
+proto shapes).  The networks are built with zero parameters; draw them
+with ``net.reset_parameters(generator)`` or load them with
+``Nnet.load``."""
 
 from __future__ import annotations
 
 from kaldi_aslp_tpu_torch.models.nnet import Nnet
-from kaldi_aslp_tpu_torch.models.recurrent import BLstmProjectedStreams
+from kaldi_aslp_tpu_torch.models.recurrent import (
+    BLstmProjectedStreams,
+    LstmProjectedStreams,
+)
 from kaldi_aslp_tpu_torch.models.simple import AffineTransform
 
 
@@ -26,5 +30,23 @@ def build_blstm_ctc(
         net.add(BLstmProjectedStreams(dim, 2 * proj_dim, cell_dim=cell_dim))
         dim = 2 * proj_dim
     net.add(AffineTransform(dim, num_targets, param_stddev=0.04,
+                            bias_mean=0.0, bias_range=0.0))
+    return net
+
+
+def build_lstm_hybrid(
+    input_dim: int = 40,
+    num_layers: int = 2,
+    proj_dim: int = 512,
+    cell_dim: int = 800,
+    num_pdfs: int = 3019,
+) -> Nnet:
+    """LSTM hybrid CE model (reference: run_lstm.sh proto at :64-72)."""
+    net = Nnet()
+    dim = input_dim
+    for _ in range(num_layers):
+        net.add(LstmProjectedStreams(dim, proj_dim, cell_dim=cell_dim))
+        dim = proj_dim
+    net.add(AffineTransform(dim, num_pdfs, param_stddev=0.04,
                             bias_mean=0.0, bias_range=0.0))
     return net

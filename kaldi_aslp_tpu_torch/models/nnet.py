@@ -83,10 +83,22 @@ class Nnet(nn.Module):
         outs = [i for i in range(len(self.nodes)) if i not in consumed]
         return outs or [len(self.nodes) - 1]
 
-    # -- params -------------------------------------------------------------
+    # -- params / state -----------------------------------------------------
     def reset_parameters(self, generator: torch.Generator) -> None:
         for comp in self.nodes:
             comp.reset_parameters(generator)
+
+    def init_state(self, num_streams: int,
+                   device: Union[str, torch.device] = "cpu"
+                   ) -> Dict[str, Any]:
+        """Zero carried state of every recurrent node, keyed by node id
+        (kaldi_aslp_tpu/models/nnet.py:108)."""
+        out = {}
+        for i, comp in enumerate(self.nodes):
+            s = comp.init_state(num_streams, torch.device(device))
+            if s is not None:
+                out[str(i)] = s
+        return out
 
     # -- forward ------------------------------------------------------------
     def forward(self, inputs: Union[torch.Tensor, Sequence[torch.Tensor]],

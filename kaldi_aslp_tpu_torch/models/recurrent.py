@@ -24,12 +24,15 @@ the place of JAX's ``train=`` argument:
   - training, bf16 BLSTMP: both directions go through
     ops/bilstmp_train.py:BiLstmpTrainCore (the CUDA training kernels on
     the card, their plain versions on the CPU), the counterpart of
-    ``_Bidirectional._apply_fused``.  The JAX package takes that core
-    only on the TPU or with the ``pallas`` attr; the port always does;
-  - training, float32: autograd through ``lstmp_forward_reference`` on
-    the CPU, as the JAX scan path; on CUDA it raises, since the kernels
-    it needs (``_lstmp_fwd_train_kernel``, ``_lstmp_bwd_kernel``) are
-    not ported yet.
+    ``_Bidirectional._apply_fused``;
+  - training, any other LSTMP (unidirectional, or a float32 BLSTMP's
+    two directions one after the other): ops/lstmp_train.py:
+    LstmpTrainCore, the counterpart of ``lstmp_train_core``, float32
+    throughout, or with the ``bf16`` attr a bf16 input projection, bf16
+    storage and bf16 products (recurrent.py:163-190).
+The JAX package takes its training cores only on the TPU or with the
+``pallas`` attr; the port always does.  ``KALDI_ASLP_LSTM_MXU_FP32`` is
+a TPU experiment switch and is not read.
 
 The other cells (LSTM, CIFG, GRU, LC-BLSTM) are later slices."""
 
@@ -42,10 +45,32 @@ from torch import nn
 
 from kaldi_aslp_tpu_torch.models.component import Component, register
 from kaldi_aslp_tpu_torch.ops.bilstmp_train import BiLstmpTrainCore
-from kaldi_aslp_tpu_torch.ops.lstmp import (
-    lstmp_forward,
-    lstmp_forward_reference,
-)
+from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
+from kaldi_aslp_tpu_torch.ops.lstmp_train import LstmpTrainCore
+
+BF16 = torch.bfloat16
+
+
+class _Bf16Projection(torch.autograd.Function):
+    """x . w^T with bf16 operands and float32 sums, forward and backward:
+    the counterpart of recurrent.py:_einsum_stg_bf16, whose custom VJP
+    rounds the cotangent to bf16 before both transpose products."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(BF16), w.to(BF16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return torch.matmul(xb.float(), wb.float().t())
+
+    @staticmethod
+    def backward(ctx, dy):
+        xb, wb = ctx.saved_tensors
+        dyb = dy.to(BF16).float()
+        dx = torch.matmul(dyb, wb.float())
+        dw = torch.matmul(dyb.reshape(-1, dyb.shape[-1]).t(),
+                          xb.float().reshape(-1, xb.shape[-1]))
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1])
 
 
 @register
@@ -112,14 +137,19 @@ class LstmProjectedStreams(Component):
                 state["r"].contiguous())
 
     def _forward_train(self, x, state, mask):
-        if x.device.type != "cpu" or self.attrs.get("bf16", False):
-            raise NotImplementedError(
-                "training a unidirectional LSTMP on the card, or with the "
-                "bf16 attr, needs the kernels _lstmp_fwd_train_kernel and "
-                "_lstmp_bwd_kernel (kaldi_aslp_tpu/ops/lstm_pallas.py:198, "
-                ":234), which are not ported yet")
-        ys, c, r = lstmp_forward_reference(
-            *self._recurrence_args(x, state, mask), cell_clip=self.cell_clip)
+        """The Pallas training branch of recurrent.py:163-190: the bf16
+        attr gives bf16 storage and bf16 products (the TPU core's
+        ``store_bf16`` and ``mxu_bf16``)."""
+        bf16 = bool(self.attrs.get("bf16", False))
+        if bf16:
+            xg = _Bf16Projection.apply(x, self.w_gifo_x) + self.bias
+        else:
+            xg = torch.matmul(x, self.w_gifo_x.t()) + self.bias
+        peep = torch.stack([self.peephole_i_c, self.peephole_f_c,
+                            self.peephole_o_c])
+        ys, c, r = LstmpTrainCore.apply(
+            xg, mask, self.w_gifo_r, self.w_r_m, peep, state["c"],
+            state["r"], self.cell_clip, bf16)
         return ys, {"c": c, "r": r}
 
 

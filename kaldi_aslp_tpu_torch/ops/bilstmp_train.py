@@ -25,11 +25,14 @@ Stream layouts (d = direction, f then b; G = 4C):
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
 
 import torch
 
-from kaldi_aslp_tpu_torch.ops.build import load_library
+from kaldi_aslp_tpu_torch.ops.build import (
+    check_tensors,
+    current_stream,
+    load_library,
+)
 
 SOURCE = "bilstmp_train.cu"
 BF16 = torch.bfloat16
@@ -52,25 +55,9 @@ def build() -> None:
     _library()
 
 
-def _check(device: torch.device,
-           tensors: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]):
-    for name, (t, shape, dtype) in tensors.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, not {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _bf(t: torch.Tensor) -> torch.Tensor:
     """Round to bf16 and come back to float32."""
     return t.to(BF16).float()
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _empty(device: torch.device, dtype: torch.dtype, *shape: int):
@@ -96,7 +83,7 @@ def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
     S, T, D = x.shape
     G, P = wr.shape[1], wr.shape[2]
     C = G // 4
-    _check(x.device, {
+    check_tensors(x.device, {
         "x": (x, (S, T, D), BF16), "mask": (mask, (S, T), torch.float32),
         "wx": (wx, (2, G, D), BF16), "wr": (wr, (2, G, P), BF16),
         "wrm": (wrm, (2, P, C), BF16),
@@ -128,7 +115,7 @@ def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
             wrm.data_ptr(), peep.data_ptr(), bias.data_ptr(), xg.data_ptr(),
             c_state.data_ptr(), r_state.data_ptr(), m_buf.data_ptr(),
             gates.data_ptr(), cs.data_ptr(), rprev.data_ptr(), ys.data_ptr(),
-            S, T, D, C, P, float(cell_clip), _stream(dev))
+            S, T, D, C, P, float(cell_clip), current_stream(dev))
         bilstmp_train_fwd.launches += 1
     if err != 0:
         raise RuntimeError(f"bilstmp_train_fwd failed: CUDA error {err}")
@@ -201,7 +188,7 @@ def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
     S, T, D = x.shape
     G, P = wr.shape[1], wr.shape[2]
     C = G // 4
-    _check(x.device, {
+    check_tensors(x.device, {
         "dy": (dy, (S, T, 2 * P), BF16), "mask": (mask, (S, T), torch.float32),
         "x": (x, (S, T, D), BF16), "gates": (gates, (2, S, T, G), BF16),
         "cs": (cs, (2, S, T, C), BF16), "rprev": (rprev, (2, S, T, P), BF16),
@@ -239,7 +226,7 @@ def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
             dgates.data_ptr(), m_out.data_ptr(), drn.data_ptr(),
             dx2.data_ptr(), dx.data_ptr(), dwx.data_ptr(), dwr.data_ptr(),
             dwrm.data_ptr(), dbp.data_ptr(),
-            S, T, D, C, P, float(cell_clip), _stream(dev))
+            S, T, D, C, P, float(cell_clip), current_stream(dev))
         bilstmp_train_bwd.launches += 1
     if err != 0:
         raise RuntimeError(f"bilstmp_train_bwd failed: CUDA error {err}")

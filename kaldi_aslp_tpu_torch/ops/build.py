@@ -1,10 +1,12 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA sources into shared libraries, load them, and
+check what their wrappers pass them.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``kaldi_aslp_tpu_torch/_build/``
 at first use, then loaded with ``ctypes``.  The library name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  ``nvcc``'s own output (``-Xptxas -v``:
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and a stale library is never
+loaded.  ``nvcc``'s own output (``-Xptxas -v``:
 registers, shared memory, spills per kernel) is kept beside the library
 in a ``.log`` file."""
 
@@ -17,7 +19,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -45,10 +49,13 @@ def find_nvcc() -> str:
 
 def library_path(source_name: str) -> Path:
     """Where ``csrc/<source_name>`` is built: named by a hash of the
-    source bytes and the compiler flags."""
+    source bytes, the shared headers and the compiler flags."""
     src = CSRC_DIR / source_name
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
@@ -77,3 +84,23 @@ def load_library(source_name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _LOADED[source_name] = lib
     return lib
+
+
+def check_tensors(device: torch.device,
+                  tensors: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]
+                  ) -> None:
+    """Raise unless every named tensor has its shape and dtype, lies on
+    ``device`` and is contiguous: a kernel reads raw pointers."""
+    for name, (t, shape, dtype) in tensors.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def current_stream(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, for a C entry."""
+    return torch.cuda.current_stream(device).cuda_stream

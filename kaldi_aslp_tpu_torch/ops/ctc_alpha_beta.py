@@ -23,7 +23,11 @@ import ctypes
 
 import torch
 
-from kaldi_aslp_tpu_torch.ops.build import load_library
+from kaldi_aslp_tpu_torch.ops.build import (
+    check_tensors,
+    current_stream,
+    load_library,
+)
 
 SOURCE = "ctc_alpha_beta.cu"
 NEG_INF = -1e30
@@ -51,17 +55,12 @@ def _check(lp_t, skip_ok, input_lengths, exp_lens) -> None:
     T, S, U = lp_t.shape
     if T == 0:
         raise ValueError("lp_t has no frames")
-    want = {"skip_ok": (skip_ok, (S, U), torch.float32),
-            "input_lengths": (input_lengths, (S,), torch.int32),
-            "exp_lens": (exp_lens, (S,), torch.int32)}
     if lp_t.dtype != torch.float32 or not lp_t.is_contiguous():
         raise TypeError("lp_t must be contiguous float32")
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != lp_t.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {lp_t.device}")
+    check_tensors(lp_t.device, {
+        "skip_ok": (skip_ok, (S, U), torch.float32),
+        "input_lengths": (input_lengths, (S,), torch.int32),
+        "exp_lens": (exp_lens, (S,), torch.int32)})
 
 
 def _launch(name: str, lp_t, skip_ok, input_lengths, exp_lens):
@@ -71,10 +70,10 @@ def _launch(name: str, lp_t, skip_ok, input_lengths, exp_lens):
     out = torch.empty_like(lp_t)
     lib = _library()
     with torch.cuda.device(lp_t.device):
-        stream = torch.cuda.current_stream(lp_t.device).cuda_stream
         err = getattr(lib, name)(
             lp_t.data_ptr(), skip_ok.data_ptr(), input_lengths.data_ptr(),
-            exp_lens.data_ptr(), out.data_ptr(), T, S, U, stream)
+            exp_lens.data_ptr(), out.data_ptr(), T, S, U,
+            current_stream(lp_t.device))
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
     return out

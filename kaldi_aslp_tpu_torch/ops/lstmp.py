@@ -29,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from kaldi_aslp_tpu_torch.ops.build import load_library
+from kaldi_aslp_tpu_torch.ops.build import current_stream, load_library
 
 SOURCE = "lstmp_forward.cu"
 
@@ -116,12 +116,11 @@ def lstmp_forward(xg: torch.Tensor, mask: torch.Tensor,
     m = torch.empty((S, C), dtype=torch.float32, device=xg.device)
     lib = _library()
     with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream(xg.device).cuda_stream
         err = lib.lstmp_forward_f32(
             xg.data_ptr(), mask.data_ptr(), w_gifo_r.data_ptr(),
             w_r_m.data_ptr(), peep.data_ptr(), c.data_ptr(), r.data_ptr(),
             m.data_ptr(), ys.data_ptr(), S, T, C, P, float(cell_clip),
-            stream)
+            current_stream(xg.device))
         lstmp_forward.launches += 1
     if err != 0:
         raise RuntimeError(f"lstmp_forward_f32 failed: CUDA error {err}")

@@ -21,12 +21,15 @@ from kaldi_aslp_tpu_torch.ops.lstmp import (
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,T", [(1, 16), (8, 40)])
-def test_cuda_kernel_matches_plain_version(S, T):
+@pytest.mark.parametrize("S,T,Cf,Pf", [
+    (1, 16, 512, 320), (8, 40, 512, 320),      # the flagship's server
+    (16, 20, 800, 512), (100, 20, 800, 512)],  # the LSTM hybrid's CV
+    ids=["flagship-1x16", "flagship-8x40", "hybrid-16x20", "hybrid-100x20"])
+def test_cuda_kernel_matches_plain_version(S, T, Cf, Pf):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     rs = np.random.RandomState(S * T)
-    Cf, Pf = 512, 320
     dev = torch.device("cuda")
 
     def u(*shape):

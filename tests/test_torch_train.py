@@ -277,8 +277,11 @@ def test_eval_forward_records_no_graph_on_any_device():
     ys, _ = comp(x)
     ys.sum().backward()
     assert float(comp.fwd.w_gifo_r.grad.abs().sum()) > 0
-    # float32 training off the CPU needs kernels still to port
-    with pytest.raises(NotImplementedError, match="_lstmp_bwd_kernel"):
+    # float32 training goes through the training core's kernels, which
+    # exist for CUDA only: on any other device it raises, never falling
+    # back to the plain version
+    comp.to("meta")
+    with pytest.raises(ValueError, match="no LSTMP training kernel"):
         comp(x.to("meta"))
 
 
