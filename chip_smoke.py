@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits nonzero:
   1. device   - fail without CUDA; print the card, its power limit and
                 the torch / CUDA versions;
-  2. build    - compile the four CUDA sources of csrc/ with nvcc
+  2. build    - compile the five CUDA sources of csrc/ with nvcc
                 (sm_90a), one nvcc each, all at once;
   3. kernel   - hold the LSTMP inference kernel against its plain PyTorch
                 version on the card at the flagship's widths (C=512,
@@ -17,7 +17,8 @@ exits nonzero:
                 with CUDA events;
   4. slice    - serve the flagship BLSTM-CTC (3 x BLSTMP, C=512, P=320,
                 40 fbank inputs, 72 CTC targets; random weights from a
-                numpy seed) through the port's online server, built by its
+                numpy seed; its CTC TLG built by the port's own graph
+                builders, timed) through the port's online server, built by its
                 CLI session factory with --device=cuda: 2 requests one
                 after the other, then 2 at the same time; each must give
                 partial events and one final event, and every chunk's
@@ -31,7 +32,16 @@ exits nonzero:
                 final-state cotangents, at (S, T, D) = (16, 200, 40),
                 (16, 200, 640) and (128, 400, 640), and the CTC alpha and
                 beta kernels at (S, T, U, V) = (128, 400, 40, 72) with
-                ragged lengths; time each beside its plain version;
+                ragged lengths; time each beside its plain version, and
+                F.ctc_loss forward and backward as the pair's yardstick;
+ 6b. xg-train-kernels - hold the xg-fed BLSTMP training kernels (forward
+                and backward) against their plain versions at C=512,
+                P=320, (S, T) = (16, 200) and (128, 400), ragged masks, a
+                nonzero initial state and final-state cotangents, with
+                bf16 and with float32 products; then the per-direction
+                x-fused backward for d = 0 and 1 at the shapes of phase 6,
+                and the two halves against the fused backward on the same
+                inputs; time each beside its plain version;
   7. train    - write a Kaldi ark/scp corpus (16 utterances of 200-400
                 frames and 10-40 labels, each 4 times) and train the bf16
                 flagship on it through the CLI, aslp-nnet-train-ctc-streams
@@ -45,13 +55,21 @@ exits nonzero:
   9. step-split - one flagship train step at the bench's shape (S=128,
                 T=400, U=40; bench.py:44) split into forward, loss,
                 backward and update by CUDA events;
+ 9b. train-switches, train-switches-check, step-split again - phases 7,
+                8 and 9 once under each of the JAX package's LSTM switches
+                (KALDI_ASLP_LSTM_NO_XFUSE, _MXU_FP32, _SPLIT_BWD, set in
+                os.environ around the run): each CLI step must launch the
+                kernels of that switch's path (TRAIN_RUNS) and no other
+                training kernel;
  10. lstm-train-kernels - hold the unidirectional LSTMP training kernels
                 (forward and backward) against their plain versions at the
                 LSTM hybrid's widths (C=800, P=512) with ragged masks, a
                 nonzero initial state and nonzero final-state cotangents:
                 float32 at (S, T) = (16, 20), (100, 20), (128, 400), bf16
-                at (100, 20), (128, 400); time each beside its plain
-                version; then the bf16 rounding check on one frame at
+                at (100, 20), (128, 400), and bf16 storage with float32
+                products (KALDI_ASLP_LSTM_MXU_FP32) at (100, 20), held
+                strictly; time each beside its plain version; then the
+                bf16 rounding check on one frame at
                 (S, T) = (100, 1): the kernel's float32 outputs to the
                 float32 tolerance, and few stored bf16 values that differ
                 at all;
@@ -76,16 +94,20 @@ exits nonzero:
  13. bptt-step-split - one LSTM hybrid step at the reference's defaults
                 (S=100, T=20) split into forward, loss, backward and
                 update by CUDA events, with frames/s and peak memory.
-The last lines are the kernels' JSON record, the card's name and power
-limit as nvidia-smi prints them, and the result line.
+The last lines are the kernels' JSON record (each kernel's launches in
+the CLI runs, its error, its time and its plain version's, the least
+time the card could take for its work and what binds it, and a PyTorch
+call's time where one computes the same function), the card's name and
+power limit as nvidia-smi prints them, and the result line.
 
-Imports nothing of JAX; from kaldi_aslp_tpu it uses only the numpy
-graph builders in kaldi_aslp_tpu.fst."""
+Imports nothing of JAX and nothing of kaldi_aslp_tpu."""
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -150,6 +172,38 @@ BPTT_ARGS = [f"--num-streams={BPTT_STREAMS}", "--batch-size=20",
 # their largest |value|
 BPTT_LOSS_RTOL, BPTT_GRAD_RTOL, BPTT_EVAL_RTOL = 1e-4, 1e-3, 1e-4
 BPTT_SPLIT_SHAPE = (100, 20)   # the reference's num_stream, batch_size
+# the JAX package's LSTM switches (kaldi_aslp_tpu_torch/ops/switches.py)
+SWITCHES = ("KALDI_ASLP_LSTM_NO_XFUSE", "KALDI_ASLP_LSTM_MXU_FP32",
+            "KALDI_ASLP_LSTM_SPLIT_BWD")
+# the CTC CLI's launches per step on each path (None: no switch set);
+# every other training kernel launches no time, the CTC pair once each
+TRAIN_RUNS = {
+    None: {"bilstmp_train_fwd": LAYERS, "bilstmp_train_bwd": LAYERS},
+    SWITCHES[0]: {"bilstmp_xg_train_fwd": LAYERS,
+                  "bilstmp_xg_train_bwd": LAYERS},
+    SWITCHES[1]: {"bilstmp_xg_train_fwd": LAYERS,
+                  "bilstmp_xg_train_bwd": LAYERS},
+    SWITCHES[2]: {"bilstmp_train_fwd": LAYERS,
+                  "bilstmp_train_bwd_dir": 2 * LAYERS}}
+# the xg-fed kernels at TRAIN_SHAPES without D (they never see x)
+XG_SHAPES = sorted({(S, T) for S, T, _ in TRAIN_SHAPES})
+# With float32 products only the storage rounds to bf16 and no rounded
+# value feeds the recurrence, so a stored value differs only where the
+# float32 sums (summed in another order) put it on a rounding boundary:
+# bf16 values within one bf16 step of the largest value (2^-8 < 4e-3) and
+# at most XG_BF16_SHARE of them differing at all, the kernel's float32
+# outputs within LSTM_F32_RTOL, the dW_r / dW_rm reductions fed those
+# bf16 streams within 1e-3.  A kernel that rounded its product operands
+# to bf16 lands about 1e-2 away.
+XG_F32_RTOL = {"bf16": 4e-3, "kernel_f32": LSTM_F32_RTOL, "reduction": 1e-3}
+XG_BF16_SHARE = 1e-2
+# bf16 storage with float32 products for the unidirectional kernels
+# (KALDI_ASLP_LSTM_MXU_FP32 on a bf16 LSTMP), held as the rounding check
+LSTM_F32_PRODUCTS_SHAPE = (100, 20)
+# Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
+# data sheet, dense): bf16 tensor-core products, float32 FMA outside the
+# tensor cores, HBM3 bandwidth
+PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
 
 def log(phase: str, **fields) -> None:
@@ -183,6 +237,140 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+@contextlib.contextmanager
+def switch_env(switch):
+    """A context in which one of SWITCHES is set (None: none is), the
+    environment restored after."""
+    saved = {k: os.environ.pop(k) for k in SWITCHES if k in os.environ}
+    if switch:
+        os.environ[switch] = "1"
+    try:
+        yield
+    finally:
+        for k in SWITCHES:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+
+
+# -- the least time the card could take ---------------------------------------
+#
+# bound_ms is the larger of the operations over the card's peak rate for
+# their operand type and the bytes over its memory rate, counting each
+# input the function takes read once and each output it returns written
+# once (the roofline).  Below, G = 4C; FLOP
+# counts two per multiply-add of the products; the cell's elementwise
+# math is left out (a few tens of operations per cell and frame).
+
+def bound(ops, nbytes):
+    """(ms, "operations" or "bytes") for ``ops`` [(flop, peak), ...]."""
+    ops_s = sum(f / peak for f, peak in ops)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def lstmp_forward_bound(S, T, C, P):
+    # in: xg [S, T, G], mask, W_r [G, P], W_rm [P, C], peep [3, C], c0,
+    # r0; out: ys [S, T, P], c_T, r_T; all float32.  Per frame and stream
+    # r_prev . W_r^T and m . W_rm^T: 2 (GP + PC) float32 FLOP
+    G = 4 * C
+    nbytes = 4 * (S * T * (G + 1 + P) + G * P + P * C + 3 * C
+                  + 2 * S * (C + P))
+    return bound([(2 * S * T * (G * P + P * C), PEAK_F32)], nbytes)
+
+
+def bilstmp_fwd_bound(S, T, D, C, P):
+    # in: x [S, T, D], W_x [2, G, D], W_r [2, G, P], W_rm [2, P, C] bf16,
+    # mask, peep [2, 3, C], bias [2, G], init_c, init_r f32; out: ys
+    # [S, T, 2P], gates [2, S, T, G], cs [2, S, T, C], rprev [2, S, T, P]
+    # bf16, c_T, r_T f32.  Per direction, frame and stream x . W_x^T,
+    # r_prev . W_r^T, m . W_rm^T: 2 (GD + GP + PC) FLOP on bf16 operands
+    G = 4 * C
+    nbytes = (2 * (S * T * D + 2 * (G * D + G * P + P * C))
+              + 4 * (S * T + 2 * (3 * C + G) + 2 * S * (C + P))
+              + 2 * (S * T * 2 * P + 2 * S * T * (G + C + P)))
+    return bound([(2 * 2 * S * T * (G * D + G * P + P * C), PEAK_BF16)],
+                 nbytes)
+
+
+def bilstmp_bwd_bound(S, T, D, C, P, dirs=2):
+    # in (per direction but x, mask and the state cotangents): dy
+    # [S, T, P], x [S, T, D], gates [S, T, G], cs [S, T, C], rprev
+    # [S, T, P], W_x, W_r, W_rm bf16, mask, peep, init_c, d_c_T, d_r_T
+    # f32; out: dx [S, T, D] bf16, d_init_c, d_init_r, dW_x, dW_r, dW_rm,
+    # dbias, dpeep f32.  Per direction, frame and stream the sweep's
+    # dr_new . W_rm and dgates . W_r, then dx, dW_x, dW_r, dW_rm:
+    # 2 (PC + GP + 2GD + GP + PC) FLOP on bf16 operands
+    G = 4 * C
+    nbytes = (2 * (dirs * S * T * (P + G + C + P) + S * T * D
+                   + dirs * (G * D + G * P + P * C) + S * T * D)
+              + 4 * (S * T + dirs * 3 * C + 2 * S * C + S * P
+                     + S * (C + P)
+                     + dirs * (G * D + G * P + P * C + G + 3 * C)))
+    flop = dirs * 2 * S * T * (2 * P * C + 2 * G * P + 2 * G * D)
+    return bound([(flop, PEAK_BF16)], nbytes)
+
+
+def xg_fwd_bound(S, T, C, P, mxu_bf16):
+    # in: xgf, xgb [S, T, G] bf16, mask, W_r [2, G, P], W_rm [2, P, C],
+    # peep, bias, init_c, init_r f32; out: ys, gates, cs, rprev bf16, c_T,
+    # r_T f32.  Per direction, frame and stream 2 (GP + PC) FLOP on bf16
+    # or float32 operands
+    G = 4 * C
+    nbytes = (2 * 2 * S * T * G
+              + 4 * (S * T + 2 * (G * P + P * C + 3 * C + G)
+                     + 2 * S * (C + P))
+              + 2 * (S * T * 2 * P + 2 * S * T * (G + C + P)))
+    return bound([(2 * 2 * S * T * (G * P + P * C),
+                   PEAK_BF16 if mxu_bf16 else PEAK_F32)], nbytes)
+
+
+def xg_bwd_bound(S, T, C, P, mxu_bf16):
+    # in: dy [S, T, 2P], gates, cs, rprev bf16, mask, W_r, W_rm, peep,
+    # init_c, d_c_T, d_r_T f32; out: dxg [2, S, T, G] bf16, d_init_c,
+    # d_init_r, dW_r, dW_rm, dbias, dpeep f32.  Per direction, frame and
+    # stream the sweep's 2 (PC + GP) FLOP on bf16 or float32 operands and
+    # the dW_r, dW_rm reductions' 2 (GP + PC) on bf16 values
+    G = 4 * C
+    nbytes = (2 * (S * T * 2 * P + 2 * S * T * (G + C + P))
+              + 4 * (S * T + 2 * (G * P + P * C + 3 * C) + 2 * S * C
+                     + S * P)
+              + 2 * 2 * S * T * G
+              + 4 * (S * C + S * P + 2 * (G * P + P * C + G + 3 * C)))
+    flop = 2 * 2 * S * T * (P * C + G * P)
+    return bound([(flop, PEAK_BF16 if mxu_bf16 else PEAK_F32),
+                  (flop, PEAK_BF16)], nbytes)
+
+
+def lstmp_train_bound(kind, S, T, C, P, bf16):
+    # fwd in: xg [S, T, G], mask, W_r, W_rm, peep, init_c, init_r; out:
+    # gates [T, S, G], cs, rs.  bwd in: dy [S, T, P], mask, gates, cs, rs,
+    # W_r, W_rm, peep, init_c, init_r, d_c_T, d_r_T; out: dxg, d_init_c,
+    # d_init_r, dW_r, dW_rm, dpeep.  Streams in the storage type (4 or 2
+    # bytes), the rest f32.  fwd: 2 (GP + PC) FLOP per frame and stream;
+    # bwd: the sweep's 2 (PC + GP) and the reductions' 2 (GP + PC)
+    G, st = 4 * C, 2 if bf16 else 4
+    peak = PEAK_BF16 if bf16 else PEAK_F32
+    weights = 4 * (G * P + P * C + 3 * C)
+    flop = 2 * S * T * (G * P + P * C)
+    if kind == "fwd":
+        nbytes = (st * S * T * (2 * G + C + P) + 4 * S * T + weights
+                  + 4 * S * (C + P))
+        return bound([(flop, peak)], nbytes)
+    nbytes = (st * S * T * (P + 2 * G + C + P) + 4 * S * T + 2 * weights
+              + 4 * 2 * S * (C + P) + 4 * S * (C + P))
+    return bound([(flop, peak), (flop, peak)], nbytes)
+
+
+def ctc_bound(S, T, U):
+    # in: lp_t [T, S, U'] and skip_ok [S, U'] f32, the two length vectors;
+    # out: alpha or beta [T, S, U'] f32 (U' = 2U + 1).  Per (t, s, u) a
+    # three-way log-sum-exp plus the emission: about 12 float32 operations
+    Up = 2 * U + 1
+    return bound([(12 * T * S * Up, PEAK_F32)],
+                 4 * (2 * T * S * Up + S * Up + 2 * S))
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -237,8 +425,13 @@ def kernel_phase(dev):
 def write_model_and_graph(workdir: str):
     """Flagship zip (port's Nnet.save, JAX zip format), tid2pdf LUT, a
     CTC TLG over 71 phones + blank and 200 words, and the word table."""
-    from kaldi_aslp_tpu.fst import Lang, Lexicon, make_unigram_grammar
-    from kaldi_aslp_tpu.fst.ctc_graph import ctc_lut, make_ctc_decode_graph
+    from kaldi_aslp_tpu_torch.fst import (
+        Lang,
+        Lexicon,
+        ctc_lut,
+        make_ctc_decode_graph,
+        make_unigram_grammar,
+    )
     from kaldi_aslp_tpu_torch.models.flagship import build_blstm_ctc
     from kaldi_aslp_tpu_torch.models.interop import params_from_jax
 
@@ -520,6 +713,157 @@ def train_kernel_phase(dev):
                           "ms": ms, "plain_ms": plain_ms}]
         log("train_kernel", name=name, S=S, T=T, U=U, V=V, max_abs_err=err,
             tol=CTC_TOL, ms=ms, plain_ms=plain_ms)
+
+    # the yardstick: one PyTorch call for the same loss and gradient, the
+    # pair's recursions together (the port never calls it)
+    lp = log_probs.transpose(0, 1).contiguous().requires_grad_()
+    lengths = (torch.from_numpy(in_lens).long().to(dev),
+               torch.from_numpy(lab_lens).long().to(dev))
+
+    def library():
+        lp.grad = None
+        torch.nn.functional.ctc_loss(lp, labels.long(), *lengths,
+                                     reduction="sum").backward()
+    results["ctc_library_ms"] = cuda_ms(library, 10)
+    log("train_kernel", name="F.ctc_loss forward+backward", S=S, T=T, U=U,
+        V=V, ms=results["ctc_library_ms"])
+    return results
+
+
+def hold_xg(name, got, want, names, mxu_bf16):
+    """:func:`hold` at TRAIN_KERNEL_RTOL with bf16 products; with float32
+    products the tighter bounds of XG_F32_RTOL and XG_BF16_SHARE."""
+    if mxu_bf16:
+        return hold(name, got, want, names, TRAIN_KERNEL_RTOL)
+    worst, rel = 0.0, {}
+    for n, g, w in zip(names, got, want):
+        kind = ("bf16" if g.dtype == torch.bfloat16 else
+                "reduction" if n in ("dwr", "dwrm") else "kernel_f32")
+        err, r = hold(name, [g], [w], [n], XG_F32_RTOL[kind])
+        worst, rel[n] = max(worst, err), r[n]
+        share = float((g != w).float().mean())
+        if kind == "bf16" and share > XG_BF16_SHARE:
+            raise RuntimeError(f"{name} {n}: {share} of the bf16 values "
+                               f"differ, more than {XG_BF16_SHARE}")
+    return worst, rel
+
+
+# -- phase 6b ----------------------------------------------------------------
+
+def xg_train_kernel_phase(dev):
+    from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
+    from kaldi_aslp_tpu_torch.ops import bilstmp_xg_train as xt
+
+    bf16, G = torch.bfloat16, 4 * C
+    results = {"fwd": [], "bwd": [], "bwd_dir": []}
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def ragged_mask(rs, S, T):
+        lens = rs.randint(T // 4, T + 1, size=S)
+        lens[0] = T
+        return t((np.arange(T)[None, :] < lens[:, None]).astype(np.float32))
+
+    for S, T in XG_SHAPES:
+        for mxu in (True, False):
+            rs = np.random.RandomState(S * 1000 + T + 2 + mxu)
+            mask = ragged_mask(rs, S, T)
+            fwd_args = (t(rs.randn(S, T, G).astype(np.float32)).to(bf16),
+                        t(rs.randn(S, T, G).astype(np.float32)).to(bf16),
+                        mask, t(uniform(rs, 2, G, P)), t(uniform(rs, 2, P, C)),
+                        t(uniform(rs, 2, 3, C)), t(uniform(rs, 2, G)),
+                        t(uniform(rs, S, C, scale=0.5)),
+                        t(uniform(rs, S, P, scale=0.5)), 50.0, mxu)
+            _, _, _, wr, wrm, peep, _, init_c, *_ = fwd_args
+            got = xt.bilstmp_xg_train_fwd(*fwd_args)
+            want = xt.bilstmp_xg_train_fwd_reference(*fwd_args)
+            torch.cuda.synchronize()
+            err_f, rel_f = hold_xg("bilstmp_xg_train_fwd", got, want,
+                                   ("ys", "gates", "cs", "rprev", "c_T",
+                                    "r_T"), mxu)
+            _, gates, cs, rprev, _, _ = want
+            bwd_args = (t(rs.randn(S, T, 2 * P).astype(np.float32)).to(bf16),
+                        mask, gates, cs, rprev, wr, wrm, peep, init_c,
+                        t(rs.randn(S, C).astype(np.float32)),
+                        t(rs.randn(S, P).astype(np.float32)), 50.0, mxu)
+            got = xt.bilstmp_xg_train_bwd(*bwd_args)
+            want = xt.bilstmp_xg_train_bwd_reference(*bwd_args)
+            torch.cuda.synchronize()
+            err_b, rel_b = hold_xg("bilstmp_xg_train_bwd", got, want,
+                                   ("dxg", "d_init_c", "d_init_r", "dwr",
+                                    "dwrm", "dbias", "dpeep"), mxu)
+            del got, want
+            reps = 3 if S * T > 10000 else 5
+            times = {
+                "fwd": (cuda_ms(lambda: xt.bilstmp_xg_train_fwd(*fwd_args),
+                                reps, 1),
+                        cuda_ms(lambda: xt.bilstmp_xg_train_fwd_reference(
+                            *fwd_args), 2, 1)),
+                "bwd": (cuda_ms(lambda: xt.bilstmp_xg_train_bwd(*bwd_args),
+                                reps, 1),
+                        cuda_ms(lambda: xt.bilstmp_xg_train_bwd_reference(
+                            *bwd_args), 2, 1))}
+            for kind, err, rel in (("fwd", err_f, rel_f),
+                                   ("bwd", err_b, rel_b)):
+                ms, plain_ms = times[kind]
+                results[kind].append({"S": S, "T": T, "mxu_bf16": mxu,
+                                      "max_abs_err": err, "ms": ms,
+                                      "plain_ms": plain_ms})
+                log("xg_train_kernel", name=f"bilstmp_xg_train_{kind}", S=S,
+                    T=T, C=C, P=P, mxu_bf16=mxu, rel_err=rel,
+                    rtol=TRAIN_KERNEL_RTOL if mxu else XG_F32_RTOL, ms=ms,
+                    plain_ms=plain_ms)
+
+    names = ("dx", "d_init_c", "d_init_r", "dwx", "dwr", "dwrm", "dbias",
+             "dpeep")
+    for S, T, D in TRAIN_SHAPES:
+        rs = np.random.RandomState(S * 1000 + T + D + 3)
+        mask = ragged_mask(rs, S, T)
+        fwd_args = (t(rs.randn(S, T, D).astype(np.float32)).to(bf16), mask,
+                    t(uniform(rs, 2, G, D)).to(bf16),
+                    t(uniform(rs, 2, G, P)).to(bf16),
+                    t(uniform(rs, 2, P, C)).to(bf16), t(uniform(rs, 2, 3, C)),
+                    t(uniform(rs, 2, G)), t(uniform(rs, S, C, scale=0.5)),
+                    t(uniform(rs, S, P, scale=0.5)))
+        x, _, wx, wr, wrm, peep, _, init_c, _ = fwd_args
+        _, gates, cs, rprev, _, _ = bt.bilstmp_train_fwd(*fwd_args)
+        dy = t(rs.randn(S, T, 2 * P).astype(np.float32)).to(bf16)
+        dc = t(rs.randn(S, C).astype(np.float32))
+        dr = t(rs.randn(S, P).astype(np.float32))
+        fused = bt.bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr,
+                                     wrm, peep, init_c, dc, dr)
+        zc, zr = torch.zeros_like(dc), torch.zeros_like(dr)
+        dir_args, halves, err, rel = [], [], 0.0, {}
+        for d in range(2):
+            args = (d, dy, mask, x, gates[d], cs[d], rprev[d], wx[d], wr[d],
+                    wrm[d], peep[d], init_c if d == 0 else zc,
+                    dc if d == 0 else zc, dr if d == 0 else zr)
+            got = bt.bilstmp_train_bwd_dir(*args)
+            want = bt.bilstmp_train_bwd_dir_reference(*args)
+            torch.cuda.synchronize()
+            e, r = hold(f"bilstmp_train_bwd_dir[{d}]", got, want, names,
+                        TRAIN_KERNEL_RTOL)
+            err, rel[d] = max(err, e), r
+            dir_args.append(args)
+            halves.append(got)
+        split = [(halves[0][0].float() + halves[1][0].float()).to(bf16),
+                 halves[0][1], halves[0][2],
+                 *(torch.stack([h[k] for h in halves]) for k in range(3, 8))]
+        vs_fused = max(float((g.float() - w.float()).abs().max())
+                       for g, w in zip(split, fused))
+        del fused, halves, split, got, want
+        reps = 3 if S * T > 10000 else 5
+        ms = cuda_ms(lambda: bt.bilstmp_train_bwd_dir(*dir_args[0]), reps, 1)
+        plain_ms = cuda_ms(
+            lambda: bt.bilstmp_train_bwd_dir_reference(*dir_args[0]), 2, 1)
+        results["bwd_dir"].append({"S": S, "T": T, "D": D,
+                                   "max_abs_err": err, "ms": ms,
+                                   "plain_ms": plain_ms,
+                                   "vs_fused_max_abs": vs_fused})
+        log("xg_train_kernel", name="bilstmp_train_bwd_dir", S=S, T=T, D=D,
+            C=C, P=P, rel_err=rel, rtol=TRAIN_KERNEL_RTOL,
+            split_vs_fused_max_abs=vs_fused, ms_d0=ms, plain_ms_d0=plain_ms)
     return results
 
 
@@ -565,25 +909,34 @@ def write_train_files(workdir: str):
 
 
 def train_counts():
-    from kaldi_aslp_tpu_torch.ops.bilstmp_train import (
-        bilstmp_train_bwd,
-        bilstmp_train_fwd,
+    """Every training kernel's wrapper, by name."""
+    from kaldi_aslp_tpu_torch.ops import (
+        bilstmp_train,
+        bilstmp_xg_train,
+        ctc_alpha_beta,
+        lstmp_train,
     )
-    from kaldi_aslp_tpu_torch.ops.ctc_alpha_beta import ctc_alpha, ctc_beta
-    return {"bilstmp_train_fwd": bilstmp_train_fwd,
-            "bilstmp_train_bwd": bilstmp_train_bwd,
-            "ctc_alpha": ctc_alpha, "ctc_beta": ctc_beta}
+    return {"bilstmp_train_fwd": bilstmp_train.bilstmp_train_fwd,
+            "bilstmp_train_bwd": bilstmp_train.bilstmp_train_bwd,
+            "bilstmp_train_bwd_dir": bilstmp_train.bilstmp_train_bwd_dir,
+            "bilstmp_xg_train_fwd": bilstmp_xg_train.bilstmp_xg_train_fwd,
+            "bilstmp_xg_train_bwd": bilstmp_xg_train.bilstmp_xg_train_bwd,
+            "lstmp_train_fwd": lstmp_train.lstmp_train_fwd,
+            "lstmp_train_bwd": lstmp_train.lstmp_train_bwd,
+            "ctc_alpha": ctc_alpha_beta.ctc_alpha,
+            "ctc_beta": ctc_alpha_beta.ctc_beta}
 
 
-def train_phase(model, feats, labels, workdir):
+def train_phase(model, feats, labels, workdir, switch=None):
+    """The CTC CLI's run, with ``switch`` set (None: no switch)."""
     from kaldi_aslp_tpu_torch.cli.__main__ import main as cli_main
     from kaldi_aslp_tpu_torch.models import Nnet
     from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
     from kaldi_aslp_tpu_torch.train.trainer import CtcTrainer
 
     wrappers = train_counts()
-    per_step_want = {"bilstmp_train_fwd": LAYERS, "bilstmp_train_bwd": LAYERS,
-                     "ctc_alpha": 1, "ctc_beta": 1}
+    per_step_want = {n: TRAIN_RUNS[switch].get(n, 0) for n in wrappers}
+    per_step_want.update(ctc_alpha=1, ctc_beta=1)
     steps = []
     inner = CtcTrainer.step
 
@@ -599,19 +952,20 @@ def train_phase(model, feats, labels, workdir):
                                    for n, w in wrappers.items()}})
         return torch.tensor(loss), aux
 
-    out = f"{workdir}/trained.zip"
+    out = f"{workdir}/trained-{switch or 'default'}.zip"
     CtcTrainer.step = step
     try:
-        for w in (*wrappers.values(), lstmp_forward):
-            w.launches = 0
-        rc = cli_main(["aslp-nnet-train-ctc-streams", "--device=cuda",
-                       "--momentum=0.9", f"--num-streams={TRAIN_STREAMS}",
-                       feats, labels, model, out])
-        launches = {n: w.launches for n, w in wrappers.items()}
+        with switch_env(switch):
+            for w in (*wrappers.values(), lstmp_forward):
+                w.launches = 0
+            rc = cli_main(["aslp-nnet-train-ctc-streams", "--device=cuda",
+                           "--momentum=0.9", f"--num-streams={TRAIN_STREAMS}",
+                           feats, labels, model, out])
+            launches = {n: w.launches for n, w in wrappers.items()}
     finally:
         CtcTrainer.step = inner
     for i, st in enumerate(steps):
-        log("train_step", index=i, **st)
+        log("train_step", switch=switch, index=i, **st)
     if rc != 0 or len(steps) < TRAIN_STEPS:
         raise RuntimeError(f"trainer exit {rc}, {len(steps)} steps")
     for st in steps:
@@ -634,14 +988,14 @@ def train_phase(model, feats, labels, workdir):
         moved = max(moved, float((p - q).abs().max()))
     if moved == 0.0:
         raise RuntimeError("the written model equals the initial one")
-    log("train", steps=len(steps), losses=losses, launches=launches,
-        max_param_change=moved)
+    log("train", switch=switch, steps=len(steps), losses=losses,
+        launches=launches, max_param_change=moved)
     return launches
 
 
 # -- phase 8 -----------------------------------------------------------------
 
-def train_cross_check(model, feats, labels):
+def train_cross_check(model, feats, labels, switch=None):
     from kaldi_aslp_tpu_torch.cli.train_tools import ctc_source
     from kaldi_aslp_tpu_torch.data.sequence import (
         CtcBatcher,
@@ -658,16 +1012,18 @@ def train_cross_check(model, feats, labels):
         net, _ = Nnet.load(model, device)
         net.train()
         dev_batch = upload(batch, torch.device(device))
-        y, _ = net(dev_batch[0], mask=dev_batch[4])
-        loss, _ = ctc_batch_loss(y, *dev_batch[1:4])
-        loss.backward()
+        with switch_env(switch):
+            y, _ = net(dev_batch[0], mask=dev_batch[4])
+            loss, _ = ctc_batch_loss(y, *dev_batch[1:4])
+            loss.backward()
         out[device] = (float(loss.detach()), {n: p.grad.cpu() for n, p in
                                      net.named_parameters()})
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     grad_rel = {n: rel_err(g, out["cpu"][1][n])
                 for n, g in out["cuda"][1].items()}
     worst = max(grad_rel, key=grad_rel.get)
-    log("train_check", streams=4, frames=int(batch.input_lengths.sum()),
+    log("train_check", switch=switch, streams=4,
+        frames=int(batch.input_lengths.sum()),
         loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0], loss_rel=loss_rel,
         worst_grad=worst, worst_grad_rel=grad_rel[worst],
         tol={"loss": CROSS_LOSS_RTOL, "grad": CROSS_GRAD_RTOL})
@@ -678,8 +1034,14 @@ def train_cross_check(model, feats, labels):
 
 # -- phase 9 -----------------------------------------------------------------
 
-def step_split(model, dev):
-    """One flagship step at the bench's shape, split by CUDA events."""
+def step_split(model, dev, switch=None):
+    """One flagship step at the bench's shape, split by CUDA events, with
+    ``switch`` set (None: no switch)."""
+    with switch_env(switch):
+        return _step_split(model, dev, switch)
+
+
+def _step_split(model, dev, switch):
     from kaldi_aslp_tpu_torch.models import Nnet
     from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
     from kaldi_aslp_tpu_torch.train import CtcTrainer, init_velocity
@@ -720,7 +1082,8 @@ def step_split(model, dev):
         splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
     med = np.median(np.asarray(splits), axis=0)
     step_ms = float(med.sum())
-    log("step_split", S=S, T=T, U=U, forward_ms=float(med[0]),
+    log("step_split", switch=switch, S=S, T=T, U=U,
+        forward_ms=float(med[0]),
         loss_ms=float(med[1]), backward_ms=float(med[2]),
         update_ms=float(med[3]), step_ms=step_ms,
         audio_s_per_s=S * T * 0.01 / (step_ms / 1e3),
@@ -733,9 +1096,12 @@ def lstm_train_kernel_phase(dev):
     from kaldi_aslp_tpu_torch.ops import lstmp_train as lt
 
     results = {"fwd": [], "bwd": []}
-    for S, T, bf16 in LSTM_TRAIN_SHAPES:
+    # (S, T, bf16 storage, bf16 products, strict check)
+    rows = [(S, T, bf16, bf16, False) for S, T, bf16 in LSTM_TRAIN_SHAPES]
+    rows.append((*LSTM_F32_PRODUCTS_SHAPE, True, False, True))
+    for S, T, bf16, mxu, strict in rows:
         fwd_args, bwd_args, (err_f, rel_f, share_f), (err_b, rel_b, share_b) \
-            = lstm_train_kernel_check(dev, S, T, bf16)
+            = lstm_train_kernel_check(dev, S, T, bf16, strict, mxu)
         reps = 3 if T > 100 else 10
         times = {
             "fwd": (cuda_ms(lambda: lt.lstmp_train_fwd(*fwd_args), reps, 1),
@@ -748,16 +1114,16 @@ def lstm_train_kernel_phase(dev):
                                       ("bwd", err_b, rel_b, share_b)):
             ms, plain_ms = times[kind]
             results[kind].append({"S": S, "T": T, "bf16": bf16,
-                                  "max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms})
+                                  "mxu_bf16": mxu, "max_abs_err": err,
+                                  "ms": ms, "plain_ms": plain_ms})
             log("lstm_train_kernel", name=f"lstmp_train_{kind}", S=S, T=T,
-                C=HYBRID_C, P=HYBRID_P, bf16=bf16, rel_err=rel,
-                differing_share=share,
+                C=HYBRID_C, P=HYBRID_P, bf16=bf16, mxu_bf16=mxu,
+                strict=strict, rel_err=rel, differing_share=share,
                 rtol=LSTM_BF16_RTOL if bf16 else LSTM_F32_RTOL, ms=ms,
                 plain_ms=plain_ms)
     S, T = LSTM_ROUNDING_SHAPE
     *_, (err_f, rel_f, share_f), (err_b, rel_b, share_b) = \
-        lstm_train_kernel_check(dev, S, T, True, one_frame=True)
+        lstm_train_kernel_check(dev, S, T, True, strict=True)
     log("lstm_rounding_check", S=S, T=T, C=HYBRID_C, P=HYBRID_P,
         rel_err={**rel_f, **rel_b}, differing_share={**share_f, **share_b},
         tol={"f32": LSTM_F32_RTOL, "bf16": LSTM_BF16_RTOL,
@@ -768,11 +1134,13 @@ def lstm_train_kernel_phase(dev):
     return results
 
 
-def lstm_train_kernel_check(dev, S, T, bf16, one_frame=False):
+def lstm_train_kernel_check(dev, S, T, bf16, strict=False, mxu_bf16=None):
     """Both training kernels against their plain versions at the LSTM
     hybrid's widths, ragged masks, a nonzero initial state and nonzero
-    final-state cotangents: (fwd_args, bwd_args, fwd reading, bwd
-    reading), each reading as :func:`hold_lstm` returns it."""
+    final-state cotangents, bf16 storage or not, with the products
+    ``mxu_bf16`` picks (None: the storage's own): (fwd_args, bwd_args, fwd
+    reading, bwd reading), each reading as :func:`hold_lstm` returns
+    it."""
     from kaldi_aslp_tpu_torch.ops import lstmp_train as lt
 
     C_, P_ = HYBRID_C, HYBRID_P
@@ -787,41 +1155,43 @@ def lstm_train_kernel_check(dev, S, T, bf16, one_frame=False):
     fwd_args = (t(rs.randn(S, T, 4 * C_).astype(np.float32)).to(st),
                 mask, t(uniform(rs, 4 * C_, P_)), t(uniform(rs, P_, C_)),
                 t(uniform(rs, 3, C_)), t(uniform(rs, S, C_, scale=0.5)),
-                t(uniform(rs, S, P_, scale=0.5)))
+                t(uniform(rs, S, P_, scale=0.5)), 50.0, mxu_bf16)
     got = lt.lstmp_train_fwd(*fwd_args)
     want = lt.lstmp_train_fwd_reference(*fwd_args)
     torch.cuda.synchronize()
     fwd = hold_lstm("lstmp_train_fwd", got, want, ("gates", "cs", "rs"),
-                    bf16, one_frame)
-    _, mask, w_r, w_rm, peep, c0, r0 = fwd_args
+                    bf16, strict)
+    _, mask, w_r, w_rm, peep, c0, r0, *_ = fwd_args
     bwd_args = (t(rs.randn(S, T, P_).astype(np.float32)).to(st), mask,
                 *want, w_r, w_rm, peep, c0, r0,
                 t(rs.randn(S, C_).astype(np.float32)),
-                t(rs.randn(S, P_).astype(np.float32)))
+                t(rs.randn(S, P_).astype(np.float32)), 50.0, mxu_bf16)
     got = lt.lstmp_train_bwd(*bwd_args)
     want = lt.lstmp_train_bwd_reference(*bwd_args)
     torch.cuda.synchronize()
     bwd = hold_lstm("lstmp_train_bwd", got, want,
                     ("dxg", "d_init_c", "d_init_r", "d_w_gifo_r", "d_w_r_m",
-                     "dpeep"), bf16, one_frame)
+                     "dpeep"), bf16, strict)
     return fwd_args, bwd_args, fwd, bwd
 
 
-def hold_lstm(name: str, got, want, names, bf16: bool, one_frame: bool):
+def hold_lstm(name: str, got, want, names, bf16: bool, strict: bool):
     """:func:`hold` at LSTM_F32_RTOL in float32 and LSTM_BF16_RTOL in
-    bf16; on ``one_frame`` in bf16, the rounding check instead (see
-    LSTM_BF16_SHARE).  Returns the largest absolute error, and each
-    output's relative error and share of differing elements."""
+    bf16; ``strict`` in bf16 storage, the rounding check instead (see
+    LSTM_BF16_SHARE): on one frame with bf16 products, or on any number
+    of frames with float32 products, where no rounding feeds the
+    recurrence.  Returns the largest absolute error, and each output's
+    relative error and share of differing elements."""
     worst, rel, share = 0.0, {}, {}
     for n, g, w in zip(names, got, want):
         bf16_valued = g.dtype == torch.bfloat16
         kernel_f32 = not bf16_valued and n not in LSTM_REDUCTIONS
-        rtol = LSTM_BF16_RTOL if bf16 and not (one_frame and kernel_f32) \
+        rtol = LSTM_BF16_RTOL if bf16 and not (strict and kernel_f32) \
             else LSTM_F32_RTOL
         err, r = hold(name, [g], [w], [n], rtol)
         worst, rel[n] = max(worst, err), r[n]
         share[n] = float((g != w).float().mean())
-        if one_frame and bf16_valued and share[n] > LSTM_BF16_SHARE:
+        if strict and bf16_valued and share[n] > LSTM_BF16_SHARE:
             raise RuntimeError(f"{name} {n}: {share[n]} of the bf16 values "
                                f"differ, more than {LSTM_BF16_SHARE}")
     return worst, rel, share
@@ -1125,22 +1495,34 @@ def bptt_step_split(model, dev):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def kernel_record(name, source, replaces, launches, rows, timed=None):
-    """The kernel's JSON entry: the largest error over ``rows``, the times
-    of ``timed`` (by default the last row, the bench's shape)."""
-    timed = timed or rows[-1]
+NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
+              "clipping (torch.nn.LSTM with proj_size has neither)")
+
+
+def kernel_record(name, source, replaces, runs, rows, timed, bound_at,
+                  library_ms=None, library_note=NO_LIBRARY, **extra):
+    """The kernel's JSON entry: its launches summed over the CLI runs
+    ``runs`` ({run: launches}, each run's counts set to 0 just before it
+    and read just after), the largest error over ``rows``, the times of
+    ``timed`` and the bound ``bound_at`` = (ms, what binds it) at the
+    same shape."""
     return {"name": name, "route": "cuda",
             "source": "kaldi_aslp_tpu_torch/csrc/" + source,
             "replaces": "kaldi_aslp_tpu/ops/" + replaces,
-            "launches": launches,
+            "launches": sum(runs.values()), "launches_by_run": runs,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"]}
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": bound_at[0], "bound_by": bound_at[1],
+            "library_ms": library_ms,
+            **({} if library_ms is not None
+               else {"library_note": library_note}), **extra}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = smi_name_and_power()
     print(smi, flush=True)
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
@@ -1152,6 +1534,7 @@ def main() -> int:
 
     from kaldi_aslp_tpu_torch.ops import (
         bilstmp_train,
+        bilstmp_xg_train,
         build,
         ctc_alpha_beta,
         lstmp,
@@ -1159,7 +1542,8 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
-    modules = (lstmp, bilstmp_train, ctc_alpha_beta, lstmp_train)
+    modules = (lstmp, bilstmp_train, ctc_alpha_beta, lstmp_train,
+               bilstmp_xg_train)
     with ThreadPoolExecutor(len(modules)) as pool:
         for future in [pool.submit(m.build) for m in modules]:
             future.result()
@@ -1172,33 +1556,71 @@ def main() -> int:
         launches, recorded = slice_phase(paths, "cuda")
         cross_check(paths, recorded)
         train_results = train_kernel_phase(dev)
+        xg_results = xg_train_kernel_phase(dev)
         model, feats, labels = write_train_files(workdir)
-        train_launches = train_phase(model, feats, labels, workdir)
+        runs = {"default": train_phase(model, feats, labels, workdir)}
         train_cross_check(model, feats, labels)
         step_split(model, dev)
+        for switch in SWITCHES:
+            runs[switch] = train_phase(model, feats, labels, workdir, switch)
+        for switch in SWITCHES:
+            train_cross_check(model, feats, labels, switch)
+        for switch in SWITCHES:
+            step_split(model, dev, switch)
         lstm_results = lstm_train_kernel_phase(dev)
         model, feats, targets = write_bptt_files(workdir)
         bptt_launches = bptt_train_phase(model, feats, targets, workdir)
         bptt_cross_check(model, feats, targets)
         bptt_step_split(model, dev)
+    records = kernel_records(launches, runs, bptt_launches, kernel_results,
+                             train_results, xg_results, lstm_results)
+    log("total", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": records}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
+                   train_results, xg_results, lstm_results):
+    """The ten kernels' JSON entries from the phases' results."""
+    def launched(name):
+        return {run: n[name] for run, n in runs.items() if n[name]}
 
     served = next(r for r in kernel_results if (r["S"], r["T"]) == (1, 16)
                   and r["D"] == 2 * P)
+    S, T, D = TRAIN_SHAPES[-1]
+    xg = {(kind, r["mxu_bf16"]): r for kind in ("fwd", "bwd")
+          for r in xg_results[kind] if (r["S"], r["T"]) == (S, T)}
+    ctc = CTC_SHAPE
+    ctc_note = ("F.ctc_loss forward and backward at CTC_SHAPE: the same "
+                "loss and gradient from the same recursions, one figure "
+                "for the alpha and beta pair")
     records = [
         kernel_record("lstmp_forward", "lstmp_forward.cu",
-                      "lstm_pallas.py:43", launches, kernel_results, served),
+                      "lstm_pallas.py:43", {"serving": serving_launches},
+                      kernel_results, served,
+                      lstmp_forward_bound(1, 16, C, P)),
         kernel_record("bilstmp_train_fwd", "bilstmp_train.cu",
-                      "lstm_pallas.py:1037",
-                      train_launches["bilstmp_train_fwd"],
-                      train_results["fwd"]),
+                      "lstm_pallas.py:1037", launched("bilstmp_train_fwd"),
+                      train_results["fwd"], train_results["fwd"][-1],
+                      bilstmp_fwd_bound(S, T, D, C, P)),
         kernel_record("bilstmp_train_bwd", "bilstmp_train.cu",
-                      "lstm_pallas.py:1261",
-                      train_launches["bilstmp_train_bwd"],
-                      train_results["bwd"]),
+                      "lstm_pallas.py:1261", launched("bilstmp_train_bwd"),
+                      train_results["bwd"], train_results["bwd"][-1],
+                      bilstmp_bwd_bound(S, T, D, C, P)),
         kernel_record("ctc_alpha", "ctc_alpha_beta.cu", "ctc_pallas.py:44",
-                      train_launches["ctc_alpha"], train_results["ctc_alpha"]),
+                      launched("ctc_alpha"), train_results["ctc_alpha"],
+                      train_results["ctc_alpha"][-1],
+                      ctc_bound(ctc[0], ctc[1], ctc[2]),
+                      train_results["ctc_library_ms"], ctc_note),
         kernel_record("ctc_beta", "ctc_alpha_beta.cu", "ctc_pallas.py:65",
-                      train_launches["ctc_beta"], train_results["ctc_beta"]),
+                      launched("ctc_beta"), train_results["ctc_beta"],
+                      train_results["ctc_beta"][-1],
+                      ctc_bound(ctc[0], ctc[1], ctc[2]),
+                      train_results["ctc_library_ms"], ctc_note),
     ]
     for kind, line in (("fwd", 198), ("bwd", 234)):
         rows = lstm_results[kind]
@@ -1207,13 +1629,28 @@ def main() -> int:
                      (*BPTT_SPLIT_SHAPE, False))
         records.append(kernel_record(
             f"lstmp_train_{kind}", "lstmp_train.cu", f"lstm_pallas.py:{line}",
-            bptt_launches[f"lstmp_train_{kind}"], rows, timed))
-    print(json.dumps({"kernels": records}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+            {"bptt": bptt_launches[f"lstmp_train_{kind}"]}, rows, timed,
+            lstmp_train_bound(kind, *BPTT_SPLIT_SHAPE, HYBRID_C, HYBRID_P,
+                              False)))
+    for kind, line, fn in (("fwd", 561, xg_fwd_bound),
+                           ("bwd", 618, xg_bwd_bound)):
+        # timed at the bench's shape with bf16 products (NO_XFUSE's mode);
+        # the float32-products figures (MXU_FP32's) beside them
+        f32 = xg[kind, False]
+        records.append(kernel_record(
+            f"bilstmp_xg_train_{kind}", "bilstmp_xg_train.cu",
+            f"lstm_pallas.py:{line}", launched(f"bilstmp_xg_train_{kind}"),
+            xg_results[kind], xg[kind, True], fn(S, T, C, P, True),
+            ms_f32_products=f32["ms"], plain_ms_f32_products=f32["plain_ms"],
+            bound_ms_f32_products=fn(S, T, C, P, False)[0]))
+    records.append(kernel_record(
+        "bilstmp_train_bwd_dir", "bilstmp_train.cu", "lstm_pallas.py:1154",
+        launched("bilstmp_train_bwd_dir"), xg_results["bwd_dir"],
+        xg_results["bwd_dir"][-1], bilstmp_bwd_bound(S, T, D, C, P, dirs=1)))
+    missing = [r["name"] for r in records if not r["launches"]]
+    if missing:
+        raise RuntimeError(f"no CLI run launched {missing}")
+    return records
 
 
 if __name__ == "__main__":

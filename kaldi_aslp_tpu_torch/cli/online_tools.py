@@ -50,7 +50,7 @@ class SessionFactory:
     (kaldi_aslp_tpu/cli/online_tools.py:_build_session_factory)."""
 
     def __init__(self, flags: ServerFlags, args: Sequence[str]):
-        from kaldi_aslp_tpu.fst.fst import Fst, SymbolTable
+        from kaldi_aslp_tpu_torch.fst.fst import Fst, SymbolTable
         from kaldi_aslp_tpu_torch.decoder.decodable import (
             NnetForwardOptions,
             PdfPrior,

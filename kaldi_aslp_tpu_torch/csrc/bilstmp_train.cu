@@ -3,9 +3,15 @@
 //
 // Replaces the TPU kernels kaldi_aslp_tpu/ops/lstm_pallas.py:
 //   _bixfused_fwd_kernel  (through _bixfused_train_fwd and
-//                          bilstmp_xfused_train_core), and
+//                          bilstmp_xfused_train_core),
 //   _bixfused_bwd_kernel  (through _bixfused_train_bwd, the custom VJP of
-//                          _get_bixfused_core).
+//                          _get_bixfused_core), and
+//   _xfused_bwd_kernel    (through _xfused_train_bwd_dir: one direction's
+//                          backward, which that custom VJP runs once per
+//                          direction under KALDI_ASLP_LSTM_SPLIT_BWD).
+// The fused and the per-direction backward share their device code: a
+// backward launch covers the directions [d0, d0 + gridDim.z), so the two
+// give the same bits for a direction.
 // Both directions run in every step: direction f (d = 0) at frame t,
 // direction b (d = 1) at frame T-1-t from a zero state.  Per direction,
 // with bf16 operands and float32 sums, float32 cell math and state:
@@ -224,24 +230,22 @@ fwd_cell_kernel(int step, const float* __restrict__ xg,
     const float* x = xg + row * G;
     const size_t cj = ((size_t)d * S + sg) * C + j;
     const float cp = c_state[cj];
-    const float g = tanhf(b[j] + (x[j] + acc[0][s]));
-    const float i =
-        sigmoid_f32(b[C + j] + (x[C + j] + acc[1][s]) + pp[j] * cp);
-    const float f =
-        sigmoid_f32(b[2 * C + j] + (x[2 * C + j] + acc[2][s]) + pp[C + j] * cp);
-    float c = f * cp + i * g;
-    if (cell_clip > 0.0f) c = fminf(fmaxf(c, -cell_clip), cell_clip);
-    const float o = sigmoid_f32(b[3 * C + j] + (x[3 * C + j] + acc[3][s]) +
-                                pp[2 * C + j] * c);
+    // bias + (x . W_x^T + r_prev . W_r^T)
+    const float lin[4] = {b[j] + (x[j] + acc[0][s]),
+                          b[C + j] + (x[C + j] + acc[1][s]),
+                          b[2 * C + j] + (x[2 * C + j] + acc[2][s]),
+                          b[3 * C + j] + (x[3 * C + j] + acc[3][s])};
+    const CellForward r =
+        cell_forward(lin, cp, pp[j], pp[C + j], pp[2 * C + j], cell_clip);
     const float mk = mask[(size_t)sg * T + t];
-    const float cn = mk * c + (1.0f - mk) * cp;
+    const float cn = mk * r.c + (1.0f - mk) * cp;
     c_state[cj] = cn;
-    m_buf[cj] = round_bf16(o * tanhf(c));
+    m_buf[cj] = round_bf16(r.m);
     bf16* gr = gates + row * G;
-    gr[j] = __float2bfloat16(g);
-    gr[C + j] = __float2bfloat16(i);
-    gr[2 * C + j] = __float2bfloat16(f);
-    gr[3 * C + j] = __float2bfloat16(o);
+    gr[j] = __float2bfloat16(r.g);
+    gr[C + j] = __float2bfloat16(r.i);
+    gr[2 * C + j] = __float2bfloat16(r.f);
+    gr[3 * C + j] = __float2bfloat16(r.o);
     cs[row * C + j] = __float2bfloat16(cn);
   }
 }
@@ -301,7 +305,9 @@ fwd_proj_kernel(int step, const float* __restrict__ m_buf,
 
 // ---------------------------------------------------------------------------
 // Backward, one step of the reverse sweep: direction f at frame T-1-step,
-// direction b at frame step.
+// direction b at frame step.  Direction d = d0 + blockIdx.z; the
+// per-direction arrays (all but dy, mask and init_c) hold the launch's
+// directions only, so slot z = blockIdx.z indexes them.
 // ---------------------------------------------------------------------------
 
 // dm = bf16(dr_new) . W_rm (one warp per cell), then the cell's backward.
@@ -309,7 +315,7 @@ fwd_proj_kernel(int step, const float* __restrict__ m_buf,
 // dpeep per (stream, cell) into acc [2, S, 7C].
 template <int ST>
 __global__ void __launch_bounds__(kThreads)
-bwd_cell_kernel(int step, const bf16* __restrict__ dy,
+bwd_cell_kernel(int d0, int step, const bf16* __restrict__ dy,
                 const float* __restrict__ mask, const bf16* __restrict__ gates,
                 const bf16* __restrict__ cs, const float* __restrict__ init_c,
                 const bf16* __restrict__ wrm_t,
@@ -319,7 +325,7 @@ bwd_cell_kernel(int step, const bf16* __restrict__ dy,
                 bf16* __restrict__ dgates, bf16* __restrict__ m_out, int S,
                 int T, int C, int P, float cell_clip) {
   extern __shared__ float drn_sh[];  // [ST, P], bf16(dr_new)
-  const int d = blockIdx.z;
+  const int z = blockIdx.z, d = d0 + z;
   const int t = d == 0 ? T - 1 - step : step;
   const int s0 = blockIdx.y * ST;
   for (int idx = threadIdx.x; idx < ST * P; idx += blockDim.x) {
@@ -330,7 +336,7 @@ bwd_cell_kernel(int step, const bf16* __restrict__ dy,
       const float mk = mask[(size_t)sg * T + t];
       const float dyv = __bfloat162float(
           dy[((size_t)sg * T + t) * 2 * P + (size_t)d * P + p]);
-      v = round_bf16(mk * (dyv * mk + dr_state[((size_t)d * S + sg) * P + p]));
+      v = round_bf16(mk * (dyv * mk + dr_state[((size_t)z * S + sg) * P + p]));
     }
     drn_sh[idx] = v;
   }
@@ -343,7 +349,7 @@ bwd_cell_kernel(int step, const bf16* __restrict__ dy,
   float acc[ST];
 #pragma unroll
   for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-  const bf16* w_row = wrm_t + ((size_t)d * C + j) * P;
+  const bf16* w_row = wrm_t + ((size_t)z * C + j) * P;
   for (int p = lane; p < P; p += 32) {
     const float wv = __bfloat162float(w_row[p]);
 #pragma unroll
@@ -352,12 +358,12 @@ bwd_cell_kernel(int step, const bf16* __restrict__ dy,
 #pragma unroll
   for (int s = 0; s < ST; ++s) acc[s] = warp_sum(acc[s]);
 
-  const float* pp = peep + (size_t)d * 3 * C;
+  const float* pp = peep + (size_t)z * 3 * C;
 #pragma unroll
   for (int s = 0; s < ST; ++s) {
     const int sg = s0 + s;
     if (lane != s || sg >= S) continue;
-    const size_t row = ((size_t)d * S + sg) * T + t;
+    const size_t row = ((size_t)z * S + sg) * T + t;
     float cp;
     if (d == 0)
       cp = t > 0 ? __bfloat162float(cs[(row - 1) * C + j])
@@ -369,39 +375,26 @@ bwd_cell_kernel(int step, const bf16* __restrict__ dy,
     const float i = __bfloat162float(gr[C + j]);
     const float f = __bfloat162float(gr[2 * C + j]);
     const float o = __bfloat162float(gr[3 * C + j]);
-    const float cu = f * cp + i * g;
-    const float c =
-        cell_clip > 0.0f ? fminf(fmaxf(cu, -cell_clip), cell_clip) : cu;
-    const float tc = tanhf(c);
-    m_out[row * C + j] = __float2bfloat16(o * tc);
-
     const float mk = mask[(size_t)sg * T + t];
-    const size_t cj = ((size_t)d * S + sg) * C + j;
-    const float dcar = dc_state[cj];
-    const float dm = acc[s];
-    float dc = mk * dcar + dm * o * (1.0f - tc * tc);
-    const float do_lin = dm * tc * o * (1.0f - o);
-    dc = dc + do_lin * pp[2 * C + j];
-    const float dcu =
-        (cell_clip > 0.0f && !(fabsf(cu) < cell_clip)) ? 0.0f : dc;
-    const float di_lin = dcu * g * i * (1.0f - i);
-    const float df_lin = dcu * cp * f * (1.0f - f);
-    const float dg_lin = dcu * i * (1.0f - g * g);
-    dc_state[cj] = dcu * f + di_lin * pp[j] + df_lin * pp[C + j] +
-                   (1.0f - mk) * dcar;
+    const size_t cj = ((size_t)z * S + sg) * C + j;
+    const CellBackward b =
+        cell_backward(g, i, f, o, cp, acc[s], dc_state[cj], mk, pp[j],
+                      pp[C + j], pp[2 * C + j], cell_clip);
+    m_out[row * C + j] = __float2bfloat16(o * b.tc);
+    dc_state[cj] = b.dc_prev;
     bf16* dgr = dgates + row * G;
-    dgr[j] = __float2bfloat16(dg_lin);
-    dgr[C + j] = __float2bfloat16(di_lin);
-    dgr[2 * C + j] = __float2bfloat16(df_lin);
-    dgr[3 * C + j] = __float2bfloat16(do_lin);
-    float* a = acc_sum + ((size_t)d * S + sg) * 7 * C;
-    a[j] += dg_lin;
-    a[C + j] += di_lin;
-    a[2 * C + j] += df_lin;
-    a[3 * C + j] += do_lin;
-    a[4 * C + j] += di_lin * cp;
-    a[5 * C + j] += df_lin * cp;
-    a[6 * C + j] += do_lin * c;
+    dgr[j] = __float2bfloat16(b.dg);
+    dgr[C + j] = __float2bfloat16(b.di);
+    dgr[2 * C + j] = __float2bfloat16(b.df);
+    dgr[3 * C + j] = __float2bfloat16(b.d_o);
+    float* a = acc_sum + ((size_t)z * S + sg) * 7 * C;
+    a[j] += b.dg;
+    a[C + j] += b.di;
+    a[2 * C + j] += b.df;
+    a[3 * C + j] += b.d_o;
+    a[4 * C + j] += b.di * cp;
+    a[5 * C + j] += b.df * cp;
+    a[6 * C + j] += b.d_o * b.c;
   }
 }
 
@@ -410,20 +403,20 @@ bwd_cell_kernel(int step, const bf16* __restrict__ dy,
 // bf16(dr_new) for the dW_rm reduction.
 template <int ST>
 __global__ void __launch_bounds__(kThreads)
-bwd_dr_kernel(int step, const bf16* __restrict__ dy,
+bwd_dr_kernel(int d0, int step, const bf16* __restrict__ dy,
               const float* __restrict__ mask,
               const bf16* __restrict__ dgates,
               const bf16* __restrict__ wr_t, float* __restrict__ dr_state,
               bf16* __restrict__ drn, int S, int T, int C, int P) {
   extern __shared__ bf16 dg_sh[];  // [ST, 4C]
-  const int d = blockIdx.z;
+  const int z = blockIdx.z, d = d0 + z;
   const int t = d == 0 ? T - 1 - step : step;
   const int s0 = blockIdx.y * ST;
   const int G = 4 * C;
   for (int idx = threadIdx.x; idx < ST * G; idx += blockDim.x) {
     const int s = idx / G;
     const int sg = s0 + s;
-    dg_sh[idx] = sg < S ? dgates[(((size_t)d * S + sg) * T + t) * G +
+    dg_sh[idx] = sg < S ? dgates[(((size_t)z * S + sg) * T + t) * G +
                                  (idx - s * G)]
                         : __float2bfloat16(0.0f);
   }
@@ -435,7 +428,7 @@ bwd_dr_kernel(int step, const bf16* __restrict__ dy,
   float acc[ST];
 #pragma unroll
   for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-  const bf16* w_row = wr_t + ((size_t)d * P + p) * G;
+  const bf16* w_row = wr_t + ((size_t)z * P + p) * G;
   for (int g = lane; g < G; g += 32) {
     const float wv = __bfloat162float(w_row[g]);
 #pragma unroll
@@ -452,33 +445,86 @@ bwd_dr_kernel(int step, const bf16* __restrict__ dy,
     const float mk = mask[(size_t)sg * T + t];
     const float dyv = __bfloat162float(
         dy[((size_t)sg * T + t) * 2 * P + (size_t)d * P + p]);
-    const size_t rp = ((size_t)d * S + sg) * P + p;
+    const size_t rp = ((size_t)z * S + sg) * P + p;
     const float dra = dyv * mk + dr_state[rp];
-    drn[(((size_t)d * S + sg) * T + t) * P + p] = __float2bfloat16(mk * dra);
+    drn[(((size_t)z * S + sg) * T + t) * P + p] = __float2bfloat16(mk * dra);
     dr_state[rp] = (1.0f - mk) * dra + acc[s];
   }
 }
 
-// out[d][k] = sum_s acc[d][s][k]  (acc [2, S, K])
-__global__ void sum_streams_kernel(const float* __restrict__ acc,
-                                   float* __restrict__ out, int S, int K) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int d = blockIdx.y;
-  if (k >= K) return;
-  float v = 0.0f;
-  for (int s = 0; s < S; ++s) v += acc[((size_t)d * S + s) * K + k];
-  out[(size_t)d * K + k] = v;
-}
-
-// dx = bf16(bf16(dx_f) + bf16(dx_b)), each direction's dx rounded first.
+// dx = bf16(bf16(dx_f) + bf16(dx_b)), each direction's dx rounded first;
+// with one direction (ndir = 1), dx = bf16(dx_d).
 __global__ void sum_directions_kernel(const float* __restrict__ dx2,
-                                      bf16* __restrict__ dx, size_t n) {
+                                      bf16* __restrict__ dx, size_t n,
+                                      int ndir) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  dx[i] = __float2bfloat16(round_bf16(dx2[i]) + round_bf16(dx2[n + i]));
+  dx[i] = ndir == 2
+              ? __float2bfloat16(round_bf16(dx2[i]) + round_bf16(dx2[n + i]))
+              : __float2bfloat16(dx2[i]);
 }
 
 bool smem_ok(size_t bytes) { return bytes <= kMaxSmem; }
+
+// Backward of the directions [d0, d0 + ndir): the reverse sweep, dx
+// (summed over the directions in float32 from each one's bf16 dx and
+// rounded once, as lstm_pallas.py:1449-1450 and :1633-1634 do) and the
+// weight gradients.  The per-direction arrays hold ndir directions.
+int run_bwd(int d0, int ndir, const bf16* dy, const float* mask,
+            const bf16* x, const bf16* gates, const bf16* cs,
+            const bf16* rprev, const bf16* wx, const bf16* wr_t,
+            const bf16* wrm_t, const float* peep, const float* init_c,
+            float* dc_state, float* dr_state, float* acc, bf16* dgates,
+            bf16* m_out, bf16* drn, float* dx2, bf16* dx, float* dwx,
+            float* dwr, float* dwrm, float* dbp, int S, int T, int D, int C,
+            int P, float cell_clip, cudaStream_t st) {
+  if (S <= 0 || T <= 0 || D <= 0 || C <= 0 || P <= 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr int ST = kStreamTile, STD = kStreamTileDr;
+  const size_t smem_cell = (size_t)ST * P * sizeof(float);
+  const size_t smem_dr = (size_t)STD * 4 * C * sizeof(bf16);
+  if (!smem_ok(smem_cell) || !smem_ok(smem_dr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid_cell((C + kWarps - 1) / kWarps, (S + ST - 1) / ST, ndir);
+  const dim3 grid_dr((P + kWarps - 1) / kWarps, (S + STD - 1) / STD, ndir);
+  int err;
+  for (int step = 0; step < T; ++step) {
+    bwd_cell_kernel<ST><<<grid_cell, kThreads, smem_cell, st>>>(
+        d0, step, dy, mask, gates, cs, init_c, wrm_t, peep, dr_state,
+        dc_state, acc, dgates, m_out, S, T, C, P, cell_clip);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    bwd_dr_kernel<STD><<<grid_dr, kThreads, smem_dr, st>>>(
+        d0, step, dy, mask, dgates, wr_t, dr_state, drn, S, T, C, P);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const long long G = 4LL * C, rows = (long long)S * T;
+  // dx[d] = dgates[d] . W_x[d]
+  err = gemm(dgates, rows * G, G, 1, wx, G * D, D, 1, dx2, rows * D, D,
+             (int)rows, D, (int)G, ndir, st);
+  if (err) return err;
+  const size_t n = (size_t)rows * D;
+  sum_directions_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      dx2, dx, n, ndir);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  // dW_x[d] = dgates[d]^T . x ;  dW_r[d] = dgates[d]^T . r_prev[d]
+  err = gemm(dgates, rows * G, 1, G, x, 0, D, 1, dwx, G * D, D, (int)G, D,
+             (int)rows, ndir, st);
+  if (err) return err;
+  err = gemm(dgates, rows * G, 1, G, rprev, rows * P, P, 1, dwr, G * P, P,
+             (int)G, P, (int)rows, ndir, st);
+  if (err) return err;
+  // dW_rm[d] = dr_new[d]^T . m[d]
+  err = gemm(drn, rows * P, 1, P, m_out, rows * C, C, 1, dwrm, (long long)P * C,
+             C, P, C, (int)rows, ndir, st);
+  if (err) return err;
+  const int K = 7 * C;
+  sum_streams_kernel<<<dim3((K + 127) / 128, ndir), 128, 0, st>>>(acc, dbp,
+                                                                  S, K);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -531,14 +577,14 @@ extern "C" int bilstmp_train_fwd(
   return 0;
 }
 
-// Backward.  dy [S, T, 2P] bf16; gates, cs, rprev from the forward;
-// init_c [S, C] f32.  State: dc_state [2, S, C] and dr_state [2, S, P] f32
-// hold the final-state cotangents on entry (direction b's zero) and the
-// initial-state cotangents on return.  Scratch: acc [2, S, 7C] f32
-// zeroed by the caller, dgates [2, S, T, G], m_out [2, S, T, C] and
-// drn [2, S, T, P] bf16, dx2 [2, S, T, D] f32.  Writes dx [S, T, D] bf16,
-// dwx [2, G, D], dwr [2, G, P], dwrm [2, P, C] and dbp [2, 7C] f32
-// (dbias then dpeep i, f, o).
+// Backward of both directions.  dy [S, T, 2P] bf16; gates, cs, rprev from
+// the forward; init_c [S, C] f32.  State: dc_state [2, S, C] and dr_state
+// [2, S, P] f32 hold the final-state cotangents on entry (direction b's
+// zero) and the initial-state cotangents on return.  Scratch: acc
+// [2, S, 7C] f32 zeroed by the caller, dgates [2, S, T, G], m_out
+// [2, S, T, C] and drn [2, S, T, P] bf16, dx2 [2, S, T, D] f32.  Writes
+// dx [S, T, D] bf16, dwx [2, G, D], dwr [2, G, P], dwrm [2, P, C] and dbp
+// [2, 7C] f32 (dbias then dpeep i, f, o).
 extern "C" int bilstmp_train_bwd(
     const bf16* dy, const float* mask, const bf16* x, const bf16* gates,
     const bf16* cs, const bf16* rprev, const bf16* wx, const bf16* wr_t,
@@ -547,51 +593,28 @@ extern "C" int bilstmp_train_bwd(
     bf16* drn, float* dx2, bf16* dx, float* dwx, float* dwr, float* dwrm,
     float* dbp, int S, int T, int D, int C, int P, float cell_clip,
     void* stream) {
-  if (S <= 0 || T <= 0 || D <= 0 || C <= 0 || P <= 0)
-    return (int)cudaErrorInvalidValue;
-  constexpr int ST = kStreamTile, STD = kStreamTileDr;
-  const size_t smem_cell = (size_t)ST * P * sizeof(float);
-  const size_t smem_dr = (size_t)STD * 4 * C * sizeof(bf16);
-  if (!smem_ok(smem_cell) || !smem_ok(smem_dr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid_cell((C + kWarps - 1) / kWarps, (S + ST - 1) / ST, 2);
-  const dim3 grid_dr((P + kWarps - 1) / kWarps, (S + STD - 1) / STD, 2);
-  int err;
-  for (int step = 0; step < T; ++step) {
-    bwd_cell_kernel<ST><<<grid_cell, kThreads, smem_cell, st>>>(
-        step, dy, mask, gates, cs, init_c, wrm_t, peep, dr_state, dc_state,
-        acc, dgates, m_out, S, T, C, P, cell_clip);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    bwd_dr_kernel<STD><<<grid_dr, kThreads, smem_dr, st>>>(
-        step, dy, mask, dgates, wr_t, dr_state, drn, S, T, C, P);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  const long long G = 4LL * C, rows = (long long)S * T;
-  // dx[d] = dgates[d] . W_x[d]
-  err = gemm(dgates, rows * G, G, 1, wx, G * D, D, 1, dx2, rows * D, D,
-             (int)rows, D, (int)G, 2, st);
-  if (err) return err;
-  const size_t n = (size_t)rows * D;
-  sum_directions_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(dx2, dx,
-                                                                     n);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  // dW_x[d] = dgates[d]^T . x ;  dW_r[d] = dgates[d]^T . r_prev[d]
-  err = gemm(dgates, rows * G, 1, G, x, 0, D, 1, dwx, G * D, D, (int)G, D,
-             (int)rows, 2, st);
-  if (err) return err;
-  err = gemm(dgates, rows * G, 1, G, rprev, rows * P, P, 1, dwr, G * P, P,
-             (int)G, P, (int)rows, 2, st);
-  if (err) return err;
-  // dW_rm[d] = dr_new[d]^T . m[d]
-  err = gemm(drn, rows * P, 1, P, m_out, rows * C, C, 1, dwrm, (long long)P * C,
-             C, P, C, (int)rows, 2, st);
-  if (err) return err;
-  const int K = 7 * C;
-  sum_streams_kernel<<<dim3((K + 127) / 128, 2), 128, 0, st>>>(acc, dbp, S,
-                                                                K);
-  return (int)cudaGetLastError();
+  return run_bwd(0, 2, dy, mask, x, gates, cs, rprev, wx, wr_t, wrm_t, peep,
+                 init_c, dc_state, dr_state, acc, dgates, m_out, drn, dx2, dx,
+                 dwx, dwr, dwrm, dbp, S, T, D, C, P, cell_clip,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// Backward of direction d alone (d = 0 walks T-1 -> 0 from init_c and the
+// final-state cotangents, d = 1 walks 0 -> T-1 from zeros).  The arrays
+// are bilstmp_train_bwd's without the leading direction axis (dy, mask, x
+// and init_c are shared); dx [S, T, D] is bf16(dx_d), dx2 [S, T, D] f32
+// scratch.
+extern "C" int bilstmp_train_bwd_dir(
+    int d, const bf16* dy, const float* mask, const bf16* x,
+    const bf16* gates, const bf16* cs, const bf16* rprev, const bf16* wx,
+    const bf16* wr_t, const bf16* wrm_t, const float* peep,
+    const float* init_c, float* dc_state, float* dr_state, float* acc,
+    bf16* dgates, bf16* m_out, bf16* drn, float* dx2, bf16* dx, float* dwx,
+    float* dwr, float* dwrm, float* dbp, int S, int T, int D, int C, int P,
+    float cell_clip, void* stream) {
+  if (d != 0 && d != 1) return (int)cudaErrorInvalidValue;
+  return run_bwd(d, 1, dy, mask, x, gates, cs, rprev, wx, wr_t, wrm_t, peep,
+                 init_c, dc_state, dr_state, acc, dgates, m_out, drn, dx2, dx,
+                 dwx, dwr, dwrm, dbp, S, T, D, C, P, cell_clip,
+                 static_cast<cudaStream_t>(stream));
 }

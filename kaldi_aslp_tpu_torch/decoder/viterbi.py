@@ -24,7 +24,7 @@ from typing import List, Tuple, Union
 import numpy as np
 import torch
 
-from kaldi_aslp_tpu.fst.fst import Fst
+from kaldi_aslp_tpu_torch.fst.fst import Fst
 
 NEG_INF = -1e30
 

@@ -1,0 +1,21 @@
+"""Graph building (the port's own copy of what it uses of
+kaldi_aslp_tpu/fst/): plain Python and numpy, no torch."""
+
+from kaldi_aslp_tpu_torch.fst.ctc_graph import (
+    ctc_lut,
+    expand_ctc,
+    make_ctc_decode_graph,
+)
+from kaldi_aslp_tpu_torch.fst.determinize import determinize, minimize_encoded
+from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst, SymbolTable
+from kaldi_aslp_tpu_torch.fst.lang import (
+    Lang,
+    Lexicon,
+    make_lexicon_fst,
+    make_unigram_grammar,
+)
+
+__all__ = ["EPS", "Arc", "Fst", "SymbolTable", "Lang", "Lexicon",
+           "make_lexicon_fst", "make_unigram_grammar", "determinize",
+           "minimize_encoded", "ctc_lut", "expand_ctc",
+           "make_ctc_decode_graph"]

@@ -21,18 +21,23 @@ the place of JAX's ``train=`` argument:
     runs ``_lstmp_kernel``.  It runs under ``torch.no_grad()`` on every
     device: the kernel has no backward, so an eval forward gives no
     gradients anywhere rather than only on the CPU;
-  - training, bf16 BLSTMP: both directions go through
-    ops/bilstmp_train.py:BiLstmpTrainCore (the CUDA training kernels on
-    the card, their plain versions on the CPU), the counterpart of
-    ``_Bidirectional._apply_fused``;
+  - training, bf16 BLSTMP: both directions in one core, routed as
+    ``_Bidirectional._apply_fused`` routes them (recurrent.py:441-488):
+    ops/bilstmp_train.py:BiLstmpTrainCore (the x-fused core) unless
+    ``KALDI_ASLP_LSTM_NO_XFUSE`` or ``KALDI_ASLP_LSTM_MXU_FP32`` is set,
+    else ops/bilstmp_xg_train.py:BiLstmpXgTrainCore (the xg-fed core) on
+    bf16 input projections, with float32 products under MXU_FP32; the
+    CUDA training kernels on the card, their plain versions on the CPU;
   - training, any other LSTMP (unidirectional, or a float32 BLSTMP's
     two directions one after the other): ops/lstmp_train.py:
     LstmpTrainCore, the counterpart of ``lstmp_train_core``, float32
     throughout, or with the ``bf16`` attr a bf16 input projection, bf16
-    storage and bf16 products (recurrent.py:163-190).
+    storage and bf16 products, float32 products under
+    ``KALDI_ASLP_LSTM_MXU_FP32`` (recurrent.py:163-190).
 The JAX package takes its training cores only on the TPU or with the
-``pallas`` attr; the port always does.  ``KALDI_ASLP_LSTM_MXU_FP32`` is
-a TPU experiment switch and is not read.
+``pallas`` attr; the port always does.  The three switches are read at
+every training forward (ops/switches.py); ``KALDI_ASLP_LSTM_SPLIT_BWD``
+acts in BiLstmpTrainCore's backward.
 
 The other cells (LSTM, CIFG, GRU, LC-BLSTM) are later slices."""
 
@@ -45,8 +50,10 @@ from torch import nn
 
 from kaldi_aslp_tpu_torch.models.component import Component, register
 from kaldi_aslp_tpu_torch.ops.bilstmp_train import BiLstmpTrainCore
+from kaldi_aslp_tpu_torch.ops.bilstmp_xg_train import BiLstmpXgTrainCore
 from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
 from kaldi_aslp_tpu_torch.ops.lstmp_train import LstmpTrainCore
+from kaldi_aslp_tpu_torch.ops.switches import lstm_switches
 
 BF16 = torch.bfloat16
 
@@ -138,9 +145,11 @@ class LstmProjectedStreams(Component):
 
     def _forward_train(self, x, state, mask):
         """The Pallas training branch of recurrent.py:163-190: the bf16
-        attr gives bf16 storage and bf16 products (the TPU core's
-        ``store_bf16`` and ``mxu_bf16``)."""
+        attr gives bf16 storage (the TPU core's ``store_bf16``) and bf16
+        products (``mxu_bf16``) unless ``KALDI_ASLP_LSTM_MXU_FP32`` is
+        set."""
         bf16 = bool(self.attrs.get("bf16", False))
+        mxu_bf16 = bf16 and not lstm_switches().mxu_fp32
         if bf16:
             xg = _Bf16Projection.apply(x, self.w_gifo_x) + self.bias
         else:
@@ -149,7 +158,7 @@ class LstmProjectedStreams(Component):
                             self.peephole_o_c])
         ys, c, r = LstmpTrainCore.apply(
             xg, mask, self.w_gifo_r, self.w_r_m, peep, state["c"],
-            state["r"], self.cell_clip, bf16)
+            state["r"], self.cell_clip, bf16, mxu_bf16)
         return ys, {"c": c, "r": r}
 
 
@@ -196,16 +205,31 @@ class _Bidirectional(Component):
         return torch.cat([y_f, y_b], dim=-1), {"fwd": s_f}
 
     def _forward_fused(self, x, state, mask):
-        """Both directions in one training core with bf16 products and
-        storage (kaldi_aslp_tpu/models/recurrent.py:_apply_fused)."""
+        """Both directions in one training core with bf16 storage, routed
+        as kaldi_aslp_tpu/models/recurrent.py:_apply_fused (:455-488)
+        routes them: the x-fused core with bf16 products unless a switch
+        asks for the xg-fed core, which is fed bf16 bias-free input
+        projections (the bias is added in the core)."""
         f, b = self.fwd, self.bwd
-        ys, c, r = BiLstmpTrainCore.apply(
-            x, mask, f.w_gifo_x, b.w_gifo_x, f.w_gifo_r, f.w_r_m,
-            torch.stack([f.peephole_i_c, f.peephole_f_c, f.peephole_o_c]),
-            b.w_gifo_r, b.w_r_m,
-            torch.stack([b.peephole_i_c, b.peephole_f_c, b.peephole_o_c]),
-            f.bias, b.bias, state["fwd"]["c"], state["fwd"]["r"],
-            f.cell_clip)
+        peep_f = torch.stack([f.peephole_i_c, f.peephole_f_c,
+                              f.peephole_o_c])
+        peep_b = torch.stack([b.peephole_i_c, b.peephole_f_c,
+                              b.peephole_o_c])
+        init_c, init_r = state["fwd"]["c"], state["fwd"]["r"]
+        switches = lstm_switches()
+        mxu_bf16 = not switches.mxu_fp32
+        if mxu_bf16 and not switches.no_xfuse:
+            ys, c, r = BiLstmpTrainCore.apply(
+                x, mask, f.w_gifo_x, b.w_gifo_x, f.w_gifo_r, f.w_r_m, peep_f,
+                b.w_gifo_r, b.w_r_m, peep_b, f.bias, b.bias, init_c, init_r,
+                f.cell_clip)
+        else:
+            xgf = _Bf16Projection.apply(x, f.w_gifo_x).to(BF16)
+            xgb = _Bf16Projection.apply(x, b.w_gifo_x).to(BF16)
+            ys, c, r = BiLstmpXgTrainCore.apply(
+                xgf, xgb, mask, f.w_gifo_r, f.w_r_m, peep_f, b.w_gifo_r,
+                b.w_r_m, peep_b, f.bias, b.bias, init_c, init_r, f.cell_clip,
+                mxu_bf16)
         return ys, {"fwd": {"c": c, "r": r}}
 
 

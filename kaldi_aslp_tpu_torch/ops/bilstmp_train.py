@@ -2,10 +2,13 @@
 plain PyTorch versions, and the ``torch.autograd.Function`` around them.
 
 Port of the x-fused bidirectional core of kaldi_aslp_tpu/ops/lstm_pallas.py
-(``_bixfused_fwd_kernel``, ``_bixfused_bwd_kernel``, their wrappers
-``_bixfused_train_fwd`` / ``_bixfused_train_bwd``, the custom VJP
+(``_bixfused_fwd_kernel``, ``_bixfused_bwd_kernel`` and the per-direction
+``_xfused_bwd_kernel``, their wrappers ``_bixfused_train_fwd`` /
+``_bixfused_train_bwd`` / ``_xfused_train_bwd_dir``, the custom VJP
 ``_get_bixfused_core`` and ``bilstmp_xfused_train_core``), which the JAX
 package's bf16 BLSTMP takes in training (models/recurrent.py:428-473).
+Under ``KALDI_ASLP_LSTM_SPLIT_BWD`` the backward runs one direction at a
+time (lstm_pallas.py:1612-1639), through :func:`bilstmp_train_bwd_dir`.
 The kernels are ``csrc/bilstmp_train.cu``, built for ``sm_90a`` and bound
 with ``ctypes``; the note at the top of that file says how the TPU design
 was rethought for the H100.
@@ -33,6 +36,7 @@ from kaldi_aslp_tpu_torch.ops.build import (
     current_stream,
     load_library,
 )
+from kaldi_aslp_tpu_torch.ops.switches import lstm_switches
 
 SOURCE = "bilstmp_train.cu"
 BF16 = torch.bfloat16
@@ -40,11 +44,13 @@ BF16 = torch.bfloat16
 
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    signatures = {"bilstmp_train_fwd": 15, "bilstmp_train_bwd": 23}
-    for name, n_ptr in signatures.items():
+    signatures = {"bilstmp_train_fwd": ([], 15), "bilstmp_train_bwd": ([], 23),
+                  "bilstmp_train_bwd_dir": ([ctypes.c_int], 23)}
+    for name, (head, n_ptr) in signatures.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+            fn.argtypes = (head + [ctypes.c_void_p] * n_ptr
+                           + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
@@ -241,67 +247,150 @@ def bilstmp_train_bwd_reference(dy, mask, x, gates, cs, rprev, wx, wr, wrm,
                                 peep, init_c, d_c_T, d_r_T,
                                 cell_clip: float = 50.0):
     """Plain PyTorch version of the backward kernel: the reverse sweep of
-    lstm_pallas.py:_bixfused_bwd_kernel, then the weight-gradient sums
-    over all frames as products of the bf16 streams."""
+    lstm_pallas.py:_bixfused_bwd_kernel per direction (the two are
+    independent), then :func:`_weight_grads`; dx is summed over the
+    directions in float32 from each one's bf16 dx and rounded once."""
+    zero_c, zero_r = torch.zeros_like(d_c_T), torch.zeros_like(d_r_T)
+    halves = [bilstmp_train_bwd_dir_reference(
+        d, dy, mask, x, gates[d], cs[d], rprev[d], wx[d], wr[d], wrm[d],
+        peep[d], init_c if d == 0 else zero_c, d_c_T if d == 0 else zero_c,
+        d_r_T if d == 0 else zero_r, cell_clip) for d in range(2)]
+    dx = (halves[0][0].float() + halves[1][0].float()).to(BF16)
+    return (dx, halves[0][1], halves[0][2],
+            *(torch.stack([h[k] for h in halves]) for k in range(3, 8)))
+
+
+def bilstmp_train_bwd_dir(d: int, dy, mask, x, gates, cs, rprev, wx, wr,
+                          wrm, peep, init_c, d_c_T, d_r_T,
+                          cell_clip: float = 50.0):
+    """Training backward of direction ``d`` alone (0 = f, 1 = b): the
+    counterpart of lstm_pallas.py:_xfused_train_bwd_dir, which the JAX
+    package runs once per direction under ``KALDI_ASLP_LSTM_SPLIT_BWD``.
+
+    dy [S, T, 2P] bf16 (the layer's, both directions'), mask, x as for
+    :func:`bilstmp_train_bwd`; gates [S, T, 4C], cs [S, T, C], rprev
+    [S, T, P], wx [4C, D], wr [4C, P], wrm [P, C] bf16 and peep [3, C]
+    float32, direction d's; init_c, d_c_T [S, C] and d_r_T [S, P] float32
+    (direction b's are zeros: it starts and ends at zero).  Returns (dx_d
+    [S, T, D] bf16, d_init_c, d_init_r, dwx [4C, D], dwr [4C, P],
+    dwrm [P, C], dbias [4C], dpeep [3, C]), all but dx_d float32 and
+    unrounded.  Its device code is the fused backward's, so a direction's
+    outputs equal the fused kernel's for it.
+
+    On a CUDA tensor this launches the kernel or raises; a CPU tensor
+    takes :func:`bilstmp_train_bwd_dir_reference`.
+    ``bilstmp_train_bwd_dir.launches`` counts calls into the C entry."""
+    if d not in (0, 1):
+        raise ValueError(f"direction {d} is not 0 (f) or 1 (b)")
     S, T, D = x.shape
-    G, P = wr.shape[1], wr.shape[2]
+    G, P = wr.shape
     C = G // 4
-    dyf = dy.float()
+    check_tensors(x.device, {
+        "dy": (dy, (S, T, 2 * P), BF16), "mask": (mask, (S, T), torch.float32),
+        "x": (x, (S, T, D), BF16), "gates": (gates, (S, T, G), BF16),
+        "cs": (cs, (S, T, C), BF16), "rprev": (rprev, (S, T, P), BF16),
+        "wx": (wx, (G, D), BF16), "wr": (wr, (G, P), BF16),
+        "wrm": (wrm, (P, C), BF16), "peep": (peep, (3, C), torch.float32),
+        "init_c": (init_c, (S, C), torch.float32),
+        "d_c_T": (d_c_T, (S, C), torch.float32),
+        "d_r_T": (d_r_T, (S, P), torch.float32)})
+    if x.device.type == "cpu":
+        return bilstmp_train_bwd_dir_reference(d, dy, mask, x, gates, cs,
+                                               rprev, wx, wr, wrm, peep,
+                                               init_c, d_c_T, d_r_T,
+                                               cell_clip)
+    if x.device.type != "cuda":
+        raise ValueError(f"no BLSTMP kernel for device {x.device}")
+    dev, f32 = x.device, torch.float32
+    wr_t, wrm_t = wr.t().contiguous(), wrm.t().contiguous()
+    dc_state, dr_state = d_c_T.clone(), d_r_T.clone()
+    acc = torch.zeros((S, 7 * C), dtype=f32, device=dev)
+    dgates = _empty(dev, BF16, S, T, G)
+    m_out = _empty(dev, BF16, S, T, C)
+    drn = _empty(dev, BF16, S, T, P)
+    dx_f32, dx = _empty(dev, f32, S, T, D), _empty(dev, BF16, S, T, D)
+    dwx, dwr = _empty(dev, f32, G, D), _empty(dev, f32, G, P)
+    dwrm, dbp = _empty(dev, f32, P, C), _empty(dev, f32, 7 * C)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.bilstmp_train_bwd_dir(
+            d, dy.data_ptr(), mask.data_ptr(), x.data_ptr(),
+            gates.data_ptr(), cs.data_ptr(), rprev.data_ptr(), wx.data_ptr(),
+            wr_t.data_ptr(), wrm_t.data_ptr(), peep.data_ptr(),
+            init_c.data_ptr(), dc_state.data_ptr(), dr_state.data_ptr(),
+            acc.data_ptr(), dgates.data_ptr(), m_out.data_ptr(),
+            drn.data_ptr(), dx_f32.data_ptr(), dx.data_ptr(), dwx.data_ptr(),
+            dwr.data_ptr(), dwrm.data_ptr(), dbp.data_ptr(),
+            S, T, D, C, P, float(cell_clip), current_stream(dev))
+        bilstmp_train_bwd_dir.launches += 1
+    if err != 0:
+        raise RuntimeError(f"bilstmp_train_bwd_dir failed: CUDA error {err}")
+    return (dx, dc_state, dr_state, dwx, dwr, dwrm, dbp[:G],
+            dbp[G:].reshape(3, C))
+
+
+bilstmp_train_bwd_dir.launches = 0
+
+
+def bilstmp_train_bwd_dir_reference(d: int, dy, mask, x, gates, cs, rprev,
+                                    wx, wr, wrm, peep, init_c, d_c_T, d_r_T,
+                                    cell_clip: float = 50.0):
+    """Plain PyTorch version of the per-direction backward: the reverse
+    sweep of lstm_pallas.py:_xfused_bwd_kernel for direction ``d``, then
+    the weight-gradient sums over all frames as products of the bf16
+    streams."""
+    S, T, D = x.shape
+    G, P = wr.shape
+    C = G // 4
+    dyf = dy[:, :, d * P:(d + 1) * P].float()
     wr_f, wrm_f = wr.float(), wrm.float()
-    dc = [d_c_T, torch.zeros_like(d_c_T)]
-    dr = [d_r_T, torch.zeros_like(d_r_T)]
-    dgates = x.new_empty((2, S, T, G), dtype=BF16)
-    m_s = x.new_empty((2, S, T, C), dtype=BF16)
-    drn = x.new_empty((2, S, T, P), dtype=BF16)
-    dbias = torch.zeros((2, G), device=x.device)
-    dpeep = torch.zeros((2, 3, C), device=x.device)
-    zero_c = torch.zeros_like(init_c)
+    dc, dr = d_c_T, d_r_T
+    dgates = x.new_empty((S, T, G), dtype=BF16)
+    m_s = x.new_empty((S, T, C), dtype=BF16)
+    drn = x.new_empty((S, T, P), dtype=BF16)
+    dbias = torch.zeros(G, device=x.device)
+    dpeep = torch.zeros((3, C), device=x.device)
     for step in range(T):
-        for d in range(2):
-            t = T - 1 - step if d == 0 else step
-            mk = mask[:, t:t + 1]
-            dr_after = dyf[:, t, d * P:(d + 1) * P] * mk + dr[d]
-            dr_new = _bf(mk * dr_after)
-            dm = dr_new @ wrm_f[d]
-            if d == 0:
-                cp = cs[0, :, t - 1].float() if t > 0 else init_c
-            else:
-                cp = cs[1, :, t + 1].float() if t < T - 1 else zero_c
-            acts = gates[d, :, t].float()
-            g, i = acts[:, :C], acts[:, C:2 * C]
-            f, o = acts[:, 2 * C:3 * C], acts[:, 3 * C:]
-            cu = f * cp + i * g
-            c = torch.clamp(cu, -cell_clip, cell_clip) if cell_clip > 0 \
-                else cu
-            tc = torch.tanh(c)
-            m_s[d, :, t] = (o * tc).to(BF16)
-            dcv = mk * dc[d] + dm * o * (1.0 - tc * tc)
-            do_lin = dm * tc * o * (1.0 - o)
-            dcv = dcv + do_lin * peep[d, 2]
-            if cell_clip > 0:
-                dcv = torch.where(cu.abs() < cell_clip, dcv, 0.0)
-            di_lin = dcv * g * i * (1.0 - i)
-            df_lin = dcv * cp * f * (1.0 - f)
-            dg_lin = dcv * i * (1.0 - g * g)
-            dc[d] = (dcv * f + di_lin * peep[d, 0] + df_lin * peep[d, 1]
-                     + (1.0 - mk) * dc[d])
-            dgl = torch.cat([dg_lin, di_lin, df_lin, do_lin], dim=1)
-            dgates[d, :, t] = dgl.to(BF16)
-            dbias[d] += dgl.sum(0)
-            dpeep[d, 0] += (di_lin * cp).sum(0)
-            dpeep[d, 1] += (df_lin * cp).sum(0)
-            dpeep[d, 2] += (do_lin * c).sum(0)
-            dr[d] = (1.0 - mk) * dr_after + dgates[d, :, t].float() @ wr_f[d]
-            drn[d, :, t] = dr_new.to(BF16)
-    dg = dgates.float().reshape(2, S * T, G)
-    dx2 = dg @ wx.float()                                     # [2, S*T, D]
-    dx = (_bf(dx2[0]) + _bf(dx2[1])).to(BF16).reshape(S, T, D)
-    dg_t = dg.transpose(1, 2)
-    dwx = dg_t @ x.float().reshape(S * T, D)
-    dwr = dg_t @ rprev.float().reshape(2, S * T, P)
-    dwrm = drn.float().reshape(2, S * T, P).transpose(1, 2) \
-        @ m_s.float().reshape(2, S * T, C)
-    return dx, dc[0], dr[0], dwx, dwr, dwrm, dbias, dpeep
+        t = T - 1 - step if d == 0 else step
+        mk = mask[:, t:t + 1]
+        dr_after = dyf[:, t] * mk + dr
+        dr_new = _bf(mk * dr_after)
+        dm = dr_new @ wrm_f
+        if d == 0:
+            cp = cs[:, t - 1].float() if t > 0 else init_c
+        else:
+            cp = cs[:, t + 1].float() if t < T - 1 else torch.zeros_like(dc)
+        acts = gates[:, t].float()
+        g, i = acts[:, :C], acts[:, C:2 * C]
+        f, o = acts[:, 2 * C:3 * C], acts[:, 3 * C:]
+        cu = f * cp + i * g
+        c = torch.clamp(cu, -cell_clip, cell_clip) if cell_clip > 0 else cu
+        tc = torch.tanh(c)
+        m_s[:, t] = (o * tc).to(BF16)
+        dcv = mk * dc + dm * o * (1.0 - tc * tc)
+        do_lin = dm * tc * o * (1.0 - o)
+        dcv = dcv + do_lin * peep[2]
+        if cell_clip > 0:
+            dcv = torch.where(cu.abs() < cell_clip, dcv, 0.0)
+        di_lin = dcv * g * i * (1.0 - i)
+        df_lin = dcv * cp * f * (1.0 - f)
+        dg_lin = dcv * i * (1.0 - g * g)
+        dc = (dcv * f + di_lin * peep[0] + df_lin * peep[1]
+              + (1.0 - mk) * dc)
+        dgl = torch.cat([dg_lin, di_lin, df_lin, do_lin], dim=1)
+        dgates[:, t] = dgl.to(BF16)
+        dbias += dgl.sum(0)
+        dpeep[0] += (di_lin * cp).sum(0)
+        dpeep[1] += (df_lin * cp).sum(0)
+        dpeep[2] += (do_lin * c).sum(0)
+        dr = (1.0 - mk) * dr_after + dgates[:, t].float() @ wr_f
+        drn[:, t] = dr_new.to(BF16)
+    dg = dgates.float().reshape(S * T, G)
+    dx = (dg @ wx.float()).to(BF16).reshape(S, T, D)
+    dwx = dg.t() @ x.float().reshape(S * T, D)
+    dwr = dg.t() @ rprev.float().reshape(S * T, P)
+    dwrm = drn.float().reshape(S * T, P).t() @ m_s.float().reshape(S * T, C)
+    return dx, dc, dr, dwx, dwr, dwrm, dbias, dpeep
 
 
 # -- autograd ----------------------------------------------------------------
@@ -348,10 +437,25 @@ class BiLstmpTrainCore(torch.autograd.Function):
             d_ys = xb.new_zeros((S, T, 2 * P))
         d_c = init_c.new_zeros(init_c.shape) if d_c is None else d_c
         d_r = init_c.new_zeros((S, P)) if d_r is None else d_r
-        dx, dic, dir_, dwx, dwr, dwrm, dbias, dpeep = bilstmp_train_bwd(
-            d_ys.to(BF16).contiguous(), mask, xb, gates, cs, rprev, wx, wr,
-            wrm, peep, init_c, d_c.float().contiguous(),
-            d_r.float().contiguous(), ctx.cell_clip)
+        d_ys = d_ys.to(BF16).contiguous()
+        d_c, d_r = d_c.float().contiguous(), d_r.float().contiguous()
+        if lstm_switches().split_bwd:
+            # one direction at a time, b from zeros; dx summed in float32
+            # from each one's bf16 dx (lstm_pallas.py:1619-1639)
+            zc, zr = torch.zeros_like(d_c), torch.zeros_like(d_r)
+            halves = [bilstmp_train_bwd_dir(
+                d, d_ys, mask, xb, gates[d], cs[d], rprev[d], wx[d], wr[d],
+                wrm[d], peep[d], init_c if d == 0 else zc,
+                d_c if d == 0 else zc, d_r if d == 0 else zr, ctx.cell_clip)
+                for d in range(2)]
+            dx = (halves[0][0].float() + halves[1][0].float()).to(BF16)
+            dic, dir_ = halves[0][1], halves[0][2]
+            dwx, dwr, dwrm, dbias, dpeep = (
+                torch.stack([h[k] for h in halves]) for k in range(3, 8))
+        else:
+            dx, dic, dir_, dwx, dwr, dwrm, dbias, dpeep = bilstmp_train_bwd(
+                d_ys, mask, xb, gates, cs, rprev, wx, wr, wrm, peep, init_c,
+                d_c, d_r, ctx.cell_clip)
         return (dx.to(ctx.x_dtype), None, dwx[0], dwx[1], dwr[0], dwrm[0],
                 dpeep[0], dwr[1], dwrm[1], dpeep[1], dbias[0], dbias[1],
                 dic, dir_, None)

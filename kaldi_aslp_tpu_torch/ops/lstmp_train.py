@@ -12,17 +12,20 @@ for the H100.  The weight gradients dW_r, dW_rm and dpeep are reduced
 outside the kernel over all frames, as the JAX wrapper does
 (lstm_pallas.py:426-451), with ``torch.matmul`` and sums.
 
-The storage dtype (the dtype of ``xg``) picks one of two modes:
-  - float32: everything is float32 and nothing is rounded;
-  - bf16 (the TPU kernels' ``store_bf16=True, mxu_bf16=True``, which the
-    ``bf16`` attr selects): xg, the stored gates, c and r, the output
-    ys, dxg and dr_new are bf16, and every product takes bf16 operands
-    with float32 sums.
-The TPU kernels' third mode, bf16 storage with float32 products, serves
-only the ``KALDI_ASLP_LSTM_MXU_FP32`` experiment switch and is not
-ported.  The carried state and the cell math are float32 in every mode.  The
-S_BLK = 128 stream padding of ``lstmp_train_core`` is a TPU tiling
-artefact and is not ported.
+The storage dtype (the dtype of ``xg``) and ``mxu_bf16`` pick one of
+the TPU kernels' three modes (``store_bf16``, ``mxu_bf16``):
+  - float32 (F, F): everything is float32 and nothing is rounded;
+  - bf16 (T, T), which the ``bf16`` attr selects: xg, the stored gates,
+    c and r, the output ys, dxg and dr_new are bf16, and every product
+    takes bf16 operands with float32 sums;
+  - bf16 storage with float32 products (T, F), which
+    ``KALDI_ASLP_LSTM_MXU_FP32`` selects for a bf16 LSTMP
+    (models/recurrent.py:175-188): stored as in (T, T), but the state,
+    m, dr_new, dgates and the weights enter the products unrounded.
+``mxu_bf16=None`` means the storage dtype's own products.  The carried
+state and the cell math are float32 in every mode.  The S_BLK = 128
+stream padding of ``lstmp_train_core`` is a TPU tiling artefact and is
+not ported.
 
 Layouts are the JAX wrapper's: xg [S, T, 4C], mask [S, T]; the stored
 streams gates [T, S, 4C], cs [T, S, C], rs [T, S, P] (time-major, post-mask
@@ -33,7 +36,7 @@ w_r_m [P, C], float32."""
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,7 +59,7 @@ def _library() -> ctypes.CDLL:
     for name, n_ptr in signatures.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr
+            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * n_ptr
                            + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -75,11 +78,21 @@ def _storage(dtype: torch.dtype) -> torch.dtype:
     return dtype
 
 
-def _operand(t: torch.Tensor, st: torch.dtype) -> torch.Tensor:
-    """A product operand in float32, rounded to the storage dtype first
+def _products(st: torch.dtype, mxu_bf16: Optional[bool]) -> torch.dtype:
+    """The dtype the products take their operands in: bf16 for bf16
+    storage unless ``mxu_bf16`` is False, float32 for float32 storage."""
+    if mxu_bf16 is None:
+        mxu_bf16 = st == BF16
+    if mxu_bf16 and st != BF16:
+        raise ValueError("bf16 products need bf16 storage")
+    return BF16 if mxu_bf16 else F32
+
+
+def _operand(t: torch.Tensor, pt: torch.dtype) -> torch.Tensor:
+    """A product operand in float32, rounded to the product dtype first
     (bf16 x bf16 is exact in float32, so float32 sums of these are what
     the kernels compute)."""
-    return t.to(st).float()
+    return t.to(pt).float()
 
 
 # -- forward -----------------------------------------------------------------
@@ -87,10 +100,11 @@ def _operand(t: torch.Tensor, st: torch.dtype) -> torch.Tensor:
 def lstmp_train_fwd(xg: torch.Tensor, mask: torch.Tensor,
                     w_gifo_r: torch.Tensor, w_r_m: torch.Tensor,
                     peep: torch.Tensor, init_c: torch.Tensor,
-                    init_r: torch.Tensor,
-                    cell_clip: float = 50.0) -> _Streams:
+                    init_r: torch.Tensor, cell_clip: float = 50.0,
+                    mxu_bf16: Optional[bool] = None) -> _Streams:
     """Training forward: (gates [T, S, 4C], cs [T, S, C], rs [T, S, P])
-    in the dtype of ``xg`` (float32, or bf16 for ``store_bf16``).
+    in the dtype of ``xg`` (float32, or bf16 for ``store_bf16``), the
+    products in the mode ``mxu_bf16`` picks (module docstring).
 
     xg [S, T, 4C] (bias included, already in the storage dtype); mask
     [S, T], w_gifo_r [4C, P], w_r_m [P, C], peep [3, C], init_c [S, C]
@@ -102,6 +116,7 @@ def lstmp_train_fwd(xg: torch.Tensor, mask: torch.Tensor,
     S, T, G = xg.shape
     P, C = w_r_m.shape
     st = _storage(xg.dtype)
+    pt = _products(st, mxu_bf16)
     check_tensors(xg.device, {
         "xg": (xg, (S, T, 4 * C), st), "mask": (mask, (S, T), F32),
         "w_gifo_r": (w_gifo_r, (4 * C, P), F32),
@@ -111,12 +126,12 @@ def lstmp_train_fwd(xg: torch.Tensor, mask: torch.Tensor,
         raise ValueError("xg has no frames")
     if xg.device.type == "cpu":
         return lstmp_train_fwd_reference(xg, mask, w_gifo_r, w_r_m, peep,
-                                         init_c, init_r, cell_clip)
+                                         init_c, init_r, cell_clip, mxu_bf16)
     if xg.device.type != "cuda":
         raise ValueError(f"no LSTMP training kernel for device {xg.device}")
     dev = xg.device
-    # the weights in the storage dtype, as the products take them
-    w_r, w_rm = w_gifo_r.to(st).contiguous(), w_r_m.to(st).contiguous()
+    # the weights in the dtype the products take them in
+    w_r, w_rm = w_gifo_r.to(pt).contiguous(), w_r_m.to(pt).contiguous()
     # the kernel carries the state in place
     c_state, r_state = init_c.clone(), init_r.clone()
     m_buf = torch.empty((S, C), dtype=F32, device=dev)
@@ -126,7 +141,7 @@ def lstmp_train_fwd(xg: torch.Tensor, mask: torch.Tensor,
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.lstmp_train_fwd(
-            int(st == BF16), xg.data_ptr(), mask.data_ptr(),
+            int(st == BF16), int(pt == BF16), xg.data_ptr(), mask.data_ptr(),
             w_r.data_ptr(), w_rm.data_ptr(), peep.data_ptr(),
             c_state.data_ptr(), r_state.data_ptr(), m_buf.data_ptr(),
             gates.data_ptr(), cs.data_ptr(), rs.data_ptr(),
@@ -141,21 +156,23 @@ lstmp_train_fwd.launches = 0
 
 
 def lstmp_train_fwd_reference(xg, mask, w_gifo_r, w_r_m, peep, init_c,
-                              init_r, cell_clip: float = 50.0) -> _Streams:
+                              init_r, cell_clip: float = 50.0,
+                              mxu_bf16: Optional[bool] = None) -> _Streams:
     """Plain PyTorch version of the forward kernel: a loop over T with the
     equations of lstm_pallas.py:_lstmp_fwd_train_kernel."""
     S, T, G = xg.shape
     P, C = w_r_m.shape
     st = _storage(xg.dtype)
+    pt = _products(st, mxu_bf16)
     xgf = xg.float()
-    w_r_t = _operand(w_gifo_r, st).t()
-    w_rm_t = _operand(w_r_m, st).t()
+    w_r_t = _operand(w_gifo_r, pt).t()
+    w_rm_t = _operand(w_r_m, pt).t()
     c, r = init_c, init_r
     gates = xg.new_empty((T, S, G), dtype=st)
     cs = xg.new_empty((T, S, C), dtype=st)
     rs = xg.new_empty((T, S, P), dtype=st)
     for t in range(T):
-        lin = xgf[:, t] + _operand(r, st) @ w_r_t
+        lin = xgf[:, t] + _operand(r, pt) @ w_r_t
         g = torch.tanh(lin[:, :C])
         i = torch.sigmoid(lin[:, C:2 * C] + peep[0] * c)
         f = torch.sigmoid(lin[:, 2 * C:3 * C] + peep[1] * c)
@@ -163,7 +180,7 @@ def lstmp_train_fwd_reference(xg, mask, w_gifo_r, w_r_m, peep, init_c,
         if cell_clip > 0:
             cn = torch.clamp(cn, -cell_clip, cell_clip)
         o = torch.sigmoid(lin[:, 3 * C:] + peep[2] * cn)
-        rn = _operand(o * torch.tanh(cn), st) @ w_rm_t
+        rn = _operand(o * torch.tanh(cn), pt) @ w_rm_t
         mk = mask[:, t:t + 1]
         c = mk * cn + (1.0 - mk) * c
         r = mk * rn + (1.0 - mk) * r
@@ -177,7 +194,8 @@ def lstmp_train_fwd_reference(xg, mask, w_gifo_r, w_r_m, peep, init_c,
 
 def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
                     init_c, init_r, d_final_c, d_final_r,
-                    cell_clip: float = 50.0):
+                    cell_clip: float = 50.0,
+                    mxu_bf16: Optional[bool] = None):
     """Training backward: the reverse sweep, then the weight-gradient
     reductions.
 
@@ -194,6 +212,7 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
     T, S, G = gates.shape
     P, C = w_r_m.shape
     st = _storage(gates.dtype)
+    pt = _products(st, mxu_bf16)
     check_tensors(gates.device, {
         "dys": (dys, (S, T, P), st), "mask": (mask, (S, T), F32),
         "gates": (gates, (T, S, 4 * C), st), "cs": (cs, (T, S, C), st),
@@ -205,13 +224,14 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
     if gates.device.type == "cpu":
         return lstmp_train_bwd_reference(dys, mask, gates, cs, rs, w_gifo_r,
                                          w_r_m, peep, init_c, init_r,
-                                         d_final_c, d_final_r, cell_clip)
+                                         d_final_c, d_final_r, cell_clip,
+                                         mxu_bf16)
     if gates.device.type != "cuda":
         raise ValueError(
             f"no LSTMP training kernel for device {gates.device}")
     dev = gates.device
-    w_r_t = w_gifo_r.t().to(st).contiguous()        # [P, 4C]
-    w_rm_t = w_r_m.t().to(st).contiguous()          # [C, P]
+    w_r_t = w_gifo_r.t().to(pt).contiguous()        # [P, 4C]
+    w_rm_t = w_r_m.t().to(pt).contiguous()          # [C, P]
     dc_state, dr_state = d_final_c.clone(), d_final_r.clone()
     dg_buf = torch.empty((S, G), dtype=F32, device=dev)
     dxg = torch.empty((S, T, G), dtype=st, device=dev)
@@ -219,7 +239,7 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.lstmp_train_bwd(
-            int(st == BF16), dys.data_ptr(), mask.data_ptr(),
+            int(st == BF16), int(pt == BF16), dys.data_ptr(), mask.data_ptr(),
             gates.data_ptr(), cs.data_ptr(), init_c.data_ptr(),
             w_rm_t.data_ptr(), w_r_t.data_ptr(), peep.data_ptr(),
             dc_state.data_ptr(), dr_state.data_ptr(), dg_buf.data_ptr(),
@@ -229,7 +249,7 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
     if err != 0:
         raise RuntimeError(f"lstmp_train_bwd failed: CUDA error {err}")
     return (dxg, dc_state, dr_state,
-            *_weight_grads(dxg, drnew, gates, cs, rs, init_c, init_r))
+            *_weight_grads(dxg, drnew, gates, cs, rs, init_c, init_r, pt))
 
 
 lstmp_train_bwd.launches = 0
@@ -237,16 +257,18 @@ lstmp_train_bwd.launches = 0
 
 def lstmp_train_bwd_reference(dys, mask, gates, cs, rs, w_gifo_r, w_r_m,
                               peep, init_c, init_r, d_final_c, d_final_r,
-                              cell_clip: float = 50.0):
+                              cell_clip: float = 50.0,
+                              mxu_bf16: Optional[bool] = None):
     """Plain PyTorch version of the backward kernel: the reverse sweep of
     lstm_pallas.py:_lstmp_bwd_kernel, then :func:`_weight_grads`."""
     T, S, G = gates.shape
     P, C = w_r_m.shape
     st = gates.dtype
+    pt = _products(st, mxu_bf16)
     dy = dys.float()
     c_prev = torch.cat([init_c.to(st)[None], cs[:-1]]).float()
-    w_r = _operand(w_gifo_r, st)                      # [4C, P]
-    w_rm = _operand(w_r_m, st)                        # [P, C]
+    w_r = _operand(w_gifo_r, pt)                      # [4C, P]
+    w_rm = _operand(w_r_m, pt)                        # [P, C]
     dc, dr = d_final_c, d_final_r
     dxg = gates.new_empty((S, T, G))
     drnew = gates.new_empty((T, S, P))
@@ -261,7 +283,7 @@ def lstmp_train_bwd_reference(dys, mask, gates, cs, rs, w_gifo_r, w_r_m,
         tc = torch.tanh(c)
         dr_after = dy[:, t] * mk + dr
         dr_new = mk * dr_after
-        dm = _operand(dr_new, st) @ w_rm
+        dm = _operand(dr_new, pt) @ w_rm
         dcv = mk * dc + dm * o * (1.0 - tc * tc)
         do_lin = dm * tc * o * (1.0 - o)
         dcv = dcv + do_lin * peep[2]
@@ -275,16 +297,17 @@ def lstmp_train_bwd_reference(dys, mask, gates, cs, rs, w_gifo_r, w_r_m,
         dgates = torch.cat([dg_lin, di_lin, df_lin, do_lin], dim=1)
         dxg[:, t] = dgates.to(st)
         drnew[t] = dr_new.to(st)
-        dr = (1.0 - mk) * dr_after + _operand(dgates, st) @ w_r
+        dr = (1.0 - mk) * dr_after + _operand(dgates, pt) @ w_r
     return (dxg, dc, dr,
-            *_weight_grads(dxg, drnew, gates, cs, rs, init_c, init_r))
+            *_weight_grads(dxg, drnew, gates, cs, rs, init_c, init_r, pt))
 
 
-def _weight_grads(dxg, drnew, gates, cs, rs, init_c, init_r):
+def _weight_grads(dxg, drnew, gates, cs, rs, init_c, init_r, pt):
     """(d_w_gifo_r [4C, P], d_w_r_m [P, C], dpeep [3, C]): the reductions
     over all frames and streams of lstm_pallas.py:426-451, from the stored
     (storage-dtype) streams, with the initial state in the storage dtype
-    at t = 0 (lstm_pallas.py:496-499)."""
+    at t = 0 (lstm_pallas.py:496-499); their operands rounded to the
+    product dtype ``pt`` as ``mm2`` rounds them."""
     st = gates.dtype
     C = cs.shape[-1]
     r_prev = torch.cat([init_r.to(st)[None], rs[:-1]])    # [T, S, P]
@@ -292,8 +315,8 @@ def _weight_grads(dxg, drnew, gates, cs, rs, init_c, init_r):
     dxg_t = dxg.transpose(0, 1).float()                   # [T, S, 4C]
 
     def mm2(a, b):      # einsum "tsa,tsb->ab", float32 sums
-        a = _operand(a, st).reshape(-1, a.shape[-1])
-        b = _operand(b, st).reshape(-1, b.shape[-1])
+        a = _operand(a, pt).reshape(-1, a.shape[-1])
+        b = _operand(b, pt).reshape(-1, b.shape[-1])
         return a.t() @ b
 
     c_seq = cs.float()
@@ -314,17 +337,17 @@ class LstmpTrainCore(torch.autograd.Function):
     ``lstmp_train_core``.
 
     apply(xg [S, T, 4C], mask [S, T], w_gifo_r [4C, P], w_r_m [P, C],
-    peep [3, C], init_c [S, C], init_r [S, P], cell_clip, store_bf16)
-    -> (ys [S, T, P] in the storage dtype, final_c, final_r float32).
-    ``store_bf16`` is the TPU core's ``store_bf16=mxu_bf16=True``: bf16
-    storage and bf16 products.  xg is cast to the storage dtype before the
+    peep [3, C], init_c [S, C], init_r [S, P], cell_clip, store_bf16,
+    mxu_bf16) -> (ys [S, T, P] in the storage dtype, final_c, final_r
+    float32).  ``store_bf16`` and ``mxu_bf16`` are the TPU core's flags
+    (bf16 products need bf16 storage).  xg is cast to the storage dtype before the
     sweep (lstm_pallas.py:346); ys = rs * mask and the final state come from
     the stored streams (:473-476).  Gradients flow to everything but the
     mask and the flags, in float32 (xg's in its own dtype)."""
 
     @staticmethod
     def forward(ctx, xg, mask, w_gifo_r, w_r_m, peep, init_c, init_r,
-                cell_clip, store_bf16):
+                cell_clip, store_bf16, mxu_bf16):
         st = BF16 if store_bf16 else F32
         mask = mask.float().contiguous()
         init_c = init_c.float().contiguous()
@@ -333,10 +356,10 @@ class LstmpTrainCore(torch.autograd.Function):
         peep = peep.float().contiguous()
         gates, cs, rs = lstmp_train_fwd(
             xg.to(st).contiguous(), mask, w_gifo_r, w_r_m, peep, init_c,
-            init_r, cell_clip)
+            init_r, cell_clip, mxu_bf16)
         ctx.save_for_backward(mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
                               init_c, init_r)
-        ctx.cell_clip = cell_clip
+        ctx.cell_clip, ctx.mxu_bf16 = cell_clip, mxu_bf16
         ctx.xg_dtype = xg.dtype
         ys = rs.transpose(0, 1) * mask[:, :, None].to(st)
         return ys, cs[-1].to(F32, copy=True), rs[-1].to(F32, copy=True)
@@ -348,6 +371,6 @@ class LstmpTrainCore(torch.autograd.Function):
         dxg, dic, dir_, dwr, dwrm, dpeep = lstmp_train_bwd(
             d_ys.to(gates.dtype).contiguous(), mask, gates, cs, rs,
             w_gifo_r, w_r_m, peep, init_c, init_r, d_c.float().contiguous(),
-            d_r.float().contiguous(), ctx.cell_clip)
+            d_r.float().contiguous(), ctx.cell_clip, ctx.mxu_bf16)
         return (dxg.to(ctx.xg_dtype), None, dwr, dwrm, dpeep, dic, dir_,
-                None, None)
+                None, None, None)

@@ -9,9 +9,10 @@ mode, as tests/test_lstm_pallas.py runs them; ``LstmpTrainCore`` against
 ``apply(train=True)`` on its scan path and on its Pallas path.
 
 Inputs come from numpy seeds fed to both packages; masks are ragged, the
-initial state and the final-state cotangents nonzero.  The port runs two
-of the TPU kernels' (store_bf16, mxu_bf16) modes: float32 (F, F) and bf16
-(T, T); the third, (T, F), serves only a TPU experiment switch.
+initial state and the final-state cotangents nonzero.  The port runs the
+TPU kernels' three (store_bf16, mxu_bf16) modes: float32 (F, F), bf16
+(T, T) and, under KALDI_ASLP_LSTM_MXU_FP32, bf16 storage with float32
+products (T, F).
 
 Tolerance, as max |port - JAX| / max |JAX| per output or gradient:
 1e-5 for every output computed in float32, in both modes (the same
@@ -179,11 +180,13 @@ def _jax_core(a, mask, cots, store_bf16, mxu_bf16):
     return [np.asarray(o) for o in outs], [np.asarray(g) for g in grads]
 
 
-def _port_core(a, mask, cots, store_bf16):
+def _port_core(a, mask, cots, store_bf16, mxu_bf16=None):
     leaves = [torch.tensor(a[n], requires_grad=True) for n in NAMES]
     xg, w_r, w_rm, peep, c0, r0 = leaves
     ys, fc, fr = LstmpTrainCore.apply(xg, torch.from_numpy(mask), w_r, w_rm,
-                                      peep, c0, r0, 50.0, store_bf16)
+                                      peep, c0, r0, 50.0, store_bf16,
+                                      store_bf16 if mxu_bf16 is None
+                                      else mxu_bf16)
     assert ys.dtype == (torch.bfloat16 if store_bf16 else torch.float32)
     assert fc.dtype == fr.dtype == torch.float32
     ys = ys.float()
@@ -194,6 +197,28 @@ def _port_core(a, mask, cots, store_bf16):
         assert t.grad.dtype == torch.float32, n
     return ([o.detach().numpy() for o in (ys, fc, fr)],
             [t.grad.numpy() for t in leaves])
+
+
+def test_float32_products_with_bf16_storage_match_jax():
+    """The (T, F) mode: the plain versions against the TPU kernels, and
+    LstmpTrainCore against lstmp_train_core, on JAX's own streams."""
+    a, mask, cots = _inputs(seed=14)
+    bf = torch.bfloat16
+    (gj, cj, rj), want = _jax_kernels(a, mask, cots, True, False)
+    got = lstmp_train_fwd(_t(a["xg"], bf), _t(mask), _t(a["w_gifo_r"]),
+                          _t(a["w_r_m"]), _t(a["peep"]), _t(a["init_c"]),
+                          _t(a["init_r"]), 50.0, False)
+    assert not _misses(FWD_NAMES, [g.float() for g in got], (gj, cj, rj),
+                       True)
+    got = lstmp_train_bwd(
+        _t(cots["ys"], bf), _t(mask), _t(gj, bf), _t(cj, bf), _t(rj, bf),
+        _t(a["w_gifo_r"]), _t(a["w_r_m"]), _t(a["peep"]), _t(a["init_c"]),
+        _t(a["init_r"]), _t(cots["c"]), _t(cots["r"]), 50.0, False)
+    assert not _misses(BWD_NAMES, [g.float() for g in got], want, True)
+    want_out, want_grads = _jax_core(a, mask, cots, True, False)
+    got_out, got_grads = _port_core(a, mask, cots, True, mxu_bf16=False)
+    assert not _misses(CORE_NAMES, got_out, want_out, True)
+    assert not _misses(NAMES, got_grads, want_grads, True)
 
 
 @pytest.mark.parametrize("store_bf16", MODES, ids=MODE_IDS)

@@ -198,7 +198,7 @@ def test_port_serves_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] is False
-    assert set(out["shared"]) <= {"fst", "hmm"}
+    assert out["shared"] == []
     types = [e["type"] for e in out["events"]]
     assert "partial" in types and types[-1] == "final"
 

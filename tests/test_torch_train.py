@@ -298,6 +298,7 @@ class BlockJax(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, BlockJax())
 import kaldi_aslp_tpu_torch.ops.bilstmp_train
+import kaldi_aslp_tpu_torch.ops.bilstmp_xg_train
 import kaldi_aslp_tpu_torch.ops.ctc
 from kaldi_aslp_tpu_torch.cli.__main__ import main
 rc = main(["aslp-nnet-train-ctc-streams", "--device=cpu", "--num-streams=2",
@@ -315,6 +316,27 @@ def test_trainer_cli_runs_with_jax_blocked(tmp_path):
         [sys.executable, "-c", _NO_JAX_TRAIN, feats, labels,
          str(tmp_path / "m.zip"), str(tmp_path / "out.zip")],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RESULT 0 False []" in proc.stdout, proc.stdout[-2000:]
+    assert (tmp_path / "out.zip").exists()
+
+
+@pytest.mark.parametrize("switch", ["KALDI_ASLP_LSTM_NO_XFUSE",
+                                    "KALDI_ASLP_LSTM_MXU_FP32",
+                                    "KALDI_ASLP_LSTM_SPLIT_BWD"])
+def test_trainer_cli_runs_with_jax_blocked_under_switch(tmp_path, switch):
+    """The same run under each of the JAX package's LSTM switches, which
+    route the bf16 BLSTMP to the xg-fed core or the split backward: no
+    module of kaldi_aslp_tpu is loaded either."""
+    _jax_model(str(tmp_path / "m.zip"), bf16=True)
+    feats, labels = _write_corpus(tmp_path, _corpus(3, seed=9))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KALDI_ASLP_LSTM_")}
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_TRAIN, feats, labels,
+         str(tmp_path / "m.zip"), str(tmp_path / "out.zip")],
+        cwd=REPO, env=dict(env, PYTHONPATH=REPO, **{switch: "1"}),
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RESULT 0 False []" in proc.stdout, proc.stdout[-2000:]
