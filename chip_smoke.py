@@ -34,6 +34,14 @@ exits nonzero:
                 beta kernels at (S, T, U, V) = (128, 400, 40, 72) with
                 ragged lengths; time each beside its plain version, and
                 F.ctc_loss forward and backward as the pair's yardstick;
+                then, at (128, 400, 640): the forward and backward run
+                twice must give the same bits; the hoisted GEMM
+                (bilstmp_gemm_bf16) at the five shapes of its products
+                against its plain version, timed with its TFLOP/s beside
+                torch.matmul on the same bf16 operands; each x-fused
+                kernel's time split into its persistent sweep and its
+                GEMMs by torch.profiler; the sweeps' launch plan and
+                registers (from the -Xptxas -v log);
  6b. xg-train-kernels - hold the xg-fed BLSTMP training kernels (forward
                 and backward) against their plain versions at C=512,
                 P=320, (S, T) = (16, 200) and (128, 400), ragged masks, a
@@ -41,7 +49,8 @@ exits nonzero:
                 bf16 and with float32 products; then the per-direction
                 x-fused backward for d = 0 and 1 at the shapes of phase 6,
                 and the two halves against the fused backward on the same
-                inputs; time each beside its plain version;
+                inputs (largest difference 0); time each beside its plain
+                version;
   7. train    - write a Kaldi ark/scp corpus (16 utterances of 200-400
                 frames and 10-40 labels, each 4 times) and train the bf16
                 flagship on it through the CLI, aslp-nnet-train-ctc-streams
@@ -204,6 +213,17 @@ LSTM_F32_PRODUCTS_SHAPE = (100, 20)
 # data sheet, dense): bf16 tensor-core products, float32 FMA outside the
 # tensor cores, HBM3 bandwidth
 PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# the hoisted GEMM against its plain version: exact bf16 products, float32
+# sums over K up to S * T = 51,200 in another order; relative to the
+# largest |value|
+GEMM_RTOL = 1e-4
+# the x-fused kernels' times at (128, 400, 640) with their earlier
+# per-step kernels, as PERF.md section 6 records them (an H100 80GB HBM3 at
+# 700 W): logged on a line of their own beside the times this run measures,
+# never in the kernel records
+MS_PER_STEP_KERNELS = {"bilstmp_train_fwd": 83.11,
+                       "bilstmp_train_bwd": 160.2,
+                       "bilstmp_train_bwd_dir": 91.88}
 
 
 def log(phase: str, **fields) -> None:
@@ -687,6 +707,8 @@ def train_kernel_phase(dev):
                 C=C, P=P, rel_err=rel, rtol=TRAIN_KERNEL_RTOL, ms=ms,
                 plain_ms=plain_ms)
 
+    results["redesign"] = x_fused_phase(dev, fwd_args, bwd_args)
+
     S, T, U, V = CTC_SHAPE
     rs = np.random.RandomState(7)
     lab_lens = rs.randint(U // 4, U + 1, size=S).astype(np.int32)
@@ -728,6 +750,161 @@ def train_kernel_phase(dev):
     log("train_kernel", name="F.ctc_loss forward+backward", S=S, T=T, U=U,
         V=V, ms=results["ctc_library_ms"])
     return results
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device milliseconds of one call of ``fn`` by kernel name, from
+    torch.profiler (empty if the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        # kernels only: an operator's device time is its kernels'
+        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return out
+
+
+def ptxas_registers(log_text: str, kernel: str):
+    """Registers ptxas gave the kernel whose mangled name holds
+    ``kernel``, from an -Xptxas -v log."""
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for later in lines[i + 1:i + 4]:
+                if "Used" in later and "registers" in later:
+                    return int(later.split("Used")[1].split()[0])
+    return None
+
+
+def x_fused_phase(dev, fwd_args, bwd_args):
+    """At the bench shape: the determinism check, the hoisted GEMM at its
+    five shapes beside torch.matmul, each x-fused kernel's time split into
+    sweep and GEMMs, and the sweeps' plan and registers."""
+    from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
+    from kaldi_aslp_tpu_torch.ops import build
+
+    x, mask, wx, wr, wrm, peep, bias, init_c, init_r = fwd_args
+    S, T, D = x.shape
+    G, R, bf16 = 4 * C, S * T, torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # two runs, the same bits
+    runs = []
+    for _ in range(2):
+        f = bt.bilstmp_train_fwd(*fwd_args)
+        runs.append((*f, *bt.bilstmp_train_bwd(*bwd_args)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log("determinism", S=S, T=T, D=D, C=C, P=P, outputs=len(runs[0]),
+        identical=same)
+    if not same:
+        raise RuntimeError("two runs of the x-fused kernels differ")
+    del runs
+
+    # the hoisted GEMM at the shapes of the products (random bf16 operands
+    # in the layouts the kernels pass): xg = x . W_x^T; dx = dgates . W_x;
+    # dW_x = dgates^T . x; dW_r = dgates^T . r_prev; dW_rm = dr_new^T . m
+    rs = np.random.RandomState(11)
+
+    def randn(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+            dev).to(bf16)
+    dg, m, drn, rp = randn(2, R, G), randn(2, R, C), randn(2, R, P), \
+        randn(2, R, P)
+    xs = x.reshape(1, R, D).expand(2, -1, -1)
+    products = {"xg": (xs, wx.transpose(1, 2)), "dx": (dg, wx),
+                "dwx": (dg.transpose(1, 2), xs),
+                "dwr": (dg.transpose(1, 2), rp),
+                "dwrm": (drn.transpose(1, 2), m)}
+    gemm = {}
+    for name, (a, b) in products.items():
+        got = bt.bilstmp_gemm_bf16(a, b)
+        want = bt.bilstmp_gemm_bf16_reference(a, b)
+        torch.cuda.synchronize()
+        err, rel = hold(f"bilstmp_gemm_bf16 {name}", [got], [want], [name],
+                        GEMM_RTOL)
+        del got, want
+        batch, M, K = a.shape
+        N = b.shape[2]
+        flop = 2 * batch * M * N * K
+        ms = cuda_ms(lambda: bt.bilstmp_gemm_bf16(a, b), 10)
+        library_ms = cuda_ms(lambda: torch.matmul(a, b), 10)
+        gemm[name] = {"batch": batch, "M": M, "N": N, "K": K,
+                      "max_abs_err": err, "ms": ms, "tflops": flop / ms / 1e9,
+                      "library_ms": library_ms,
+                      "ratio": ms / library_ms}
+        log("gemm", name=f"bilstmp_gemm_bf16 {name}", **gemm[name],
+            rel_err=rel[name], rtol=GEMM_RTOL,
+            splits=bt.gemm_splits(M, N, K, sms))
+    del dg, m, drn, rp, products
+
+    # each kernel's time by its kernels' names: sweep, GEMMs, the rest
+    dy, _, _, gates, cs, rprev, *_, dc, dr = bwd_args
+    dir_args = (0, dy, mask, x, gates[0], cs[0], rprev[0], wx[0], wr[0],
+                wrm[0], peep[0], init_c, dc, dr)
+    split = {}
+    for name, fn, gemms in (
+            ("bilstmp_train_fwd", lambda: bt.bilstmp_train_fwd(*fwd_args),
+             ("xg",)),
+            ("bilstmp_train_bwd", lambda: bt.bilstmp_train_bwd(*bwd_args),
+             ("dx", "dwx", "dwr", "dwrm")),
+            ("bilstmp_train_bwd_dir",
+             lambda: bt.bilstmp_train_bwd_dir(*dir_args), ())):
+        by_kernel = device_ms_by_kernel(fn)
+        total = cuda_ms(fn, 3, 1)
+        parts = {"sweep": 0.0, "gemm": 0.0, "other": 0.0}
+        for key, ms in by_kernel.items():
+            part = ("sweep" if "sweep_kernel" in key else
+                    "gemm" if "gemm_" in key or "splitk_reduce" in key
+                    else "other")
+            parts[part] += ms
+        if by_kernel:
+            source = "torch.profiler"
+            # every hoisted product at these aligned widths takes TMA
+            names = " ".join(by_kernel)
+            if "gemm_tma_kernel" not in names or "gemm_bf16_kernel" in names:
+                raise RuntimeError(
+                    f"{name}: the hoisted products did not all run in "
+                    f"gemm_tma_kernel: {sorted(by_kernel)}")
+        else:
+            # no device time in the profile: the GEMM entry's own times
+            source = "kernel time less the GEMM entry's"
+            parts["gemm"] = sum(gemm[k]["ms"] for k in gemms)
+            parts["sweep"] = total - parts["gemm"]
+        split[name] = {"ms": total, "source": source,
+                       **{f"{k}_ms": v for k, v in parts.items()},
+                       "gemm_library_ms": sum(gemm[k]["library_ms"]
+                                              for k in gemms) or None,
+                       "by_kernel": by_kernel}
+        log("time_split", name=name, S=S, T=T, D=D, **split[name])
+    log("earlier_times", recorded_in="PERF.md section 6, the earlier "
+        "per-step kernels, not measured in this run", S=S, T=T, D=D,
+        ms=MS_PER_STEP_KERNELS,
+        measured_ms={k: v["ms"] for k, v in split.items()})
+
+    # the sweeps' plan and what ptxas gave them
+    plan = bt.sweep_plan(S, C, P, sms)
+    log_text = build.library_path(bt.SOURCE).with_suffix(".log").read_text()
+    sweeps = {}
+    for kernel, backward in (("fwd_sweep_kernel", False),
+                             ("bwd_sweep_kernel", True)):
+        nbd, cpb, ppb, stages, smem = plan.kernel_args(backward)
+        sweeps[kernel] = {"blocks": 2 * nbd, "threads": 256,
+                          "cells_per_block": cpb, "cols_per_block": ppb,
+                          "ring_stages": stages, "smem_bytes": smem,
+                          "registers": ptxas_registers(log_text, kernel)}
+        log("sweep_plan", kernel=kernel, S=S, C=C, P=P, **sweeps[kernel])
+    return {"gemm": gemm, "split": split, "sweeps": sweeps}
 
 
 def hold_xg(name, got, want, names, mxu_bf16):
@@ -864,6 +1041,9 @@ def xg_train_kernel_phase(dev):
         log("xg_train_kernel", name="bilstmp_train_bwd_dir", S=S, T=T, D=D,
             C=C, P=P, rel_err=rel, rtol=TRAIN_KERNEL_RTOL,
             split_vs_fused_max_abs=vs_fused, ms_d0=ms, plain_ms_d0=plain_ms)
+        if vs_fused != 0.0:
+            raise RuntimeError(f"the split backward's halves differ from the "
+                               f"fused backward by {vs_fused} at {S, T, D}")
     return results
 
 
@@ -1592,6 +1772,14 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
     served = next(r for r in kernel_results if (r["S"], r["T"]) == (1, 16)
                   and r["D"] == 2 * P)
     S, T, D = TRAIN_SHAPES[-1]
+    split = train_results["redesign"]["split"]
+
+    def redesigned(name):
+        """A redesigned kernel's split into sweep and GEMMs."""
+        sp = split[name]
+        return {"sweep_ms": sp["sweep_ms"], "gemm_ms": sp["gemm_ms"],
+                "gemm_library_ms": sp["gemm_library_ms"],
+                "time_split_source": sp["source"]}
     xg = {(kind, r["mxu_bf16"]): r for kind in ("fwd", "bwd")
           for r in xg_results[kind] if (r["S"], r["T"]) == (S, T)}
     ctc = CTC_SHAPE
@@ -1606,11 +1794,13 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
         kernel_record("bilstmp_train_fwd", "bilstmp_train.cu",
                       "lstm_pallas.py:1037", launched("bilstmp_train_fwd"),
                       train_results["fwd"], train_results["fwd"][-1],
-                      bilstmp_fwd_bound(S, T, D, C, P)),
+                      bilstmp_fwd_bound(S, T, D, C, P),
+                      **redesigned("bilstmp_train_fwd")),
         kernel_record("bilstmp_train_bwd", "bilstmp_train.cu",
                       "lstm_pallas.py:1261", launched("bilstmp_train_bwd"),
                       train_results["bwd"], train_results["bwd"][-1],
-                      bilstmp_bwd_bound(S, T, D, C, P)),
+                      bilstmp_bwd_bound(S, T, D, C, P),
+                      **redesigned("bilstmp_train_bwd")),
         kernel_record("ctc_alpha", "ctc_alpha_beta.cu", "ctc_pallas.py:44",
                       launched("ctc_alpha"), train_results["ctc_alpha"],
                       train_results["ctc_alpha"][-1],
@@ -1646,7 +1836,8 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
     records.append(kernel_record(
         "bilstmp_train_bwd_dir", "bilstmp_train.cu", "lstm_pallas.py:1154",
         launched("bilstmp_train_bwd_dir"), xg_results["bwd_dir"],
-        xg_results["bwd_dir"][-1], bilstmp_bwd_bound(S, T, D, C, P, dirs=1)))
+        xg_results["bwd_dir"][-1], bilstmp_bwd_bound(S, T, D, C, P, dirs=1),
+        **redesigned("bilstmp_train_bwd_dir")))
     missing = [r["name"] for r in records if not r["launches"]]
     if missing:
         raise RuntimeError(f"no CLI run launched {missing}")

@@ -9,9 +9,6 @@
 //   _xfused_bwd_kernel    (through _xfused_train_bwd_dir: one direction's
 //                          backward, which that custom VJP runs once per
 //                          direction under KALDI_ASLP_LSTM_SPLIT_BWD).
-// The fused and the per-direction backward share their device code: a
-// backward launch covers the directions [d0, d0 + gridDim.z), so the two
-// give the same bits for a direction.
 // Both directions run in every step: direction f (d = 0) at frame t,
 // direction b (d = 1) at frame T-1-t from a zero state.  Per direction,
 // with bf16 operands and float32 sums, float32 cell math and state:
@@ -26,33 +23,93 @@
 // output is bf16(r) * mask.  The backward recomputes c and tanh(c) from
 // the bf16 gates and c_prev, carries dc and dr in float32, and rounds dy,
 // dgates, dr_new and m to bf16 wherever they meet a product, as the TPU
-// kernel does.
+// kernel does; dx is summed over the directions in float32 from each
+// direction's bf16 dx and rounded once.
 //
-// What bounds it on the H100, and what the design does about it.  The TPU
-// kernels keep both directions' W_xr (2 x 960 x 2048 bf16, 7.9 MB at the
-// flagship's widths) and the weight-gradient accumulators in one core's
-// VMEM.  One SM has 227 KB of shared memory, so that does not carry over:
+// Design.  The TPU kernels keep both directions' W_xr (7.9 MB bf16 at the
+// flagship's C = 512, P = 320) and the weight-gradient accumulators in one
+// core's VMEM.  An H100 SM has 227 KB of shared memory, but the card has
+// 132 of them, and the recurrent weights (W_r 2.6 MB, W_rm 0.66 MB over
+// both directions) spread over them at about 25 KB an SM.  So:
 //   - the products with no dependence on the recurrence are hoisted out
-//     of the time loop into a tiled bf16 GEMM written here (wmma tensor
-//     cores, float32 sums): x . W_x for all frames in the forward; dx,
-//     dW_x, dW_r and dW_rm in the backward, from bf16 dgates, m and dr_new
-//     streams the sweep writes ([2, S, T, 4C] dgates is 420 MB at S = 128,
-//     T = 400, C = 512; the card has 80 GB);
-//   - the recurrent products stay in the time loop as in
-//     lstmp_forward.cu: per step one launch of a gates + cell kernel (one
-//     warp per cell reading its four bf16 rows of W_r from L2 against
-//     r_prev staged in shared memory) and one of a projection kernel (one
-//     warp per output column), each over both directions at once;
-//     the backward mirrors them (dm + cell backward, then dr);
-//   - dbias and dpeep are summed in float32 per (stream, cell) across the
-//     sweep (each owned by one thread, so no atomics), then over streams.
-// A step of the recurrence is bound by reading the recurrent weights from
-// L2 once per stream tile and by launch latency; wgmma, TMA and a
-// persistent kernel that keeps the weights in the SMs are later work.
+//     of the time loop into one bf16 GEMM written here: x . W_x^T for all
+//     frames in the forward; dx, dW_x, dW_r and dW_rm in the backward from
+//     the bf16 dgates, m and dr_new streams the sweep writes.  Its main
+//     kernel is warp-specialised: one producer thread keeps a 4-stage ring
+//     of TMA boxes (128-byte swizzled, zero past the edges) full, two
+//     consumer warpgroups run wgmma m64nNk16 (N = 256 for outputs 1024 or
+//     more wide, else 128) with float32 sums, and mbarriers pass the slots
+//     between them; an operand stored the other way (the weight gradients'
+//     dgates^T, x, r_prev, dr_new^T, m; dx's W_x) goes in MN-major through
+//     wgmma's transpose bit.  The weight gradients' K = S * T is long and
+//     their output tiles few, so K is split (ops/bilstmp_train.py:
+//     gemm_splits) and a second pass adds the slices in order.  Where a
+//     row is not 16-byte aligned (odd widths), a second kernel with the
+//     same layouts stages the tiles element by element; aligned operands
+//     always take TMA, and a tensor map libcuda cannot encode is an
+//     error, not a fall back to that kernel;
+//   - the recurrence is one cooperative, persistent kernel per sweep over
+//     all T steps and the launch's directions.  Block b of direction d
+//     owns a group of cells (its rows of W_r and, in the backward, of
+//     W_rm^T) and a group of projection columns (its rows of W_rm and, in
+//     the backward, of W_r^T), and keeps those weight slices in shared
+//     memory for the whole sweep, with its cells' c (dc) and its columns'
+//     r (dr) state, and in the backward its cells' dbias / dpeep sums per
+//     (stream, cell).  A step is two phases with a grid-wide barrier after
+//     each: the forward's gates + cell for the owned cells (writing bf16 m
+//     to a scratch row), then the projection for the owned columns (writing
+//     bf16 r for the next step); the backward's dm + cell backward for the
+//     owned cells (writing the step's bf16 dgates to a scratch row), then
+//     dr_prev for the owned columns (writing the next step's bf16 dr_new).
+//     The per-step products [S, P] x [P, 4C], [S, C] x [C, P] and their
+//     transposes run on the tensor cores (mma.sync m16n8k16, bf16
+//     operands, float32 sums): the block stages the step's state rows (all
+//     S streams, padded to 16 and taken 128 at a time) through a cp.async
+//     ring in 64-column chunks, and prefetches what its epilogue reads (xg;
+//     gates, c_prev and dy; the mask) while the product runs.  cp.async.cg
+//     reads L2, never a stale L1 line, which is how a block sees what the
+//     others wrote before the barrier.  Every sum has one owner and a fixed
+//     order: no atomics, two runs give the same bits.
+// The launch plan (blocks per direction, the cells and columns each block
+// owns, the ring's depth, the dynamic shared memory) is computed by the
+// wrapper (ops/bilstmp_train.py:sweep_plan) and checked here against the
+// layout the kernel uses.  A direction's plan does not depend on how many
+// directions a launch covers, and every output element of a sweep product
+// is summed over K in the same chunk order by whichever block owns it, so
+// bilstmp_train_bwd_dir gives the fused backward's bits for a direction;
+// the GEMM's split-K count depends on (M, N, K) and not on the batch, so
+// the same holds for the hoisted products.
+//
+// Capacity.  A block owns at most 16 cells (64 gate rows, eight n8 tiles)
+// and at most 64 projection columns (in groups of 8), and its slices, ring
+// and state must fit the 232,448 bytes of shared memory a block may use;
+// with floor(SMs / 2) blocks a direction that is C <= 16 * floor(SMs / 2)
+// (1056 on the H100's 132 SMs) and, at S = 128, P <= 512 at C = 1024.
+// Past it the wrapper raises ValueError.
+//
+// What bounds it on the H100.  By the design's arithmetic a forward step
+// reads, per SM, the direction's bf16 r_prev and m rows from L2 (80 +
+// 128 KB at S = 128), does about 2.5 MFLOP of tensor-core work and
+// crosses two grid barriers of a microsecond or two: 5-12 us, and 10-20 us
+// for the backward, whose dr phase reads the step's whole bf16 dgates row
+// (512 KB at S = 128).  On the card a step takes about 27 us forward and
+// 57 us backward at S = 128, and 20 and 43 us at S = 16 (PERF.md): most
+// of it does not grow with the streams.  It goes to the products' chunk
+// loops, run by a few warps between the ring's barrier-ordered chunks,
+// and to the barriers; the backward's dr phase adds every block reading
+// the whole dgates row.  A later PR would run the per-step products as
+// wgmma on a warpgroup's 64-stream tiles fed by TMA, split the dr phase's
+// K across blocks, and share the state rows among a cluster's SMs through
+// distributed shared memory, so that each row is read from L2 once per
+// cluster.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
+
+#include <cstdint>
 
 #include "device_math.cuh"
 
@@ -60,396 +117,1355 @@ namespace {
 
 using namespace aslp_cuda;
 using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kStreamTile = 16;      // streams per block, per-step kernels
-constexpr int kStreamTileDr = 8;     // streams per block, dr kernel
-constexpr size_t kMaxSmem = 48 * 1024;
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
-// Tiled bf16 GEMM with float32 sums (wmma 16x16x16):
+// PTX helpers: cp.async, ldmatrix, mma.sync m16n8k16 bf16.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared through L2; bytes past src_bytes are 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared (an input no block writes: through L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most n (0..2) groups are pending
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
+}
+
+// ldmatrix of four / two 8x8 b16 matrices at a shared-memory byte address
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1,
+                                           unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+
+// c += a . b for one m16n8k16 tile: a row-major, b column-major fragments
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// The hoisted GEMM, bf16 operands and float32 sums:
 //   Cm[b][m][n] = sum_k A(b, m, k) * B(b, k, n)
-// A(b, m, k) = A[b * sab + m * sam + k * sak], B likewise, Cm row-major
-// with leading dimension ldc.  Either operand may be transposed through its
-// strides; tiles are staged in shared memory, zero-filled at the edges.
+// A(b, m, k) = A[b * sab + m * sam + k * sak] with sak == 1 (A_K) or
+// sam == 1 (A_M); B(b, k, n) = B[b * sbb + k * sbk + n * sbn] with
+// sbk == 1 (B_K) or sbn == 1 (B_N).  Where every row and batch start is
+// 16-byte aligned gemm_tma_kernel computes it; otherwise gemm_bf16_kernel,
+// which stages its tiles element by element, zero-filled at the edges.
+// With splits > 1, blockIdx.z = b * splits + split sums a slice of K into
+// its own slab of ws, and splitk_reduce_kernel adds the slabs in order.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kLdA = kBK + 8, kLdB = kBN + 8, kLdC = kBN + 4;
+// Both GEMM kernels: 64-deep k-tiles of 128-byte rows.  The element-wise
+// kernel: 128 x 128 block tiles, a 3-stage ring, two warpgroups.
+constexpr int kGemmBK = 64, kGemmBM = 128, kGemmBN = 128;
+constexpr int kGemmStages = 3, kGemmThreads = 256;
+constexpr int kGemmTile = 128 * kGemmBK * 2;   // 16 KB, A or B
+constexpr size_t kGemmSmem =
+    (size_t)kGemmStages * 2 * kGemmTile + 1024;   // + 1 KB alignment
 
-__global__ void __launch_bounds__(kThreads)
-gemm_bf16_kernel(const bf16* __restrict__ A, long long sab, long long sam,
-                 long long sak, const bf16* __restrict__ B, long long sbb,
-                 long long sbk, long long sbn, float* __restrict__ Cm,
-                 long long scb, long long ldc, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) bf16 As[kBM * kLdA];
-  __shared__ __align__(32) bf16 Bs[kBK * kLdB];
-  __shared__ __align__(32) float Cs[kBM * kLdC];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  A += b * sab;
-  B += b * sbb;
-  Cm += b * scb;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
+struct GemmArgs {
+  const bf16* A;
+  long long sab, sam, sak;
+  const bf16* B;
+  long long sbb, sbk, sbn;
+  float* C;
+  long long scb, ldc;
+  int M, N, K, splits;
+};
+
+// The shared tiles take wgmma's canonical 128-byte-swizzled layouts, in
+// atoms of 8 rows x 128 bytes (1 KB) whose 16-byte chunk c of row r sits
+// at chunk c ^ r:
+//   K-major (k_unit): R rows (m or n) x 64 k, row r at (r / 8) KB +
+//     (r % 8) * 128 B; the 64-row half of warpgroup w starts at w * 8 KB;
+//   MN-major: panels of 64 m (or n) columns, 8 KB apart, each 64 k rows
+//     of 128 bytes; warpgroup w's A is panel w.
+__device__ __forceinline__ unsigned sw_offset(int row, int chunk) {
+  return (unsigned)(((row >> 3) << 10) + ((row & 7) << 7) +
+                    (((chunk ^ row) & 7) << 4));
+}
+
+// Stage the tile of X(r, k) = X[r * sr + k * sk] at (r0, k0): rows
+// [r0, r0 + R_T) and columns [k0, k0 + 64), zero past R and K, element by
+// element (the rows are not 16-byte aligned).
+template <int R_T, int NT, bool k_unit>
+__device__ __forceinline__ void gemm_stage(unsigned char* dst, const bf16* X,
+                                           long long sr, long long sk,
+                                           int R, int K, int r0, int k0) {
   const bf16 zero = __float2bfloat16(0.0f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int idx = threadIdx.x; idx < kBM * kBK; idx += kThreads) {
-      // neighbouring threads walk the operand's unit-stride dimension
-      const int r = sak == 1 ? idx / kBK : idx % kBM;
-      const int c = sak == 1 ? idx % kBK : idx / kBM;
-      const int m = m0 + r, k = k0 + c;
-      As[r * kLdA + c] = (m < M && k < K) ? A[m * sam + k * sak] : zero;
+  for (int i = threadIdx.x; i < R_T * kGemmBK; i += NT) {
+    int r, k;
+    unsigned off;
+    if (k_unit) {
+      r = i / kGemmBK;
+      k = i % kGemmBK;
+      off = sw_offset(r, k >> 3) + ((k & 7) << 1);
+    } else {
+      k = i / R_T;
+      r = i % R_T;
+      off = ((r >> 6) << 13) + sw_offset(k, (r & 63) >> 3) + ((r & 7) << 1);
     }
-    for (int idx = threadIdx.x; idx < kBK * kBN; idx += kThreads) {
-      const int r = sbn == 1 ? idx / kBN : idx % kBK;
-      const int c = sbn == 1 ? idx % kBN : idx / kBK;
-      const int k = k0 + r, n = n0 + c;
-      Bs[r * kLdB + c] = (k < K && n < N) ? B[k * sbk + n * sbn] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kLdA + kk,
-                               kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * kLdB + wn * 32 + j * 16,
-                               kLdB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kLdC + wn * 32 + j * 16,
-                              acc[i][j], kLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
-    const int r = idx / kBN, c = idx % kBN;
-    if (m0 + r < M && n0 + c < N)
-      Cm[(long long)(m0 + r) * ldc + n0 + c] = Cs[r * kLdC + c];
+    const int gr = r0 + r, gk = k0 + k;
+    *reinterpret_cast<bf16*>(dst + off) =
+        (gr < R && gk < K) ? X[gr * sr + gk * sk] : zero;
   }
 }
 
+// A wgmma shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ unsigned long long gmma_desc(const void* p,
+                                                        unsigned lbo,
+                                                        unsigned sbo) {
+  const unsigned long long a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((unsigned long long)((lbo >> 4) & 0x3FFF)
+                                 << 16) |
+         ((unsigned long long)((sbo >> 4) & 0x3FFF) << 32) | (1ULL << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async's writes made visible to the tensor cores' async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d += A . B for a 64 x N x 16 warpgroup tile, both from shared memory;
+// TA / TB = 1 for an MN-major operand
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[64],
+                                             unsigned long long da,
+                                             unsigned long long db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[128],
+                                             unsigned long long da,
+                                             unsigned long long db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// Two warpgroups, each 64 rows x 128 of the tile; a ring of 64-deep
+// k-tiles staged element by element, four wgmma k16 steps per k-tile.
+// Every thread stages and every warpgroup waits for its wgmmas before the
+// next k-tile.
+template <bool a_k, bool b_k>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+gemm_bf16_kernel(GemmArgs g) {
+  constexpr int BM = kGemmBM, BN = kGemmBN, NT = kGemmThreads;
+  constexpr int STAGES = kGemmStages, AHEAD = STAGES - 1;
+  constexpr int kStage = 2 * kGemmTile;
+  extern __shared__ unsigned char gemm_smem_raw[];
+  unsigned char* const tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(gemm_smem_raw) + 1023) & ~uintptr_t(1023));
+  const int b = blockIdx.z / g.splits, split = blockIdx.z % g.splits;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const bf16* A = g.A + b * g.sab;
+  const bf16* B = g.B + b * g.sbb;
+  // this split's slice of K, whole k-tiles
+  const int ktiles_all = (g.K + kGemmBK - 1) / kGemmBK;
+  const int per = (ktiles_all + g.splits - 1) / g.splits;
+  const int kt0 = split * per;
+  const int ktiles = max(0, min(ktiles_all, kt0 + per) - kt0);
+  const int wg = threadIdx.x >> 7;
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.0f;
+
+  auto load = [&](int kt, int slot) {
+    unsigned char* as = tiles + (size_t)slot * kStage;
+    unsigned char* bs = as + kGemmTile;
+    const int k0 = (kt0 + kt) * kGemmBK;
+    if (a_k)
+      gemm_stage<BM, NT, true>(as, A, g.sam, 1, g.M, g.K, m0, k0);
+    else
+      gemm_stage<BM, NT, false>(as, A, 1, g.sak, g.M, g.K, m0, k0);
+    if (b_k)
+      gemm_stage<BN, NT, true>(bs, B, g.sbn, 1, g.N, g.K, n0, k0);
+    else
+      gemm_stage<BN, NT, false>(bs, B, 1, g.sbk, g.N, g.K, n0, k0);
+  };
+
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s)
+    if (s < ktiles) load(s, s);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    // k-tile kt is staged; the slot staged next was last read by the
+    // wgmmas of k-tile kt - 1, which have finished
+    fence_proxy_async();
+    __syncthreads();
+    const int nxt = kt + AHEAD;
+    if (nxt < ktiles) load(nxt, nxt % STAGES);
+    const unsigned char* as = tiles + (size_t)(kt % STAGES) * kStage;
+    const unsigned char* bs = as + kGemmTile;
+    // K-major: the warpgroup's 64 rows start 8 KB in, a k16 step is 32 B
+    // into the swizzled rows; MN-major: a k16 step is 16 rows (2 KB), the
+    // 64-column panels 8 KB apart
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kGemmBK / 16; ++ks) {
+      const unsigned long long da =
+          a_k ? gmma_desc(as + (wg << 13) + ks * 32, 16, 1024)
+              : gmma_desc(as + (wg << 13) + ks * 2048, 8192, 1024);
+      const unsigned long long db =
+          b_k ? gmma_desc(bs + ks * 32, 16, 1024)
+              : gmma_desc(bs + ks * 2048, 8192, 1024);
+      wgmma_m64k16<a_k ? 0 : 1, b_k ? 0 : 1>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  float* Cm = g.C + (size_t)b * g.scb +
+              (size_t)split * ((size_t)gridDim.z / g.splits) * g.scb;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const bool pairs =
+      (g.ldc & 1) == 0 && (reinterpret_cast<uintptr_t>(Cm) & 7) == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wg * 64 + warp * 16 + gid + h * 8;
+      if (row >= g.M || col >= g.N) continue;
+      float* dst = Cm + (size_t)row * g.ldc + col;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (pairs && col + 1 < g.N) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        dst[0] = v0;
+        if (col + 1 < g.N) dst[1] = v1;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The GEMM's main kernel on Hopper: the operands come in by TMA (whole
+// 128-byte-swizzled boxes, zero past the tensor's edges) into a STAGES-deep
+// ring; a producer thread keeps the ring full, two consumer warpgroups
+// (64 x BN each) run wgmma on what has landed, and mbarriers hand the
+// slots back and forth, so no block-wide barrier sits in the main loop.
+// Taken where the strides allow TMA (16-byte-aligned rows); gemm_bf16_kernel
+// above takes the rest.
+// ---------------------------------------------------------------------------
+
+constexpr int kTmaStages = 4, kTmaThreads = 384;
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of the given parity has completed; a wait that
+// lasts past about 2^31 polls traps (a launch error) instead of hanging.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  const unsigned a = smem_u32(bar);
+  for (unsigned spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1u << 31)) asm volatile("trap;");
+  }
+}
+
+// One box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+struct TmaArgs {
+  float* C;
+  long long scb, ldc;
+  int M, N, K, splits;
+  int a_batched, b_batched;   // 0: the operand is one matrix for all b
+};
+
+template <bool a_k, bool b_k, int BN>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+gemm_tma_kernel(const __grid_constant__ CUtensorMap ta,
+                const __grid_constant__ CUtensorMap tb, TmaArgs g) {
+  constexpr int kA = 128 * kGemmBK * 2, kB = BN * kGemmBK * 2;
+  constexpr int kStage = kA + kB;
+  extern __shared__ unsigned char tma_smem_raw[];
+  unsigned char* const tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(tma_smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(tiles + kTmaStages * kStage);
+  unsigned long long* empty = full + kTmaStages;
+  const int b = blockIdx.z / g.splits, split = blockIdx.z % g.splits;
+  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * BN;
+  const int ktiles_all = (g.K + kGemmBK - 1) / kGemmBK;
+  const int per = (ktiles_all + g.splits - 1) / g.splits;
+  const int kt0 = split * per;
+  const int ktiles = max(0, min(ktiles_all, kt0 + per) - kt0);
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one thread issues every load
+    if (threadIdx.x != 0) return;
+    const int ba = g.a_batched ? b : 0, bb = g.b_batched ? b : 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kTmaStages;
+      if (kt >= kTmaStages) mbar_wait(&empty[s], ((kt / kTmaStages) & 1) ^ 1);
+      unsigned char* as = tiles + s * kStage;
+      unsigned char* bs = as + kA;
+      const int k0 = (kt0 + kt) * kGemmBK;
+      mbar_expect_tx(&full[s], kStage);
+      // K-major: one box of 64 k x rows; MN-major: 64 x 64 panels
+      if (a_k) {
+        tma_load(as, &ta, k0, m0, ba, &full[s]);
+      } else {
+        tma_load(as, &ta, m0, k0, ba, &full[s]);
+        tma_load(as + 8192, &ta, m0 + 64, k0, ba, &full[s]);
+      }
+      if (b_k) {
+        tma_load(bs, &tb, k0, n0, bb, &full[s]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          tma_load(bs + q * 8192, &tb, n0 + 64 * q, k0, bb, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup cw takes rows [64 cw, 64 cw + 64) of the tile
+  const int cw = wg - 1;
+  float acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.0f;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % kTmaStages;
+    mbar_wait(&full[s], (kt / kTmaStages) & 1);
+    const unsigned char* as = tiles + s * kStage;
+    const unsigned char* bs = as + kA;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kGemmBK / 16; ++ks) {
+      const unsigned long long da =
+          a_k ? gmma_desc(as + (cw << 13) + ks * 32, 16, 1024)
+              : gmma_desc(as + (cw << 13) + ks * 2048, 8192, 1024);
+      const unsigned long long db =
+          b_k ? gmma_desc(bs + ks * 32, 16, 1024)
+              : gmma_desc(bs + ks * 2048, 8192, 1024);
+      wgmma_m64k16<a_k ? 0 : 1, b_k ? 0 : 1>(acc, da, db);
+    }
+    wgmma_commit();
+    // one group left running; the slot of the group before it is free
+    wgmma_wait<1>();
+    if (kt > 0 && (threadIdx.x & 127) == 0)
+      mbar_arrive(&empty[(kt - 1) % kTmaStages]);
+  }
+  wgmma_wait<0>();
+
+  float* Cm = g.C + (size_t)b * g.scb +
+              (size_t)split * ((size_t)gridDim.z / g.splits) * g.scb;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const bool pairs =
+      (g.ldc & 1) == 0 && (reinterpret_cast<uintptr_t>(Cm) & 7) == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + cw * 64 + warp * 16 + gid + h * 8;
+      if (row >= g.M || col >= g.N) continue;
+      float* dst = Cm + (size_t)row * g.ldc + col;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (pairs && col + 1 < g.N) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        dst[0] = v0;
+        if (col + 1 < g.N) dst[1] = v1;
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, found once at run time (so the
+// library links against nothing beyond the CUDA runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return h ? reinterpret_cast<EncodeTiled>(
+                   dlsym(h, "cuTensorMapEncodeTiled"))
+             : nullptr;
+  }();
+  return fn;
+}
+
+// The map of an operand X(r, k) stored with unit stride along k (k_unit)
+// or along r, `rows` long along r, batch stride sb (0: one matrix): boxes
+// of 64 unit-stride elements by `box` (k_unit: rows of the tile) or 64
+// (MN-major: k), 128-byte swizzled.  Returns a cudaError_t.
+int make_map(CUtensorMap* map, const bf16* X, bool k_unit,
+             long long row_stride, long long sb, int rows, int K, int batch,
+             int box) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t inner = k_unit ? K : rows, outer = k_unit ? rows : K;
+  const cuuint64_t nb = sb ? batch : 1;
+  const cuuint64_t dims[3] = {inner, outer, nb};
+  const cuuint64_t strides[2] = {
+      (cuuint64_t)row_stride * 2,
+      (cuuint64_t)(sb ? sb : row_stride * (long long)outer) * 2};
+  const cuuint32_t boxd[3] = {64, (cuuint32_t)(k_unit ? box : 64), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<bf16*>(X), dims, strides, boxd, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+template <bool a_k, bool b_k, int BN>
+int launch_tma(const CUtensorMap& ta, const CUtensorMap& tb,
+               const TmaArgs& g, int batch, cudaStream_t st) {
+  auto kernel = gemm_tma_kernel<a_k, b_k, BN>;
+  const size_t smem =
+      (size_t)kTmaStages * (128 + BN) * kGemmBK * 2 + 1024 + 16 * kTmaStages;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + 127) / 128, batch * g.splits);
+  kernel<<<grid, kTmaThreads, smem, st>>>(ta, tb, g);
+  return (int)cudaGetLastError();
+}
+
+// out[b][m][n] (ldc, scb) = sum over split of ws[split][b][m][n], in order
+__global__ void splitk_reduce_kernel(const float* __restrict__ ws,
+                                     float* __restrict__ out, long long scb,
+                                     long long ldc, int M, int N, int batch,
+                                     int splits) {
+  const size_t mn = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn * batch) return;
+  const size_t b = i / mn, r = i - b * mn;
+  float v = 0.0f;
+  for (int s = 0; s < splits; ++s) v += ws[((size_t)s * batch + b) * mn + r];
+  out[b * scb + (r / N) * ldc + r % N] = v;
+}
+
+template <bool a_k, bool b_k>
+int launch_gemm(const GemmArgs& g, int batch, cudaStream_t st) {
+  auto kernel = gemm_bf16_kernel<a_k, b_k>;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
+  if (err) return err;
+  const dim3 grid((g.N + kGemmBN - 1) / kGemmBN,
+                  (g.M + kGemmBM - 1) / kGemmBM, batch * g.splits);
+  kernel<<<grid, kGemmThreads, kGemmSmem, st>>>(g);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Cm[b] = A[b] . B[b] as GemmArgs describes (C, scb and ldc the output's),
+// with `splits` slices of K summed through ws [splits, batch, M, N] f32.
+// The TMA kernel where every row and batch start is 16-byte aligned,
+// 128 x 256 tiles for N >= 1024 and 128 x 128 below (less padding on
+// narrow outputs), and an error if libcuda cannot encode its tensor maps;
+// the element-wise kernel otherwise.
 int gemm(const bf16* A, long long sab, long long sam, long long sak,
          const bf16* B, long long sbb, long long sbk, long long sbn,
          float* Cm, long long scb, long long ldc, int M, int N, int K,
-         int batch, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  gemm_bf16_kernel<<<grid, kThreads, 0, stream>>>(
-      A, sab, sam, sak, B, sbb, sbk, sbn, Cm, scb, ldc, M, N, K);
+         int batch, int splits, float* ws, cudaStream_t st) {
+  if (M <= 0 || N <= 0 || K <= 0 || batch <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool a_k = sak == 1, b_k = sbk == 1;
+  if ((!a_k && sam != 1) || (!b_k && sbn != 1))
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  GemmArgs g;
+  g.A = A;
+  g.sab = sab;
+  g.sam = sam;
+  g.sak = sak;
+  g.B = B;
+  g.sbb = sbb;
+  g.sbk = sbk;
+  g.sbn = sbn;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.splits = splits;
+  // TMA needs every row and batch start on 16 bytes
+  const long long ra = a_k ? sam : sak, rb = b_k ? sbn : sbk;
+  const bool tma = aligned16(A) && ra % 8 == 0 && sab % 8 == 0 &&
+                   aligned16(B) && rb % 8 == 0 && sbb % 8 == 0;
+  if (splits > 1) {
+    g.C = ws;
+    g.scb = (long long)M * N;
+    g.ldc = N;
+  } else {
+    g.C = Cm;
+    g.scb = scb;
+    g.ldc = ldc;
+  }
+  int err;
+  if (tma) {
+    // aligned operands take TMA or fail: no quiet fallback to the slower
+    // kernel
+    CUtensorMap ta, tb;
+    const int bn_tma = N >= 1024 ? 256 : 128;
+    if ((err = make_map(&ta, A, a_k, ra, sab, M, K, batch, 128)) ||
+        (err = make_map(&tb, B, b_k, rb, sbb, N, K, batch, bn_tma)))
+      return err;
+    TmaArgs t;
+    t.C = g.C;
+    t.scb = g.scb;
+    t.ldc = g.ldc;
+    t.M = M;
+    t.N = N;
+    t.K = K;
+    t.splits = splits;
+    t.a_batched = sab != 0;
+    t.b_batched = sbb != 0;
+#define ASLP_TMA(AK, BK)                                          \
+  err = bn_tma == 256 ? launch_tma<AK, BK, 256>(ta, tb, t, batch, st) \
+                      : launch_tma<AK, BK, 128>(ta, tb, t, batch, st)
+    if (a_k && b_k)
+      ASLP_TMA(true, true);
+    else if (a_k)
+      ASLP_TMA(true, false);
+    else if (b_k)
+      ASLP_TMA(false, true);
+    else
+      ASLP_TMA(false, false);
+#undef ASLP_TMA
+  } else if (a_k && b_k)
+    err = launch_gemm<true, true>(g, batch, st);
+  else if (a_k)
+    err = launch_gemm<true, false>(g, batch, st);
+  else if (b_k)
+    err = launch_gemm<false, true>(g, batch, st);
+  else
+    err = launch_gemm<false, false>(g, batch, st);
+  if (err || splits == 1) return err;
+  const size_t n = (size_t)M * N * batch;
+  splitk_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      ws, Cm, scb, ldc, M, N, batch, splits);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Forward, one step: blockIdx.z is the direction.
+// The persistent sweeps.
 // ---------------------------------------------------------------------------
 
-// Gates + cell for cells [blockIdx.x * kWarps, +kWarps) and streams
-// [blockIdx.y * ST, +ST).  xg [2, S, T, 4C] holds x . W_x^T (no bias).
-template <int ST>
-__global__ void __launch_bounds__(kThreads)
-fwd_cell_kernel(int step, const float* __restrict__ xg,
-                const float* __restrict__ mask, const bf16* __restrict__ wr,
-                const float* __restrict__ peep,
-                const float* __restrict__ bias,
-                const float* __restrict__ r_state,
-                float* __restrict__ c_state, float* __restrict__ m_buf,
-                bf16* __restrict__ gates, bf16* __restrict__ cs, int S,
-                int T, int C, int P, float cell_clip) {
-  extern __shared__ float r_sh[];  // [ST, P], r_prev rounded to bf16
-  const int d = blockIdx.z;
-  const int t = d == 0 ? step : T - 1 - step;
-  const int s0 = blockIdx.y * ST;
-  const float* r_d = r_state + (size_t)d * S * P;
-  for (int idx = threadIdx.x; idx < ST * P; idx += blockDim.x) {
-    const int s = idx / P;
-    r_sh[idx] = (s0 + s < S)
-                    ? round_bf16(r_d[(size_t)(s0 + s) * P + (idx - s * P)])
-                    : 0.0f;
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kRowsMax = 128;   // streams per pass of a product (8 m16 tiles)
+constexpr int kKC = 64;         // columns per cp.async chunk of the ring
+constexpr int kLdStage = kKC + 8;
+constexpr int kPairs = 8;       // (m16, n8) tiles per warp per pass
+constexpr int kMaxCells = 16;   // cells a block may own (64 gate rows)
+constexpr int kMaxCols = 64;    // projection columns a block may own
+constexpr int kMaxStages = 4;   // deepest cp.async ring
+constexpr size_t kSmemLimit = 232448;
+
+// The launch plan: ops/bilstmp_train.py:sweep_plan computes it, and the
+// layout below must give its byte count.  The limits above are that
+// module's SMEM_LIMIT, ROWS_PER_PASS, K_CHUNK, MAX_CELLS, MAX_COLS and
+// MAX_STAGES (tests/test_torch_bilstmp_plan.py holds them equal).
+struct Plan {
+  int nbd;     // blocks per direction
+  int cpb;     // cells per block
+  int ppb;     // projection columns per block
+  int nstage;  // depth of the cp.async ring (2..4)
+  int mg;      // streams per pass, min(128, S rounded up to 16)
+  int cp, pp;  // C and P rounded up to 16
+};
+
+__host__ __device__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ size_t align16(size_t v) { return (v + 15) / 16 * 16; }
+
+// Byte offsets of the regions of a sweep's dynamic shared memory.
+struct Layout {
+  size_t w1, w2, stage, out, st1, st2, sums, pre, total;
+  int ld1, ld2, ldo, n1, n2;
+};
+
+// Forward: w1 = W_r rows of the owned cells (row jj * 4 + gate), w2 = W_rm
+// rows of the owned columns, c and r state of the owned cells / columns.
+// Backward: w1 = W_rm^T rows of the owned cells, w2 = W_r^T rows of the
+// owned columns (K laid out gate * cp + j), dc / dr state, and the seven
+// per-(stream, cell) sums dbias (g, i, f, o) and dpeep (i, f, o).  Last,
+// what an epilogue reads, prefetched while the product runs (pre_* below).
+__host__ __device__ Layout sweep_layout(const Plan& p, int S,
+                                         bool backward) {
+  Layout L;
+  L.n1 = round_up(backward ? p.cpb : 4 * p.cpb, 8);
+  L.n2 = round_up(p.ppb, 8);
+  L.ld1 = p.pp + 8;
+  L.ld2 = (backward ? 4 * p.cp : p.cp) + 8;
+  L.ldo = (L.n1 > L.n2 ? L.n1 : L.n2) + 4;
+  size_t off = 0;
+  L.w1 = off;
+  off += align16((size_t)L.n1 * L.ld1 * sizeof(bf16));
+  L.w2 = off;
+  off += align16((size_t)L.n2 * L.ld2 * sizeof(bf16));
+  L.stage = off;
+  off += align16((size_t)p.nstage * p.mg * kLdStage * sizeof(bf16));
+  L.out = off;
+  off += align16((size_t)p.mg * L.ldo * sizeof(float));
+  L.st1 = off;
+  off += align16((size_t)S * p.cpb * sizeof(float));
+  L.st2 = off;
+  off += align16((size_t)S * p.ppb * sizeof(float));
+  L.sums = off;
+  if (backward) off += align16((size_t)7 * S * p.cpb * sizeof(float));
+  L.pre = off;
+  const size_t mg = p.mg;
+  if (backward) {
+    const size_t c8 = round_up(p.cpb, 8);
+    off += align16(mg * 4 * c8 * sizeof(bf16)) +
+           align16(mg * c8 * sizeof(bf16)) +
+           align16(mg * 2 * p.ppb * sizeof(bf16)) +
+           align16(mg * 2 * sizeof(float));
+  } else {
+    off += align16(mg * 4 * round_up(p.cpb, 4) * sizeof(float)) +
+           align16(mg * sizeof(float));
   }
-  __syncthreads();
+  L.total = off;
+  return L;
+}
 
-  const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (j >= C) return;
-  const int G = 4 * C;
+bool plan_ok(const Plan& p, int S, int C, int P, size_t smem, bool backward) {
+  if (p.nbd <= 0 || p.cpb <= 0 || p.ppb <= 0 || p.cpb > kMaxCells ||
+      p.ppb > kMaxCols || p.ppb % 8 || p.nstage < 2 ||
+      p.nstage > kMaxStages)
+    return false;
+  if ((long long)p.nbd * p.cpb < C || (long long)p.nbd * p.ppb < P)
+    return false;
+  if (p.mg != (S < kRowsMax ? round_up(S, 16) : kRowsMax)) return false;
+  if (p.cp != round_up(C, 16) || p.pp != round_up(P, 16)) return false;
+  const Layout L = sweep_layout(p, S, backward);
+  return L.total == smem && smem <= kSmemLimit;
+}
 
-  float acc[4][ST];
+// Stage rows [0, rows) of A (row stride lda), columns [k0, k0 + kn), into
+// slot ([mg][kLdStage]); rows [rows, 16 * ceil(rows / 16)) are zeros.
+__device__ __forceinline__ void stage_chunk(bf16* slot, const bf16* a,
+                                            int lda, int rows, int k0,
+                                            int kn) {
+  const int pieces = kn >> 3, mrows = (rows + 15) & ~15;
+  for (int i = threadIdx.x; i < mrows * pieces; i += kThreads) {
+    const int r = i / pieces, c = (i - r * pieces) << 3;
+    const bool ok = r < rows;
+    cp_async16(slot + r * kLdStage + c,
+               ok ? a + (size_t)r * lda + k0 + c : a, ok ? 16 : 0);
+  }
+}
+
+// The block's product for one pass of up to 128 streams:
+//   out[r][n] = sum_k A[r][k] * Bt[n][k],  r < rows, n < 8 * nt, k < kp
+// A in global memory (bf16, row stride lda, written by other blocks before
+// the last grid barrier: read through L2 by cp.async.cg), Bt the block's
+// weight slice in shared memory (row stride ldb), kp a multiple of 16.
+// Each warp takes the (m16, n8) tiles q = warp + 8 i (m = q % mt,
+// n = q / mt), i < nv; every element is summed over K in chunk order.
+// A step's loop is short and runs on few warps, so each tile's
+// ldmatrix addresses are worked out once, not at every k-step.
+__device__ void block_product(const bf16* a, int lda, int rows, int kp,
+                              const bf16* bt, int ldb, int nt, bf16* stage,
+                              int nstage, int mg, float* out, int ldo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mt = (rows + 15) >> 4;
+  const int nchunks = (kp + kKC - 1) / kKC;
+  const size_t slot = (size_t)mg * kLdStage;
+  const int nv =
+      warp < mt * nt ? (mt * nt - warp + kWarps - 1) / kWarps : 0;
+  // byte addresses at k = 0 of each tile's A rows (chunk slot 0) and Bt
+  // rows
+  const unsigned a0 = smem_u32(stage), b0 = smem_u32(bt);
+  int tm[kPairs], tn[kPairs];
+  unsigned sa[kPairs], sb[kPairs];
+  float acc[kPairs][4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int i = 0; i < kPairs; ++i) {
+    const int q = warp + kWarps * i;
+    tm[i] = q % mt;
+    tn[i] = q / mt;
+    sa[i] = a0 + 2 * ((tm[i] * 16 + (lane & 15)) * kLdStage +
+                      ((lane >> 4) << 3));
+    sb[i] = b0 + 2 * ((tn[i] * 8 + (lane & 7)) * ldb +
+                      (((lane >> 3) & 1) << 3));
 #pragma unroll
-    for (int s = 0; s < ST; ++s) acc[k][s] = 0.0f;
-  const bf16* w_row = wr + ((size_t)d * G + j) * P;
-  const size_t gate_stride = (size_t)C * P;
-  for (int p = lane; p < P; p += 32) {
-    float w[4];
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  }
+  for (int c = 0; c < nstage - 1; ++c) {
+    if (c < nchunks)
+      stage_chunk(stage + c * slot, a, lda, rows, c * kKC,
+                  min(kKC, kp - c * kKC));
+    cp_async_commit();
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait_n(nstage - 2);
+    __syncthreads();
+    const int cn = c + nstage - 1;
+    if (cn < nchunks)
+      stage_chunk(stage + (cn % nstage) * slot, a, lda, rows, cn * kKC,
+                  min(kKC, kp - cn * kKC));
+    cp_async_commit();
+    const int k0 = c * kKC, ksteps = min(kKC, kp - k0) >> 4;
+    const unsigned soff = 2 * (unsigned)((c % nstage) * slot);
+    const unsigned koff = 2 * k0;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      unsigned af[4];
+      int cur = -1;
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      w[k] = __bfloat162float(w_row[k * gate_stride + p]);
-#pragma unroll
-    for (int s = 0; s < ST; ++s) {
-      const float rv = r_sh[s * P + p];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k][s] = fmaf(w[k], rv, acc[k][s]);
+      for (int i = 0; i < kPairs; ++i) {
+        if (i >= nv) continue;
+        if (tm[i] != cur) {
+          ldsm_x4(af, sa[i] + soff + 32 * ks);
+          cur = tm[i];
+        }
+        unsigned bl, bh;
+        ldsm_x2(bl, bh, sb[i] + koff + 32 * ks);
+        mma_bf16(acc[i], af, bl, bh);
+      }
     }
   }
+  cp_async_wait<0>();
+  const int gid = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int s = 0; s < ST; ++s) acc[k][s] = warp_sum(acc[k][s]);
+  for (int i = 0; i < kPairs; ++i) {
+    if (i >= nv) continue;
+    float* o = out + (tm[i] * 16 + gid) * ldo + tn[i] * 8 + 2 * t4;
+    o[0] = acc[i][0];
+    o[1] = acc[i][1];
+    o[8 * ldo] = acc[i][2];
+    o[8 * ldo + 1] = acc[i][3];
+  }
+  __syncthreads();
+}
 
-  const float* b = bias + (size_t)d * G;
-  const float* pp = peep + (size_t)d * 3 * C;
-#pragma unroll
-  for (int s = 0; s < ST; ++s) {
-    const int sg = s0 + s;
-    if (lane != s || sg >= S) continue;
-    const size_t row = ((size_t)d * S + sg) * T + t;
-    const float* x = xg + row * G;
-    const size_t cj = ((size_t)d * S + sg) * C + j;
-    const float cp = c_state[cj];
-    // bias + (x . W_x^T + r_prev . W_r^T)
-    const float lin[4] = {b[j] + (x[j] + acc[0][s]),
-                          b[C + j] + (x[C + j] + acc[1][s]),
-                          b[2 * C + j] + (x[2 * C + j] + acc[2][s]),
-                          b[3 * C + j] + (x[3 * C + j] + acc[3][s])};
-    const CellForward r =
-        cell_forward(lin, cp, pp[j], pp[C + j], pp[2 * C + j], cell_clip);
-    const float mk = mask[(size_t)sg * T + t];
-    const float cn = mk * r.c + (1.0f - mk) * cp;
-    c_state[cj] = cn;
-    m_buf[cj] = round_bf16(r.m);
-    bf16* gr = gates + row * G;
-    gr[j] = __float2bfloat16(r.g);
-    gr[C + j] = __float2bfloat16(r.i);
-    gr[2 * C + j] = __float2bfloat16(r.f);
-    gr[3 * C + j] = __float2bfloat16(r.o);
-    cs[row * C + j] = __float2bfloat16(cn);
+// Copy rows [0, n) of a bf16 matrix (row stride ld_src, K valid columns,
+// column k of row r at src[row(r) * ld_src + col(k)]) into a shared slice
+// [n_pad][ld] with zeros elsewhere.
+template <typename Row, typename Col>
+__device__ void load_slice(bf16* dst, int n_pad, int ld, int n, int kvalid,
+                           const bf16* src, Row row, Col col) {
+  const bf16 zero = __float2bfloat16(0.0f);
+  for (int i = threadIdx.x; i < n_pad * ld; i += kThreads) {
+    const int r = i / ld, k = i - r * ld;
+    dst[i] = (r < n && k < kvalid) ? src[row(r) + col(k)] : zero;
   }
 }
 
-// Projection for columns [blockIdx.x * kWarps, +kWarps) and streams
-// [blockIdx.y * ST, +ST): r = bf16(m) . W_rm^T, blended by the mask; the
-// bf16 r goes to the next step's r_prev slot and, times the mask, to ys.
-template <int ST>
-__global__ void __launch_bounds__(kThreads)
-fwd_proj_kernel(int step, const float* __restrict__ m_buf,
-                const bf16* __restrict__ wrm, const float* __restrict__ mask,
-                float* __restrict__ r_state, bf16* __restrict__ rprev,
-                bf16* __restrict__ ys, int S, int T, int C, int P) {
-  extern __shared__ float m_sh[];  // [ST, C]
-  const int d = blockIdx.z;
-  const int t = d == 0 ? step : T - 1 - step;
-  const int s0 = blockIdx.y * ST;
-  const float* m_d = m_buf + (size_t)d * S * C;
-  for (int idx = threadIdx.x; idx < ST * C; idx += blockDim.x) {
-    const int s = idx / C;
-    m_sh[idx] = (s0 + s < S) ? m_d[(size_t)(s0 + s) * C + (idx - s * C)]
-                             : 0.0f;
+struct FwdArgs {
+  const float* xg;
+  const float* mask;
+  const bf16* wr;
+  const bf16* wrm;
+  const float* peep;
+  const float* bias;
+  float* c_state;
+  float* r_state;
+  bf16* rb;   // [2, S, pp] bf16 r_prev of the step (pad columns zero)
+  bf16* mb;   // [2, S, cp] bf16 m of the step (pad columns zero)
+  bf16* gates;
+  bf16* cs;
+  bf16* rprev;
+  bf16* ys;
+  int S, T, C, P;
+  float cell_clip;
+  Plan p;
+};
+
+// Blocks [0, nbd) run direction f, [nbd, 2 nbd) direction b.
+__global__ void __launch_bounds__(kThreads, 1) fwd_sweep_kernel(FwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan& p = a.p;
+  const int S = a.S, T = a.T, C = a.C, P = a.P, G = 4 * C;
+  const Layout L = sweep_layout(p, S, false);
+  bf16* w1 = reinterpret_cast<bf16*>(smem + L.w1);
+  bf16* w2 = reinterpret_cast<bf16*>(smem + L.w2);
+  bf16* stage = reinterpret_cast<bf16*>(smem + L.stage);
+  float* out = reinterpret_cast<float*>(smem + L.out);
+  float* c_sh = reinterpret_cast<float*>(smem + L.st1);   // [S][cpb]
+  float* r_sh = reinterpret_cast<float*>(smem + L.st2);   // [S][ppb]
+  const int c4 = round_up(p.cpb, 4);
+  float* xs = reinterpret_cast<float*>(smem + L.pre);     // [mg][4][c4]
+  float* mks = xs + align16((size_t)p.mg * 4 * c4 * sizeof(float)) /
+                        sizeof(float);                    // [mg]
+  // 16-byte pieces of a row's xg need 4-cell-aligned groups
+  const bool xvec = C % 4 == 0 && p.cpb % 4 == 0;
+  const int d = blockIdx.x / p.nbd, blk = blockIdx.x % p.nbd;
+  const int j0 = blk * p.cpb, nj = max(0, min(C - j0, p.cpb));
+  const int p0 = blk * p.ppb, np = max(0, min(P - p0, p.ppb));
+
+  // W_r rows gate * C + j0 + jj as slice row jj * 4 + gate
+  const bf16* wr_d = a.wr + (size_t)d * G * P;
+  load_slice(w1, L.n1, L.ld1, 4 * nj, P, wr_d,
+             [=](int r) { return (size_t)((r & 3) * C + j0 + (r >> 2)) * P; },
+             [](int k) { return (size_t)k; });
+  const bf16* wrm_d = a.wrm + (size_t)d * P * C;
+  load_slice(w2, L.n2, L.ld2, np, C, wrm_d,
+             [=](int r) { return (size_t)(p0 + r) * C; },
+             [](int k) { return (size_t)k; });
+  for (int i = threadIdx.x; i < S * nj; i += kThreads) {
+    const int s = i / nj, jj = i - s * nj;
+    c_sh[s * p.cpb + jj] = a.c_state[((size_t)d * S + s) * C + j0 + jj];
+  }
+  for (int i = threadIdx.x; i < S * np; i += kThreads) {
+    const int s = i / np, pp = i - s * np;
+    r_sh[s * p.ppb + pp] = a.r_state[((size_t)d * S + s) * P + p0 + pp];
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= P) return;
-  float acc[ST];
+  const float* bias = a.bias + (size_t)d * G;
+  const float* peep = a.peep + (size_t)d * 3 * C;
+  cg::grid_group grid = cg::this_grid();
+  for (int step = 0; step < T; ++step) {
+    const int t = d == 0 ? step : T - 1 - step;
+    // gates + cell of the owned cells: lin = bias + (xg + r_prev . W_r^T)
+    if (nj > 0) {
+      for (int s0 = 0; s0 < S; s0 += p.mg) {
+        const int rows = min(p.mg, S - s0);
+        // the rows' xg of the owned cells and the mask, in flight while
+        // the product runs
+        const int q4 = (nj + 3) >> 2;
+        for (int i = threadIdx.x; i < rows * 4 * q4; i += kThreads) {
+          const int r = i / (4 * q4), k = (i / q4) & 3, q = i % q4;
+          const int n = min(4, nj - 4 * q);
+          const float* src = a.xg + (((size_t)d * S + s0 + r) * T + t) * G +
+                             k * C + j0 + 4 * q;
+          float* dst = xs + (r * 4 + k) * c4 + 4 * q;
+          if (xvec)
+            cp_async16(dst, src, 4 * n);
+          else
+            for (int e = 0; e < n; ++e) dst[e] = src[e];
+        }
+        for (int r = threadIdx.x; r < rows; r += kThreads)
+          cp_async4(mks + r, a.mask + (size_t)(s0 + r) * T + t);
+        cp_async_commit();
+        block_product(a.rb + ((size_t)d * S + s0) * p.pp, p.pp, rows, p.pp,
+                      w1, L.ld1, L.n1 / 8, stage, p.nstage, p.mg, out, L.ldo);
+        for (int i = threadIdx.x; i < rows * nj; i += kThreads) {
+          const int r = i / nj, jj = i - r * nj, s = s0 + r, j = j0 + jj;
+          const size_t row = ((size_t)d * S + s) * T + t;
+          const float* acc = out + r * L.ldo + jj * 4;
+          float lin[4];
 #pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-  const bf16* w_row = wrm + ((size_t)d * P + p) * C;
-  for (int j = lane; j < C; j += 32) {
-    const float wv = __bfloat162float(w_row[j]);
-#pragma unroll
-    for (int s = 0; s < ST; ++s) acc[s] = fmaf(wv, m_sh[s * C + j], acc[s]);
+          for (int k = 0; k < 4; ++k)
+            lin[k] = bias[k * C + j] + (xs[(r * 4 + k) * c4 + jj] + acc[k]);
+          const float cp = c_sh[s * p.cpb + jj];
+          const CellForward cf = cell_forward(lin, cp, peep[j], peep[C + j],
+                                              peep[2 * C + j], a.cell_clip);
+          const float mk = mks[r];
+          const float cn = mk * cf.c + (1.0f - mk) * cp;
+          c_sh[s * p.cpb + jj] = cn;
+          a.mb[((size_t)d * S + s) * p.cp + j] = __float2bfloat16(cf.m);
+          bf16* gr = a.gates + row * G;
+          gr[j] = __float2bfloat16(cf.g);
+          gr[C + j] = __float2bfloat16(cf.i);
+          gr[2 * C + j] = __float2bfloat16(cf.f);
+          gr[3 * C + j] = __float2bfloat16(cf.o);
+          a.cs[row * C + j] = __float2bfloat16(cn);
+        }
+        __syncthreads();
+      }
+    }
+    grid.sync();
+    // projection of the owned columns: r = bf16(m) . W_rm^T, blended
+    if (np > 0) {
+      for (int s0 = 0; s0 < S; s0 += p.mg) {
+        const int rows = min(p.mg, S - s0);
+        for (int r = threadIdx.x; r < rows; r += kThreads)
+          cp_async4(mks + r, a.mask + (size_t)(s0 + r) * T + t);
+        cp_async_commit();
+        block_product(a.mb + ((size_t)d * S + s0) * p.cp, p.cp, rows, p.cp,
+                      w2, L.ld2, L.n2 / 8, stage, p.nstage, p.mg, out, L.ldo);
+        for (int i = threadIdx.x; i < rows * np; i += kThreads) {
+          const int r = i / np, pp = i - r * np, s = s0 + r, pc = p0 + pp;
+          const float mk = mks[r];
+          const float rn =
+              mk * out[r * L.ldo + pp] + (1.0f - mk) * r_sh[s * p.ppb + pp];
+          r_sh[s * p.ppb + pp] = rn;
+          const bf16 rbv = __float2bfloat16(rn);
+          a.rb[((size_t)d * S + s) * p.pp + pc] = rbv;
+          const size_t base = ((size_t)d * S + s) * T;
+          if (d == 0 && t + 1 < T) a.rprev[(base + t + 1) * P + pc] = rbv;
+          if (d == 1 && t >= 1) a.rprev[(base + t - 1) * P + pc] = rbv;
+          a.ys[((size_t)s * T + t) * 2 * P + (size_t)d * P + pc] =
+              __float2bfloat16(__bfloat162float(rbv) * round_bf16(mk));
+        }
+        __syncthreads();
+      }
+    }
+    grid.sync();
   }
-#pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = warp_sum(acc[s]);
-
-#pragma unroll
-  for (int s = 0; s < ST; ++s) {
-    const int sg = s0 + s;
-    if (lane != s || sg >= S) continue;
-    const float mk = mask[(size_t)sg * T + t];
-    const size_t rp = ((size_t)d * S + sg) * P + p;
-    const float rn = mk * acc[s] + (1.0f - mk) * r_state[rp];
-    r_state[rp] = rn;
-    const bf16 rb = __float2bfloat16(rn);
-    const size_t row = ((size_t)d * S + sg) * T;
-    if (d == 0 && t + 1 < T) rprev[(row + t + 1) * P + p] = rb;
-    if (d == 1 && t >= 1) rprev[(row + t - 1) * P + p] = rb;
-    ys[((size_t)sg * T + t) * 2 * P + (size_t)d * P + p] =
-        __float2bfloat16(__bfloat162float(rb) * round_bf16(mk));
+  for (int i = threadIdx.x; i < S * nj; i += kThreads) {
+    const int s = i / nj, jj = i - s * nj;
+    a.c_state[((size_t)d * S + s) * C + j0 + jj] = c_sh[s * p.cpb + jj];
+  }
+  for (int i = threadIdx.x; i < S * np; i += kThreads) {
+    const int s = i / np, pp = i - s * np;
+    a.r_state[((size_t)d * S + s) * P + p0 + pp] = r_sh[s * p.ppb + pp];
   }
 }
 
-// ---------------------------------------------------------------------------
-// Backward, one step of the reverse sweep: direction f at frame T-1-step,
-// direction b at frame step.  Direction d = d0 + blockIdx.z; the
+struct BwdArgs {
+  int d0;
+  const bf16* dy;
+  const float* mask;
+  const bf16* gates;
+  const bf16* cs;
+  const float* init_c;
+  const bf16* wr_t;
+  const bf16* wrm_t;
+  const float* peep;
+  float* dc_state;
+  float* dr_state;
+  bf16* dnb;   // [ndir, S, pp] bf16 dr_new of the step (pad columns zero)
+  bf16* dgb;   // [ndir, S, 4 cp] bf16 dgates of the step, gate * cp + j
+  bf16* dgates;
+  bf16* m_out;
+  bf16* drn;
+  float* dbp;
+  int S, T, C, P;
+  float cell_clip;
+  Plan p;
+};
+
+// Direction d = d0 + z for the blocks [z nbd, (z + 1) nbd); the
 // per-direction arrays (all but dy, mask and init_c) hold the launch's
-// directions only, so slot z = blockIdx.z indexes them.
-// ---------------------------------------------------------------------------
+// directions only, so slot z indexes them.  The reverse sweep: direction
+// f at frame T-1-step, direction b at frame step.
+__global__ void __launch_bounds__(kThreads, 1) bwd_sweep_kernel(BwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan& p = a.p;
+  const int S = a.S, T = a.T, C = a.C, P = a.P, G = 4 * C, G4 = 4 * p.cp;
+  const Layout L = sweep_layout(p, S, true);
+  bf16* w1 = reinterpret_cast<bf16*>(smem + L.w1);
+  bf16* w2 = reinterpret_cast<bf16*>(smem + L.w2);
+  bf16* stage = reinterpret_cast<bf16*>(smem + L.stage);
+  float* out = reinterpret_cast<float*>(smem + L.out);
+  float* dc_sh = reinterpret_cast<float*>(smem + L.st1);   // [S][cpb]
+  float* dr_sh = reinterpret_cast<float*>(smem + L.st2);   // [S][ppb]
+  float* sums = reinterpret_cast<float*>(smem + L.sums);   // [7][S][cpb]
+  // prefetched for the epilogues: the step's gates and c_prev of the owned
+  // cells, dy of the owned columns at this frame and the next, the mask
+  const int c8 = round_up(p.cpb, 8);
+  bf16* gs = reinterpret_cast<bf16*>(smem + L.pre);        // [mg][4][c8]
+  bf16* cps = gs + align16((size_t)p.mg * 4 * c8 * sizeof(bf16)) /
+                       sizeof(bf16);                       // [mg][c8]
+  bf16* dys = cps + align16((size_t)p.mg * c8 * sizeof(bf16)) /
+                        sizeof(bf16);                      // [mg][2][ppb]
+  float* mk2 = reinterpret_cast<float*>(
+      dys + align16((size_t)p.mg * 2 * p.ppb * sizeof(bf16)) /
+                sizeof(bf16));                             // [mg][2]
+  // 16-byte pieces need 8-element-aligned groups of cells and columns
+  const bool gvec = C % 8 == 0 && p.cpb % 8 == 0, dvec = P % 8 == 0;
+  const int z = blockIdx.x / p.nbd, blk = blockIdx.x % p.nbd, d = a.d0 + z;
+  const int j0 = blk * p.cpb, nj = max(0, min(C - j0, p.cpb));
+  const int p0 = blk * p.ppb, np = max(0, min(P - p0, p.ppb));
 
-// dm = bf16(dr_new) . W_rm (one warp per cell), then the cell's backward.
-// Writes dgates and m (bf16) for the step, carries dc, and sums dbias and
-// dpeep per (stream, cell) into acc [2, S, 7C].
-template <int ST>
-__global__ void __launch_bounds__(kThreads)
-bwd_cell_kernel(int d0, int step, const bf16* __restrict__ dy,
-                const float* __restrict__ mask, const bf16* __restrict__ gates,
-                const bf16* __restrict__ cs, const float* __restrict__ init_c,
-                const bf16* __restrict__ wrm_t,
-                const float* __restrict__ peep,
-                const float* __restrict__ dr_state,
-                float* __restrict__ dc_state, float* __restrict__ acc_sum,
-                bf16* __restrict__ dgates, bf16* __restrict__ m_out, int S,
-                int T, int C, int P, float cell_clip) {
-  extern __shared__ float drn_sh[];  // [ST, P], bf16(dr_new)
-  const int z = blockIdx.z, d = d0 + z;
-  const int t = d == 0 ? T - 1 - step : step;
-  const int s0 = blockIdx.y * ST;
-  for (int idx = threadIdx.x; idx < ST * P; idx += blockDim.x) {
-    const int s = idx / P, p = idx - s * P;
-    const int sg = s0 + s;
-    float v = 0.0f;
-    if (sg < S) {
-      const float mk = mask[(size_t)sg * T + t];
-      const float dyv = __bfloat162float(
-          dy[((size_t)sg * T + t) * 2 * P + (size_t)d * P + p]);
-      v = round_bf16(mk * (dyv * mk + dr_state[((size_t)z * S + sg) * P + p]));
-    }
-    drn_sh[idx] = v;
+  // W_rm^T rows of the owned cells; W_r^T rows of the owned columns with
+  // K = gate * cp + j
+  load_slice(w1, L.n1, L.ld1, nj, P, a.wrm_t + (size_t)z * C * P,
+             [=](int r) { return (size_t)(j0 + r) * P; },
+             [](int k) { return (size_t)k; });
+  const int cpad = p.cp;
+  for (int i = threadIdx.x; i < L.n2 * L.ld2; i += kThreads) {
+    const int r = i / L.ld2, k = i - r * L.ld2;
+    const int gate = k / cpad, j = k - gate * cpad;
+    w2[i] = (r < np && gate < 4 && j < C)
+                ? a.wr_t[((size_t)z * P + p0 + r) * G + gate * C + j]
+                : __float2bfloat16(0.0f);
+  }
+  for (int i = threadIdx.x; i < S * p.cpb; i += kThreads) {
+    const int s = i / p.cpb, jj = i - s * p.cpb;
+    dc_sh[i] = jj < nj ? a.dc_state[((size_t)z * S + s) * C + j0 + jj] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) sums[(size_t)k * S * p.cpb + i] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < S * np; i += kThreads) {
+    const int s = i / np, pp = i - s * np;
+    dr_sh[s * p.ppb + pp] = a.dr_state[((size_t)z * S + s) * P + p0 + pp];
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (j >= C) return;
-  const int G = 4 * C;
-  float acc[ST];
-#pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-  const bf16* w_row = wrm_t + ((size_t)z * C + j) * P;
-  for (int p = lane; p < P; p += 32) {
-    const float wv = __bfloat162float(w_row[p]);
-#pragma unroll
-    for (int s = 0; s < ST; ++s) acc[s] = fmaf(wv, drn_sh[s * P + p], acc[s]);
+  // bf16(dr_new) of the first frame: mask * (dy * mask + dr_T)
+  {
+    const int t = d == 0 ? T - 1 : 0;
+    for (int i = threadIdx.x; i < S * np; i += kThreads) {
+      const int s = i / np, pp = i - s * np, pc = p0 + pp;
+      const float mk = a.mask[(size_t)s * T + t];
+      const float dyv = __bfloat162float(
+          a.dy[((size_t)s * T + t) * 2 * P + (size_t)d * P + pc]);
+      a.dnb[((size_t)z * S + s) * p.pp + pc] =
+          __float2bfloat16(mk * (dyv * mk + dr_sh[s * p.ppb + pp]));
+    }
   }
+  const float* peep = a.peep + (size_t)z * 3 * C;
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();
+  for (int step = 0; step < T; ++step) {
+    const int t = d == 0 ? T - 1 - step : step;
+    // c_prev: c of frame tp, or init_c (f) / zero (b) at the boundary
+    const bool has_prev = d == 0 ? t > 0 : t < T - 1;
+    const int tp = d == 0 ? t - 1 : t + 1;
+    // dm = bf16(dr_new) . W_rm for the owned cells, then the cell backward
+    if (nj > 0) {
+      for (int s0 = 0; s0 < S; s0 += p.mg) {
+        const int rows = min(p.mg, S - s0);
+        const int q8 = (nj + 7) >> 3;
+        for (int i = threadIdx.x; i < rows * 5 * q8; i += kThreads) {
+          const int r = i / (5 * q8), k = (i / q8) % 5, q = i % q8;
+          const int n = min(8, nj - 8 * q);
+          const size_t row = ((size_t)z * S + s0 + r) * T;
+          const bf16* src;
+          bf16* dst;
+          if (k < 4) {
+            src = a.gates + (row + t) * G + k * C + j0 + 8 * q;
+            dst = gs + (r * 4 + k) * c8 + 8 * q;
+          } else {
+            if (!has_prev) continue;
+            src = a.cs + (row + tp) * C + j0 + 8 * q;
+            dst = cps + r * c8 + 8 * q;
+          }
+          if (gvec)
+            cp_async16(dst, src, 2 * n);
+          else
+            for (int e = 0; e < n; ++e) dst[e] = src[e];
+        }
+        for (int r = threadIdx.x; r < rows; r += kThreads)
+          cp_async4(mk2 + 2 * r, a.mask + (size_t)(s0 + r) * T + t);
+        cp_async_commit();
+        block_product(a.dnb + ((size_t)z * S + s0) * p.pp, p.pp, rows, p.pp,
+                      w1, L.ld1, L.n1 / 8, stage, p.nstage, p.mg, out, L.ldo);
+        for (int i = threadIdx.x; i < rows * nj; i += kThreads) {
+          const int r = i / nj, jj = i - r * nj, s = s0 + r, j = j0 + jj;
+          const size_t row = ((size_t)z * S + s) * T + t;
+          const float cp =
+              has_prev ? __bfloat162float(cps[r * c8 + jj])
+                       : (d == 0 ? a.init_c[(size_t)s * C + j] : 0.0f);
+          const bf16* gr = gs + r * 4 * c8 + jj;
+          const float g = __bfloat162float(gr[0]);
+          const float ig = __bfloat162float(gr[c8]);
+          const float f = __bfloat162float(gr[2 * c8]);
+          const float o = __bfloat162float(gr[3 * c8]);
+          const float mk = mk2[2 * r];
+          const int si = s * p.cpb + jj;
+          const CellBackward cb =
+              cell_backward(g, ig, f, o, cp, out[r * L.ldo + jj], dc_sh[si],
+                            mk, peep[j], peep[C + j], peep[2 * C + j],
+                            a.cell_clip);
+          a.m_out[row * C + j] = __float2bfloat16(o * cb.tc);
+          dc_sh[si] = cb.dc_prev;
+          const bf16 dgv[4] = {
+              __float2bfloat16(cb.dg), __float2bfloat16(cb.di),
+              __float2bfloat16(cb.df), __float2bfloat16(cb.d_o)};
+          bf16* dgr = a.dgates + row * G;
+          bf16* dgs = a.dgb + ((size_t)z * S + s) * G4;
 #pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = warp_sum(acc[s]);
-
-  const float* pp = peep + (size_t)z * 3 * C;
-#pragma unroll
-  for (int s = 0; s < ST; ++s) {
-    const int sg = s0 + s;
-    if (lane != s || sg >= S) continue;
-    const size_t row = ((size_t)z * S + sg) * T + t;
-    float cp;
-    if (d == 0)
-      cp = t > 0 ? __bfloat162float(cs[(row - 1) * C + j])
-                 : init_c[(size_t)sg * C + j];
-    else
-      cp = t < T - 1 ? __bfloat162float(cs[(row + 1) * C + j]) : 0.0f;
-    const bf16* gr = gates + row * G;
-    const float g = __bfloat162float(gr[j]);
-    const float i = __bfloat162float(gr[C + j]);
-    const float f = __bfloat162float(gr[2 * C + j]);
-    const float o = __bfloat162float(gr[3 * C + j]);
-    const float mk = mask[(size_t)sg * T + t];
-    const size_t cj = ((size_t)z * S + sg) * C + j;
-    const CellBackward b =
-        cell_backward(g, i, f, o, cp, acc[s], dc_state[cj], mk, pp[j],
-                      pp[C + j], pp[2 * C + j], cell_clip);
-    m_out[row * C + j] = __float2bfloat16(o * b.tc);
-    dc_state[cj] = b.dc_prev;
-    bf16* dgr = dgates + row * G;
-    dgr[j] = __float2bfloat16(b.dg);
-    dgr[C + j] = __float2bfloat16(b.di);
-    dgr[2 * C + j] = __float2bfloat16(b.df);
-    dgr[3 * C + j] = __float2bfloat16(b.d_o);
-    float* a = acc_sum + ((size_t)z * S + sg) * 7 * C;
-    a[j] += b.dg;
-    a[C + j] += b.di;
-    a[2 * C + j] += b.df;
-    a[3 * C + j] += b.d_o;
-    a[4 * C + j] += b.di * cp;
-    a[5 * C + j] += b.df * cp;
-    a[6 * C + j] += b.d_o * b.c;
+          for (int k = 0; k < 4; ++k) {
+            dgr[k * C + j] = dgv[k];
+            dgs[k * p.cp + j] = dgv[k];
+          }
+          const size_t plane = (size_t)S * p.cpb;
+          sums[si] += cb.dg;
+          sums[plane + si] += cb.di;
+          sums[2 * plane + si] += cb.df;
+          sums[3 * plane + si] += cb.d_o;
+          sums[4 * plane + si] += cb.di * cp;
+          sums[5 * plane + si] += cb.df * cp;
+          sums[6 * plane + si] += cb.d_o * cb.c;
+        }
+        __syncthreads();
+      }
+    }
+    grid.sync();
+    // dr_prev = (1 - mask) dr_after + bf16(dgates) . W_r for the owned
+    // columns; bf16(dr_new) of this frame to the stream, of the next to
+    // the scratch row
+    const bool has_next = step + 1 < T;
+    const int tn = d == 0 ? t - 1 : t + 1;
+    if (np > 0) {
+      for (int s0 = 0; s0 < S; s0 += p.mg) {
+        const int rows = min(p.mg, S - s0);
+        const int q8 = (np + 7) >> 3;
+        for (int i = threadIdx.x; i < rows * 2 * q8; i += kThreads) {
+          const int r = i / (2 * q8), f = (i / q8) & 1, q = i % q8;
+          if (f == 1 && !has_next) continue;
+          const int n = min(8, np - 8 * q);
+          const bf16* src = a.dy +
+                            ((size_t)(s0 + r) * T + (f ? tn : t)) * 2 * P +
+                            (size_t)d * P + p0 + 8 * q;
+          bf16* dst = dys + (r * 2 + f) * p.ppb + 8 * q;
+          if (dvec)
+            cp_async16(dst, src, 2 * n);
+          else
+            for (int e = 0; e < n; ++e) dst[e] = src[e];
+        }
+        for (int i = threadIdx.x; i < rows * 2; i += kThreads) {
+          const int r = i >> 1, f = i & 1;
+          if (f == 0 || has_next)
+            cp_async4(mk2 + i, a.mask + (size_t)(s0 + r) * T + (f ? tn : t));
+        }
+        cp_async_commit();
+        block_product(a.dgb + ((size_t)z * S + s0) * G4, G4, rows, G4, w2,
+                      L.ld2, L.n2 / 8, stage, p.nstage, p.mg, out, L.ldo);
+        for (int i = threadIdx.x; i < rows * np; i += kThreads) {
+          const int r = i / np, pp = i - r * np, s = s0 + r, pc = p0 + pp;
+          const float mk = mk2[2 * r];
+          const float dyv = __bfloat162float(dys[r * 2 * p.ppb + pp]);
+          const float dra = dyv * mk + dr_sh[s * p.ppb + pp];
+          a.drn[(((size_t)z * S + s) * T + t) * P + pc] =
+              __float2bfloat16(mk * dra);
+          const float drs = (1.0f - mk) * dra + out[r * L.ldo + pp];
+          dr_sh[s * p.ppb + pp] = drs;
+          if (has_next) {
+            const float mkn = mk2[2 * r + 1];
+            const float dyn = __bfloat162float(dys[(r * 2 + 1) * p.ppb + pp]);
+            a.dnb[((size_t)z * S + s) * p.pp + pc] =
+                __float2bfloat16(mkn * (dyn * mkn + drs));
+          }
+        }
+        __syncthreads();
+      }
+    }
+    grid.sync();
+  }
+  for (int i = threadIdx.x; i < S * nj; i += kThreads) {
+    const int s = i / nj, jj = i - s * nj;
+    a.dc_state[((size_t)z * S + s) * C + j0 + jj] = dc_sh[s * p.cpb + jj];
+  }
+  for (int i = threadIdx.x; i < S * np; i += kThreads) {
+    const int s = i / np, pp = i - s * np;
+    a.dr_state[((size_t)z * S + s) * P + p0 + pp] = dr_sh[s * p.ppb + pp];
+  }
+  // dbias, dpeep: the per-(stream, cell) sums over the streams, in order
+  for (int i = threadIdx.x; i < 7 * nj; i += kThreads) {
+    const int k = i / nj, jj = i - k * nj;
+    const float* src = sums + (size_t)k * S * p.cpb + jj;
+    float v = 0.0f;
+    for (int s = 0; s < S; ++s) v += src[s * p.cpb];
+    a.dbp[(size_t)z * 7 * C + k * C + j0 + jj] = v;
   }
 }
 
-// dr_prev = (1 - mask) dR_after + bf16(dgates) . W_r (one warp per column
-// p, the step's dgates rows staged in shared memory); also stores
-// bf16(dr_new) for the dW_rm reduction.
-template <int ST>
-__global__ void __launch_bounds__(kThreads)
-bwd_dr_kernel(int d0, int step, const bf16* __restrict__ dy,
-              const float* __restrict__ mask,
-              const bf16* __restrict__ dgates,
-              const bf16* __restrict__ wr_t, float* __restrict__ dr_state,
-              bf16* __restrict__ drn, int S, int T, int C, int P) {
-  extern __shared__ bf16 dg_sh[];  // [ST, 4C]
-  const int z = blockIdx.z, d = d0 + z;
-  const int t = d == 0 ? T - 1 - step : step;
-  const int s0 = blockIdx.y * ST;
-  const int G = 4 * C;
-  for (int idx = threadIdx.x; idx < ST * G; idx += blockDim.x) {
-    const int s = idx / G;
-    const int sg = s0 + s;
-    dg_sh[idx] = sg < S ? dgates[(((size_t)z * S + sg) * T + t) * G +
-                                 (idx - s * G)]
-                        : __float2bfloat16(0.0f);
-  }
-  __syncthreads();
+// A cooperative launch of 256-thread blocks, all resident at once: the
+// shared memory attribute set, co-residency checked, the error returned
+// if the launch is refused.
+template <typename Args>
+int launch_sweep(void (*kernel)(Args), Args args, int blocks, size_t smem,
+                 cudaStream_t st) {
+  int dev, sms = 0, coop = 0, per_sm = 0, err;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                         dev)))
+    return err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((err = (int)cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev)))
+    return err;
+  if ((err = (int)cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)))
+    return err;
+  if ((long long)per_sm * sms < blocks)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {&args};
+  err = (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                         dim3(kThreads), params, smem, st);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
 
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= P) return;
-  float acc[ST];
-#pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-  const bf16* w_row = wr_t + ((size_t)z * P + p) * G;
-  for (int g = lane; g < G; g += 32) {
-    const float wv = __bfloat162float(w_row[g]);
-#pragma unroll
-    for (int s = 0; s < ST; ++s)
-      acc[s] = fmaf(wv, __bfloat162float(dg_sh[s * G + g]), acc[s]);
-  }
-#pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = warp_sum(acc[s]);
-
-#pragma unroll
-  for (int s = 0; s < ST; ++s) {
-    const int sg = s0 + s;
-    if (lane != s || sg >= S) continue;
-    const float mk = mask[(size_t)sg * T + t];
-    const float dyv = __bfloat162float(
-        dy[((size_t)sg * T + t) * 2 * P + (size_t)d * P + p]);
-    const size_t rp = ((size_t)z * S + sg) * P + p;
-    const float dra = dyv * mk + dr_state[rp];
-    drn[(((size_t)z * S + sg) * T + t) * P + p] = __float2bfloat16(mk * dra);
-    dr_state[rp] = (1.0f - mk) * dra + acc[s];
-  }
+Plan make_plan(int nbd, int cpb, int ppb, int nstage, int S, int C, int P) {
+  Plan p;
+  p.nbd = nbd;
+  p.cpb = cpb;
+  p.ppb = ppb;
+  p.nstage = nstage;
+  p.mg = S < kRowsMax ? round_up(S, 16) : kRowsMax;
+  p.cp = round_up(C, 16);
+  p.pp = round_up(P, 16);
+  return p;
 }
 
 // dx = bf16(bf16(dx_f) + bf16(dx_b)), each direction's dx rounded first;
@@ -464,8 +1480,6 @@ __global__ void sum_directions_kernel(const float* __restrict__ dx2,
               : __float2bfloat16(dx2[i]);
 }
 
-bool smem_ok(size_t bytes) { return bytes <= kMaxSmem; }
-
 // Backward of the directions [d0, d0 + ndir): the reverse sweep, dx
 // (summed over the directions in float32 from each one's bf16 dx and
 // rounded once, as lstm_pallas.py:1449-1450 and :1633-1634 do) and the
@@ -474,35 +1488,47 @@ int run_bwd(int d0, int ndir, const bf16* dy, const float* mask,
             const bf16* x, const bf16* gates, const bf16* cs,
             const bf16* rprev, const bf16* wx, const bf16* wr_t,
             const bf16* wrm_t, const float* peep, const float* init_c,
-            float* dc_state, float* dr_state, float* acc, bf16* dgates,
+            float* dc_state, float* dr_state, float* ws, bf16* dgates,
             bf16* m_out, bf16* drn, float* dx2, bf16* dx, float* dwx,
             float* dwr, float* dwrm, float* dbp, int S, int T, int D, int C,
-            int P, float cell_clip, cudaStream_t st) {
+            int P, float cell_clip, bf16* dnb, bf16* dgb, int nbd, int cpb,
+            int ppb, int nstage, long long smem, int split_dwx,
+            int split_dwr, int split_dwrm, cudaStream_t st) {
   if (S <= 0 || T <= 0 || D <= 0 || C <= 0 || P <= 0)
     return (int)cudaErrorInvalidValue;
-  constexpr int ST = kStreamTile, STD = kStreamTileDr;
-  const size_t smem_cell = (size_t)ST * P * sizeof(float);
-  const size_t smem_dr = (size_t)STD * 4 * C * sizeof(bf16);
-  if (!smem_ok(smem_cell) || !smem_ok(smem_dr))
+  const Plan plan = make_plan(nbd, cpb, ppb, nstage, S, C, P);
+  if (!plan_ok(plan, S, C, P, (size_t)smem, true))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid_cell((C + kWarps - 1) / kWarps, (S + ST - 1) / ST, ndir);
-  const dim3 grid_dr((P + kWarps - 1) / kWarps, (S + STD - 1) / STD, ndir);
-  int err;
-  for (int step = 0; step < T; ++step) {
-    bwd_cell_kernel<ST><<<grid_cell, kThreads, smem_cell, st>>>(
-        d0, step, dy, mask, gates, cs, init_c, wrm_t, peep, dr_state,
-        dc_state, acc, dgates, m_out, S, T, C, P, cell_clip);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    bwd_dr_kernel<STD><<<grid_dr, kThreads, smem_dr, st>>>(
-        d0, step, dy, mask, dgates, wr_t, dr_state, drn, S, T, C, P);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
+  BwdArgs a;
+  a.d0 = d0;
+  a.dy = dy;
+  a.mask = mask;
+  a.gates = gates;
+  a.cs = cs;
+  a.init_c = init_c;
+  a.wr_t = wr_t;
+  a.wrm_t = wrm_t;
+  a.peep = peep;
+  a.dc_state = dc_state;
+  a.dr_state = dr_state;
+  a.dnb = dnb;
+  a.dgb = dgb;
+  a.dgates = dgates;
+  a.m_out = m_out;
+  a.drn = drn;
+  a.dbp = dbp;
+  a.S = S;
+  a.T = T;
+  a.C = C;
+  a.P = P;
+  a.cell_clip = cell_clip;
+  a.p = plan;
+  int err = launch_sweep(bwd_sweep_kernel, a, ndir * nbd, (size_t)smem, st);
+  if (err) return err;
   const long long G = 4LL * C, rows = (long long)S * T;
   // dx[d] = dgates[d] . W_x[d]
   err = gemm(dgates, rows * G, G, 1, wx, G * D, D, 1, dx2, rows * D, D,
-             (int)rows, D, (int)G, ndir, st);
+             (int)rows, D, (int)G, ndir, 1, nullptr, st);
   if (err) return err;
   const size_t n = (size_t)rows * D;
   sum_directions_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -511,92 +1537,105 @@ int run_bwd(int d0, int ndir, const bf16* dy, const float* mask,
   if (err) return err;
   // dW_x[d] = dgates[d]^T . x ;  dW_r[d] = dgates[d]^T . r_prev[d]
   err = gemm(dgates, rows * G, 1, G, x, 0, D, 1, dwx, G * D, D, (int)G, D,
-             (int)rows, ndir, st);
+             (int)rows, ndir, split_dwx, ws, st);
   if (err) return err;
   err = gemm(dgates, rows * G, 1, G, rprev, rows * P, P, 1, dwr, G * P, P,
-             (int)G, P, (int)rows, ndir, st);
+             (int)G, P, (int)rows, ndir, split_dwr, ws, st);
   if (err) return err;
   // dW_rm[d] = dr_new[d]^T . m[d]
-  err = gemm(drn, rows * P, 1, P, m_out, rows * C, C, 1, dwrm, (long long)P * C,
-             C, P, C, (int)rows, ndir, st);
-  if (err) return err;
-  const int K = 7 * C;
-  sum_streams_kernel<<<dim3((K + 127) / 128, ndir), 128, 0, st>>>(acc, dbp,
-                                                                  S, K);
-  return (int)cudaGetLastError();
+  return gemm(drn, rows * P, 1, P, m_out, rows * C, C, 1, dwrm,
+              (long long)P * C, C, P, C, (int)rows, ndir, split_dwrm, ws, st);
 }
 
 }  // namespace
 
 // C entries, bound with ctypes.  All arrays are contiguous on the current
-// device.  Shapes (d = direction, G = 4C):
+// device.  Shapes (d = direction, G = 4C, cp / pp = C / P rounded up to
+// 16):
 //   x [S, T, D] bf16, mask [S, T] f32,
 //   wx [2, G, D], wr [2, G, P], wrm [2, P, C] bf16 (the parameters'
 //   own layouts), wr_t [2, P, G], wrm_t [2, C, P] bf16 (transposed),
 //   peep [2, 3, C] f32 (i, f, o), bias [2, G] f32.
+// The launch plan (nbd blocks per direction, cpb cells and ppb projection
+// columns per block, an nstage-deep cp.async ring, smem bytes of dynamic
+// shared memory) comes from ops/bilstmp_train.py:sweep_plan; an entry
+// returns cudaErrorInvalidValue if it does not match the kernel's layout.
 // Each returns a cudaError_t (0 on success).
 
-// Forward.  Scratch: xg [2, S, T, G] f32, m_buf [2, S, C] f32.  State:
-// c_state [2, S, C] and r_state [2, S, P] f32 hold the initial state on
-// entry (direction b's zero) and the final state on return.  Writes gates
-// [2, S, T, G], cs [2, S, T, C] and rprev [2, S, T, P] bf16 (rprev's
-// boundary rows, direction f's t = 0 and direction b's t = T-1, are the
-// caller's) and ys [S, T, 2P] bf16.
+// Forward.  Scratch: xg [2, S, T, G] f32, m_buf [2, S, cp] bf16 zeros,
+// rb [2, S, pp] bf16 holding bf16(init_r) for direction f and zeros
+// (pad columns zero).  State: c_state [2, S, C] and r_state [2, S, P] f32
+// hold the initial state on entry (direction b's zero) and the final state
+// on return.  Writes gates [2, S, T, G], cs [2, S, T, C] and rprev
+// [2, S, T, P] bf16 (rprev's boundary rows, direction f's t = 0 and
+// direction b's t = T-1, are the caller's) and ys [S, T, 2P] bf16.
 extern "C" int bilstmp_train_fwd(
     const bf16* x, const float* mask, const bf16* wx, const bf16* wr,
     const bf16* wrm, const float* peep, const float* bias, float* xg,
-    float* c_state, float* r_state, float* m_buf, bf16* gates, bf16* cs,
+    float* c_state, float* r_state, bf16* m_buf, bf16* gates, bf16* cs,
     bf16* rprev, bf16* ys, int S, int T, int D, int C, int P,
-    float cell_clip, void* stream) {
+    float cell_clip, bf16* rb, int nbd, int cpb, int ppb, int nstage,
+    long long smem, void* stream) {
   if (S <= 0 || T <= 0 || D <= 0 || C <= 0 || P <= 0)
     return (int)cudaErrorInvalidValue;
-  constexpr int ST = kStreamTile;
-  const size_t smem_cell = (size_t)ST * P * sizeof(float);
-  const size_t smem_proj = (size_t)ST * C * sizeof(float);
-  if (!smem_ok(smem_cell) || !smem_ok(smem_proj))
+  const Plan plan = make_plan(nbd, cpb, ppb, nstage, S, C, P);
+  if (!plan_ok(plan, S, C, P, (size_t)smem, false))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long G = 4LL * C, rows = (long long)S * T;
   // xg[d] = x . W_x[d]^T for every frame
   int err = gemm(x, 0, D, 1, wx, G * D, 1, D, xg, rows * G, G, (int)rows,
-                 (int)G, D, 2, st);
+                 (int)G, D, 2, 1, nullptr, st);
   if (err) return err;
-  const dim3 grid_cell((C + kWarps - 1) / kWarps, (S + ST - 1) / ST, 2);
-  const dim3 grid_proj((P + kWarps - 1) / kWarps, (S + ST - 1) / ST, 2);
-  for (int step = 0; step < T; ++step) {
-    fwd_cell_kernel<ST><<<grid_cell, kThreads, smem_cell, st>>>(
-        step, xg, mask, wr, peep, bias, r_state, c_state, m_buf, gates, cs,
-        S, T, C, P, cell_clip);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    fwd_proj_kernel<ST><<<grid_proj, kThreads, smem_proj, st>>>(
-        step, m_buf, wrm, mask, r_state, rprev, ys, S, T, C, P);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  return 0;
+  FwdArgs a;
+  a.xg = xg;
+  a.mask = mask;
+  a.wr = wr;
+  a.wrm = wrm;
+  a.peep = peep;
+  a.bias = bias;
+  a.c_state = c_state;
+  a.r_state = r_state;
+  a.rb = rb;
+  a.mb = m_buf;
+  a.gates = gates;
+  a.cs = cs;
+  a.rprev = rprev;
+  a.ys = ys;
+  a.S = S;
+  a.T = T;
+  a.C = C;
+  a.P = P;
+  a.cell_clip = cell_clip;
+  a.p = plan;
+  return launch_sweep(fwd_sweep_kernel, a, 2 * nbd, (size_t)smem, st);
 }
 
 // Backward of both directions.  dy [S, T, 2P] bf16; gates, cs, rprev from
 // the forward; init_c [S, C] f32.  State: dc_state [2, S, C] and dr_state
 // [2, S, P] f32 hold the final-state cotangents on entry (direction b's
-// zero) and the initial-state cotangents on return.  Scratch: acc
-// [2, S, 7C] f32 zeroed by the caller, dgates [2, S, T, G], m_out
-// [2, S, T, C] and drn [2, S, T, P] bf16, dx2 [2, S, T, D] f32.  Writes
-// dx [S, T, D] bf16, dwx [2, G, D], dwr [2, G, P], dwrm [2, P, C] and dbp
-// [2, 7C] f32 (dbias then dpeep i, f, o).
+// zero) and the initial-state cotangents on return.  Scratch: ws f32, the
+// split-K partial sums (splits x 2 x M x N floats for the largest of dW_x
+// [G, D], dW_r [G, P] and dW_rm [P, C] split more than once), dgates
+// [2, S, T, G], m_out [2, S, T, C] and drn [2, S, T, P] bf16, dx2
+// [2, S, T, D] f32, dnb [2, S, pp] and dgb [2, S, 4 cp] bf16 zeros.
+// Writes dx [S, T, D] bf16, dwx [2, G, D], dwr [2, G, P], dwrm [2, P, C]
+// and dbp [2, 7C] f32 (dbias then dpeep i, f, o).
 extern "C" int bilstmp_train_bwd(
     const bf16* dy, const float* mask, const bf16* x, const bf16* gates,
     const bf16* cs, const bf16* rprev, const bf16* wx, const bf16* wr_t,
     const bf16* wrm_t, const float* peep, const float* init_c,
-    float* dc_state, float* dr_state, float* acc, bf16* dgates, bf16* m_out,
+    float* dc_state, float* dr_state, float* ws, bf16* dgates, bf16* m_out,
     bf16* drn, float* dx2, bf16* dx, float* dwx, float* dwr, float* dwrm,
     float* dbp, int S, int T, int D, int C, int P, float cell_clip,
+    bf16* dnb, bf16* dgb, int nbd, int cpb, int ppb, int nstage,
+    long long smem, int split_dwx, int split_dwr, int split_dwrm,
     void* stream) {
   return run_bwd(0, 2, dy, mask, x, gates, cs, rprev, wx, wr_t, wrm_t, peep,
-                 init_c, dc_state, dr_state, acc, dgates, m_out, drn, dx2, dx,
-                 dwx, dwr, dwrm, dbp, S, T, D, C, P, cell_clip,
-                 static_cast<cudaStream_t>(stream));
+                 init_c, dc_state, dr_state, ws, dgates, m_out, drn, dx2, dx,
+                 dwx, dwr, dwrm, dbp, S, T, D, C, P, cell_clip, dnb, dgb,
+                 nbd, cpb, ppb, nstage, smem, split_dwx, split_dwr,
+                 split_dwrm, static_cast<cudaStream_t>(stream));
 }
 
 // Backward of direction d alone (d = 0 walks T-1 -> 0 from init_c and the
@@ -608,13 +1647,30 @@ extern "C" int bilstmp_train_bwd_dir(
     int d, const bf16* dy, const float* mask, const bf16* x,
     const bf16* gates, const bf16* cs, const bf16* rprev, const bf16* wx,
     const bf16* wr_t, const bf16* wrm_t, const float* peep,
-    const float* init_c, float* dc_state, float* dr_state, float* acc,
+    const float* init_c, float* dc_state, float* dr_state, float* ws,
     bf16* dgates, bf16* m_out, bf16* drn, float* dx2, bf16* dx, float* dwx,
     float* dwr, float* dwrm, float* dbp, int S, int T, int D, int C, int P,
-    float cell_clip, void* stream) {
+    float cell_clip, bf16* dnb, bf16* dgb, int nbd, int cpb, int ppb,
+    int nstage, long long smem, int split_dwx, int split_dwr,
+    int split_dwrm, void* stream) {
   if (d != 0 && d != 1) return (int)cudaErrorInvalidValue;
   return run_bwd(d, 1, dy, mask, x, gates, cs, rprev, wx, wr_t, wrm_t, peep,
-                 init_c, dc_state, dr_state, acc, dgates, m_out, drn, dx2, dx,
-                 dwx, dwr, dwrm, dbp, S, T, D, C, P, cell_clip,
-                 static_cast<cudaStream_t>(stream));
+                 init_c, dc_state, dr_state, ws, dgates, m_out, drn, dx2, dx,
+                 dwx, dwr, dwrm, dbp, S, T, D, C, P, cell_clip, dnb, dgb,
+                 nbd, cpb, ppb, nstage, smem, split_dwx, split_dwr,
+                 split_dwrm, static_cast<cudaStream_t>(stream));
+}
+
+// The hoisted GEMM alone: Cm[b] = A[b] . B[b] in float32 from bf16
+// operands, strides in elements as GemmArgs describes them (A's or B's
+// unit stride along K or along M / N), `splits` slices of K summed in
+// order through ws [splits, batch, M, N] f32 when splits > 1.
+extern "C" int bilstmp_gemm_bf16(const bf16* A, long long sab, long long sam,
+                                 long long sak, const bf16* B, long long sbb,
+                                 long long sbk, long long sbn, float* Cm,
+                                 long long scb, long long ldc, int M, int N,
+                                 int K, int batch, int splits, float* ws,
+                                 void* stream) {
+  return gemm(A, sab, sam, sak, B, sbb, sbk, sbn, Cm, scb, ldc, M, N, K,
+              batch, splits, ws, static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,10 @@ Under ``KALDI_ASLP_LSTM_SPLIT_BWD`` the backward runs one direction at a
 time (lstm_pallas.py:1612-1639), through :func:`bilstmp_train_bwd_dir`.
 The kernels are ``csrc/bilstmp_train.cu``, built for ``sm_90a`` and bound
 with ``ctypes``; the note at the top of that file says how the TPU design
-was rethought for the H100.
+was rethought for the H100: a hoisted bf16 GEMM (:func:`bilstmp_gemm_bf16`
+reaches it alone) and one cooperative, persistent kernel per sweep that
+keeps each block's slices of the recurrent weights in shared memory.
+:func:`sweep_plan` lays that kernel out and says what fits.
 
 Rounding follows the TPU kernels: bf16 operands with float32 sums in
 every product, float32 cell math and state, the activated gates, c and
@@ -28,6 +31,8 @@ Stream layouts (d = direction, f then b; G = 4C):
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -41,17 +46,26 @@ from kaldi_aslp_tpu_torch.ops.switches import lstm_switches
 SOURCE = "bilstmp_train.cu"
 BF16 = torch.bfloat16
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (leading arguments, pointers, trailing arguments before the stream)
+_SIGNATURES = {
+    "bilstmp_train_fwd": ([], 15, [_I] * 5 + [ctypes.c_float, _P]
+                          + [_I] * 4 + [_L]),
+    "bilstmp_train_bwd": ([], 23, [_I] * 5 + [ctypes.c_float, _P, _P]
+                          + [_I] * 4 + [_L] + [_I] * 3),
+    "bilstmp_train_bwd_dir": ([_I], 23, [_I] * 5 + [ctypes.c_float, _P, _P]
+                              + [_I] * 4 + [_L] + [_I] * 3),
+    "bilstmp_gemm_bf16": ([], 0, [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L,
+                                  _L] + [_I] * 5 + [_P]),
+}
+
 
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    signatures = {"bilstmp_train_fwd": ([], 15), "bilstmp_train_bwd": ([], 23),
-                  "bilstmp_train_bwd_dir": ([ctypes.c_int], 23)}
-    for name, (head, n_ptr) in signatures.items():
+    for name, (head, n_ptr, tail) in _SIGNATURES.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = (head + [ctypes.c_void_p] * n_ptr
-                           + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.argtypes = head + [_P] * n_ptr + tail + [_P]
             fn.restype = ctypes.c_int
     return lib
 
@@ -70,6 +84,227 @@ def _empty(device: torch.device, dtype: torch.dtype, *shape: int):
     return torch.empty(shape, dtype=dtype, device=device)
 
 
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# -- launch plan of the persistent sweeps ------------------------------------
+#
+# The sweep kernels (csrc/bilstmp_train.cu) run 256 threads a block and
+# take this plan as arguments; they check that it gives the byte count of
+# the shared-memory layout they use, which _sweep_smem mirrors.  The limits
+# below are that file's kSmemLimit, kRowsMax, kKC, kMaxCells, kMaxCols and
+# kMaxStages; tests/test_torch_bilstmp_plan.py holds the two equal.
+
+SMEM_LIMIT = 232_448      # dynamic shared memory one block may use (H100)
+ROWS_PER_PASS = 128       # streams per pass of a product (8 m16 tiles)
+K_CHUNK = 64              # columns per chunk of the cp.async ring
+MAX_CELLS = 16            # cells a block may own (64 gate rows)
+MAX_COLS = 64             # projection columns a block may own
+MIN_CELLS = 8             # cells a block owns at least (32 gate rows)
+MAX_STAGES = 4            # deepest cp.async ring
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _sweep_smem(S: int, C: int, P: int, cpb: int, ppb: int, stages: int,
+                backward: bool) -> int:
+    """Bytes of a sweep block's dynamic shared memory: its weight slices
+    (bf16 rows of K + 8), the cp.async ring, the product's float32 output,
+    the state of its cells and columns, in the backward the seven
+    per-(stream, cell) sums, and what the epilogues read, prefetched while
+    the product runs (forward: a pass's float32 xg of the owned cells and
+    its mask; backward: its bf16 gates and c_prev of the owned cells, dy of
+    the owned columns at two frames, two frames of mask); each region
+    rounded up to 16 bytes."""
+    cp, pp = _round_up(C, 16), _round_up(P, 16)
+    n1 = _round_up(cpb if backward else 4 * cpb, 8)
+    n2 = _round_up(ppb, 8)
+    ld2 = (4 * cp if backward else cp) + 8
+    mg = min(ROWS_PER_PASS, _round_up(S, 16))
+    regions = [2 * n1 * (pp + 8), 2 * n2 * ld2,
+               2 * stages * mg * (K_CHUNK + 8), 4 * mg * (max(n1, n2) + 4),
+               4 * S * cpb, 4 * S * ppb]
+    if backward:
+        c8 = _round_up(cpb, 8)
+        regions += [4 * 7 * S * cpb, 2 * mg * 4 * c8, 2 * mg * c8,
+                    2 * mg * 2 * ppb, 4 * mg * 2]
+    else:
+        regions += [4 * mg * 4 * _round_up(cpb, 4), 4 * mg]
+    return sum(_round_up(r, 16) for r in regions)
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """How a persistent sweep lays out one direction: ``blocks_per_dir``
+    blocks, block b owning cells ``cells(b)`` (its rows of W_r, and of
+    W_rm^T in the backward) and projection columns ``cols(b)`` (its rows of
+    W_rm, and of W_r^T in the backward); rings of ``stages_fwd`` /
+    ``stages_bwd`` K_CHUNK-column chunks; ``smem_fwd`` / ``smem_bwd`` bytes
+    of dynamic shared memory.  A launch of ndir directions runs
+    ndir * blocks_per_dir blocks with the same plan per direction."""
+    S: int
+    C: int
+    P: int
+    blocks_per_dir: int
+    cells_per_block: int
+    cols_per_block: int
+    stages_fwd: int
+    stages_bwd: int
+    smem_fwd: int
+    smem_bwd: int
+
+    def cells(self, b: int) -> range:
+        j0 = b * self.cells_per_block
+        return range(min(j0, self.C), min(j0 + self.cells_per_block, self.C))
+
+    def cols(self, b: int) -> range:
+        p0 = b * self.cols_per_block
+        return range(min(p0, self.P), min(p0 + self.cols_per_block, self.P))
+
+    def k_chunks(self, product: str):
+        """The (k0, width) chunks, in the order every output element of a
+        sweep product is summed over them: ``gates`` ([S, P] x W_r^T),
+        ``proj`` ([S, C] x W_rm^T), ``dm`` ([S, P] x W_rm) or ``dr``
+        ([S, 4C] x W_r, K laid out gate * C_pad + j)."""
+        cp, pp = _round_up(self.C, 16), _round_up(self.P, 16)
+        k = {"gates": pp, "proj": cp, "dm": pp, "dr": 4 * cp}[product]
+        return [(k0, min(K_CHUNK, k - k0)) for k0 in range(0, k, K_CHUNK)]
+
+    def kernel_args(self, backward: bool):
+        """(nbd, cpb, ppb, stages, smem) as the C entries take them."""
+        return (self.blocks_per_dir, self.cells_per_block,
+                self.cols_per_block,
+                self.stages_bwd if backward else self.stages_fwd,
+                self.smem_bwd if backward else self.smem_fwd)
+
+
+def sweep_plan(S: int, C: int, P: int, num_sms: int) -> SweepPlan:
+    """The launch plan of the sweeps at these widths on a card of
+    ``num_sms`` SMs: at most floor(num_sms / 2) blocks a direction (both
+    directions' blocks resident at once, one a SM), MIN_CELLS to MAX_CELLS
+    cells a block, the projection columns over the same blocks in groups
+    of 8 (16-byte loads; a block reads the step's whole state row whatever
+    its share, so the fewer blocks the less L2 traffic), and for each sweep
+    the deepest ring (MAX_STAGES down to 2 chunks) that fits SMEM_LIMIT.
+    Raises ValueError past that capacity: C above MAX_CELLS *
+    floor(num_sms / 2) (1056 on an H100's 132 SMs), more than MAX_COLS
+    columns a block, or more shared memory than a block has."""
+    if min(S, C, P) <= 0:
+        raise ValueError(f"S, C, P must be positive, got {S, C, P}")
+    per_dir = num_sms // 2
+    if per_dir < 1:
+        raise ValueError(f"a card of {num_sms} SMs cannot hold both "
+                         "directions' sweeps")
+    cpb = max(MIN_CELLS, math.ceil(C / per_dir))
+    if cpb > MAX_CELLS:
+        raise ValueError(
+            f"cell dim C={C} is past the sweep's capacity: at most "
+            f"{MAX_CELLS} cells in each of {per_dir} blocks a direction, "
+            f"C <= {MAX_CELLS * per_dir} on {num_sms} SMs")
+    nbd = math.ceil(C / cpb)
+    ppb = _round_up(math.ceil(P / nbd), 8)
+    if ppb > MAX_COLS:
+        raise ValueError(
+            f"projection dim P={P} is past the sweep's capacity: at most "
+            f"{MAX_COLS} columns in each of {nbd} blocks, P <= "
+            f"{MAX_COLS * nbd} at C={C}")
+    fits = {}
+    for backward in (False, True):
+        for stages in range(MAX_STAGES, 1, -1):
+            smem = _sweep_smem(S, C, P, cpb, ppb, stages, backward)
+            if smem <= SMEM_LIMIT:
+                fits[backward] = (stages, smem)
+                break
+        else:
+            raise ValueError(
+                f"(S, C, P) = {S, C, P} is past the sweep's capacity: a "
+                f"block needs {smem} bytes of shared memory, more than the "
+                f"{SMEM_LIMIT} it may use")
+    (sf, mf), (sb, mb) = fits[False], fits[True]
+    return SweepPlan(S, C, P, nbd, cpb, ppb, sf, sb, mf, mb)
+
+
+# -- the hoisted GEMM --------------------------------------------------------
+
+SPLIT_K_MIN = 2048        # K a split-K slice covers at least
+
+
+def gemm_splits(M: int, N: int, K: int, num_sms: int) -> int:
+    """Slices of K for an [M, N] product: enough for one matrix's tiles
+    (128 x 256 for N >= 1024, else 128 x 128, one block a SM) to fill the
+    card's SMs once, each slice at least SPLIT_K_MIN deep.  It depends on
+    the shape alone, not on the batch, so one direction's product has the
+    same bits alone as in a batch of two."""
+    tiles = math.ceil(M / 128) * math.ceil(N / (256 if N >= 1024 else 128))
+    return max(1, min(math.ceil(num_sms / tiles), K // SPLIT_K_MIN))
+
+
+def bilstmp_gemm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[i] . b[i]`` in float32 from bf16 operands: the hoisted GEMM of
+    the x-fused kernels (x . W_x^T in the forward; dx, dW_x, dW_r, dW_rm
+    in the backward), reached alone.
+
+    a [batch, M, K] and b [batch, K, N] bf16 (or both 2-D), each with unit
+    stride along one of its last two dimensions, so a transposed view
+    takes the transposed layout; a batch stride of 0 (``expand``) shares
+    one matrix.  K is cut into :func:`gemm_splits` slices, summed in order
+    by a second pass.  Returns [batch, M, N] (or [M, N]) float32.
+
+    On a CUDA tensor this launches the kernel or raises; a CPU tensor
+    takes :func:`bilstmp_gemm_bf16_reference`.
+    ``bilstmp_gemm_bf16.launches`` counts calls into the C entry."""
+    squeeze = a.dim() == 2
+    if squeeze:
+        a, b = a.unsqueeze(0), b.unsqueeze(0)
+    if a.dim() != 3 or b.dim() != 3 or a.dtype != BF16 or b.dtype != BF16:
+        raise ValueError("a and b must be bf16 of 2 or 3 dimensions")
+    (batch, M, K), (_, _, N) = a.shape, b.shape
+    if tuple(b.shape[:2]) != (batch, K):
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} do not "
+                         "chain")
+    if a.device != b.device:
+        raise ValueError(f"a is on {a.device}, b on {b.device}")
+    if a.device.type == "cpu":
+        out = bilstmp_gemm_bf16_reference(a, b)
+        return out[0] if squeeze else out
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {a.device}")
+    if not all(t.stride(2) == 1 or t.stride(1) == 1 for t in (a, b)):
+        raise ValueError("each operand needs unit stride along one of its "
+                         "last two dimensions")
+    if min(M, N, K, batch) == 0:
+        raise ValueError("empty product")
+    dev = a.device
+    splits = gemm_splits(M, N, K, _num_sms(dev))
+    out = _empty(dev, torch.float32, batch, M, N)
+    ws = (_empty(dev, torch.float32, splits * batch * M * N)
+          if splits > 1 else None)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.bilstmp_gemm_bf16(
+            a.data_ptr(), a.stride(0), a.stride(1), a.stride(2),
+            b.data_ptr(), b.stride(0), b.stride(1), b.stride(2),
+            out.data_ptr(), M * N, N, M, N, K, batch, splits,
+            None if ws is None else ws.data_ptr(), current_stream(dev))
+        bilstmp_gemm_bf16.launches += 1
+    if err != 0:
+        raise RuntimeError(f"bilstmp_gemm_bf16 failed: CUDA error {err}")
+    return out[0] if squeeze else out
+
+
+bilstmp_gemm_bf16.launches = 0
+
+
+def bilstmp_gemm_bf16_reference(a: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the GEMM: the bf16 operands' float32
+    product, as the plain sweeps compute their products."""
+    return torch.matmul(a.float(), b.float())
+
+
 # -- forward -----------------------------------------------------------------
 
 def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
@@ -83,8 +318,9 @@ def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
     c_T [S, C], r_T [S, P]) with the streams laid out as the module
     docstring says and the final state of direction f in float32.
 
-    On a CUDA tensor this launches the kernel or raises; a CPU tensor
-    takes :func:`bilstmp_train_fwd_reference`.
+    On a CUDA tensor this launches the kernel or raises (ValueError past
+    the capacity :func:`sweep_plan` states); a CPU tensor takes
+    :func:`bilstmp_train_fwd_reference`.
     ``bilstmp_train_fwd.launches`` counts calls into the C entry."""
     S, T, D = x.shape
     G, P = wr.shape[1], wr.shape[2]
@@ -105,9 +341,14 @@ def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
     if x.device.type != "cuda":
         raise ValueError(f"no BLSTMP kernel for device {x.device}")
     dev, f32 = x.device, torch.float32
+    plan = sweep_plan(S, C, P, _num_sms(dev))
     c_state = torch.stack([init_c, torch.zeros_like(init_c)])
     r_state = torch.stack([init_r, torch.zeros_like(init_r)])
-    xg, m_buf = _empty(dev, f32, 2, S, T, G), _empty(dev, f32, 2, S, C)
+    xg = _empty(dev, f32, 2, S, T, G)
+    # the sweep's bf16 m and r_prev rows, padded to 16 columns of zeros
+    m_buf = torch.zeros((2, S, _round_up(C, 16)), dtype=BF16, device=dev)
+    rb = torch.zeros((2, S, _round_up(P, 16)), dtype=BF16, device=dev)
+    rb[0, :, :P] = init_r.to(BF16)
     gates = _empty(dev, BF16, 2, S, T, G)
     cs = _empty(dev, BF16, 2, S, T, C)
     rprev = _empty(dev, BF16, 2, S, T, P)
@@ -121,7 +362,8 @@ def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
             wrm.data_ptr(), peep.data_ptr(), bias.data_ptr(), xg.data_ptr(),
             c_state.data_ptr(), r_state.data_ptr(), m_buf.data_ptr(),
             gates.data_ptr(), cs.data_ptr(), rprev.data_ptr(), ys.data_ptr(),
-            S, T, D, C, P, float(cell_clip), current_stream(dev))
+            S, T, D, C, P, float(cell_clip), rb.data_ptr(),
+            *plan.kernel_args(backward=False), current_stream(dev))
         bilstmp_train_fwd.launches += 1
     if err != 0:
         raise RuntimeError(f"bilstmp_train_fwd failed: CUDA error {err}")
@@ -177,6 +419,42 @@ def bilstmp_train_fwd_reference(x, mask, wx, wr, wrm, peep, bias, init_c,
 
 # -- backward ----------------------------------------------------------------
 
+def bwd_launch(ndir: int, S: int, T: int, D: int, C: int, P: int,
+               num_sms: int):
+    """What a backward C entry over ``ndir`` directions takes beyond its
+    arrays and scratch rows: the sweep plan's kernel arguments, the split-K
+    counts of dW_x, dW_r and dW_rm, and the float32 words of their
+    workspace.  Only the workspace grows with ndir: a direction's plan and
+    split counts, and so its bits, are the fused backward's."""
+    G, K = 4 * C, S * T
+    shapes = ((G, D), (G, P), (P, C))
+    splits = tuple(gemm_splits(M, N, K, num_sms) for M, N in shapes)
+    words = max([k * ndir * M * N for k, (M, N) in zip(splits, shapes)
+                 if k > 1], default=0)
+    return (sweep_plan(S, C, P, num_sms).kernel_args(backward=True), splits,
+            words)
+
+
+class _BwdScratch:
+    """What a backward C entry takes beyond its arrays: the sweep's bf16
+    dr_new and dgates rows (zero-padded to 16 columns a gate), the launch
+    plan, the split-K counts of dW_x, dW_r and dW_rm and their float32
+    workspace (``ws``, a pointer or None), from :func:`bwd_launch`."""
+
+    def __init__(self, dev, ndir, S, T, D, C, P):
+        plan_args, splits, words = bwd_launch(ndir, S, T, D, C, P,
+                                              _num_sms(dev))
+        cp, pp = _round_up(C, 16), _round_up(P, 16)
+        self.dnb = torch.zeros((ndir, S, pp), dtype=BF16, device=dev)
+        self.dgb = torch.zeros((ndir, S, 4 * cp), dtype=BF16, device=dev)
+        self.workspace = (torch.empty(words, dtype=torch.float32, device=dev)
+                          if words else None)
+        self.ws = None if self.workspace is None else \
+            self.workspace.data_ptr()
+        self.args = (self.dnb.data_ptr(), self.dgb.data_ptr(), *plan_args,
+                     *splits)
+
+
 def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
                       init_c, d_c_T, d_r_T, cell_clip: float = 50.0):
     """Training backward of both directions (the reverse sweeps and the
@@ -188,8 +466,9 @@ def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
     dwx [2, 4C, D], dwr [2, 4C, P], dwrm [2, P, C], dbias [2, 4C],
     dpeep [2, 3, C]), all but dx in float32 and unrounded.
 
-    On a CUDA tensor this launches the kernel or raises; a CPU tensor
-    takes :func:`bilstmp_train_bwd_reference`.
+    On a CUDA tensor this launches the kernel or raises (ValueError past
+    the capacity :func:`sweep_plan` states); a CPU tensor takes
+    :func:`bilstmp_train_bwd_reference`.
     ``bilstmp_train_bwd.launches`` counts calls into the C entry."""
     S, T, D = x.shape
     G, P = wr.shape[1], wr.shape[2]
@@ -215,7 +494,7 @@ def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
     wrm_t = wrm.transpose(1, 2).contiguous()
     dc_state = torch.stack([d_c_T, torch.zeros_like(d_c_T)])
     dr_state = torch.stack([d_r_T, torch.zeros_like(d_r_T)])
-    acc = torch.zeros((2, S, 7 * C), dtype=f32, device=dev)
+    scratch = _BwdScratch(dev, 2, S, T, D, C, P)
     dgates = _empty(dev, BF16, 2, S, T, G)
     m_out = _empty(dev, BF16, 2, S, T, C)
     drn = _empty(dev, BF16, 2, S, T, P)
@@ -228,11 +507,12 @@ def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
             dy.data_ptr(), mask.data_ptr(), x.data_ptr(), gates.data_ptr(),
             cs.data_ptr(), rprev.data_ptr(), wx.data_ptr(), wr_t.data_ptr(),
             wrm_t.data_ptr(), peep.data_ptr(), init_c.data_ptr(),
-            dc_state.data_ptr(), dr_state.data_ptr(), acc.data_ptr(),
+            dc_state.data_ptr(), dr_state.data_ptr(), scratch.ws,
             dgates.data_ptr(), m_out.data_ptr(), drn.data_ptr(),
             dx2.data_ptr(), dx.data_ptr(), dwx.data_ptr(), dwr.data_ptr(),
             dwrm.data_ptr(), dbp.data_ptr(),
-            S, T, D, C, P, float(cell_clip), current_stream(dev))
+            S, T, D, C, P, float(cell_clip), *scratch.args,
+            current_stream(dev))
         bilstmp_train_bwd.launches += 1
     if err != 0:
         raise RuntimeError(f"bilstmp_train_bwd failed: CUDA error {err}")
@@ -277,8 +557,9 @@ def bilstmp_train_bwd_dir(d: int, dy, mask, x, gates, cs, rprev, wx, wr,
     unrounded.  Its device code is the fused backward's, so a direction's
     outputs equal the fused kernel's for it.
 
-    On a CUDA tensor this launches the kernel or raises; a CPU tensor
-    takes :func:`bilstmp_train_bwd_dir_reference`.
+    On a CUDA tensor this launches the kernel or raises (ValueError past
+    the capacity :func:`sweep_plan` states); a CPU tensor takes
+    :func:`bilstmp_train_bwd_dir_reference`.
     ``bilstmp_train_bwd_dir.launches`` counts calls into the C entry."""
     if d not in (0, 1):
         raise ValueError(f"direction {d} is not 0 (f) or 1 (b)")
@@ -304,7 +585,7 @@ def bilstmp_train_bwd_dir(d: int, dy, mask, x, gates, cs, rprev, wx, wr,
     dev, f32 = x.device, torch.float32
     wr_t, wrm_t = wr.t().contiguous(), wrm.t().contiguous()
     dc_state, dr_state = d_c_T.clone(), d_r_T.clone()
-    acc = torch.zeros((S, 7 * C), dtype=f32, device=dev)
+    scratch = _BwdScratch(dev, 1, S, T, D, C, P)
     dgates = _empty(dev, BF16, S, T, G)
     m_out = _empty(dev, BF16, S, T, C)
     drn = _empty(dev, BF16, S, T, P)
@@ -318,10 +599,11 @@ def bilstmp_train_bwd_dir(d: int, dy, mask, x, gates, cs, rprev, wx, wr,
             gates.data_ptr(), cs.data_ptr(), rprev.data_ptr(), wx.data_ptr(),
             wr_t.data_ptr(), wrm_t.data_ptr(), peep.data_ptr(),
             init_c.data_ptr(), dc_state.data_ptr(), dr_state.data_ptr(),
-            acc.data_ptr(), dgates.data_ptr(), m_out.data_ptr(),
+            scratch.ws, dgates.data_ptr(), m_out.data_ptr(),
             drn.data_ptr(), dx_f32.data_ptr(), dx.data_ptr(), dwx.data_ptr(),
             dwr.data_ptr(), dwrm.data_ptr(), dbp.data_ptr(),
-            S, T, D, C, P, float(cell_clip), current_stream(dev))
+            S, T, D, C, P, float(cell_clip), *scratch.args,
+            current_stream(dev))
         bilstmp_train_bwd_dir.launches += 1
     if err != 0:
         raise RuntimeError(f"bilstmp_train_bwd_dir failed: CUDA error {err}")
