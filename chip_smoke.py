@@ -77,8 +77,15 @@ exits nonzero:
                 float32 at (S, T) = (16, 20), (100, 20), (128, 400), bf16
                 at (100, 20), (128, 400), and bf16 storage with float32
                 products (KALDI_ASLP_LSTM_MXU_FP32) at (100, 20), held
-                strictly; time each beside its plain version; then the
-                bf16 rounding check on one frame at
+                strictly; time each beside its plain version; at
+                (100, 20) float32 also: the forward and backward run
+                twice must give the same bits, each kernel's time split
+                by torch.profiler into its persistent sweep (one launch a
+                call, no per-step kernel) and the rest (the backward's
+                weight-gradient reductions), an earlier_times line with
+                the per-step kernels' recorded times, and the sweeps'
+                launch plan and registers (from the -Xptxas -v log); then
+                the bf16 rounding check on one frame at
                 (S, T) = (100, 1): the kernel's float32 outputs to the
                 float32 tolerance, and few stored bf16 values that differ
                 at all;
@@ -88,7 +95,8 @@ exits nonzero:
                 weights from a numpy seed) through the CLI,
                 aslp-nnet-train-lstm-streams --device=cuda, 16 streams of
                 20-frame chunks, targets delay 5, momentum 0.9: every step
-                must launch each training kernel twice (once per layer)
+                must launch each training kernel twice (once per layer),
+                on the persistent sweeps and never the per-step kernels,
                 and the inference kernel never, the loss must be finite
                 and its last quarter's mean below its first quarter's, and
                 the model it writes must load again and differ from the
@@ -224,6 +232,11 @@ GEMM_RTOL = 1e-4
 MS_PER_STEP_KERNELS = {"bilstmp_train_fwd": 83.11,
                        "bilstmp_train_bwd": 160.2,
                        "bilstmp_train_bwd_dir": 91.88}
+# the unidirectional pair's times at (S, T) = (100, 20) float32 with its
+# earlier per-step kernels (two launches a frame each way), as PERF.md
+# section 6 records them (an H100 80GB HBM3 at 700 W): logged beside this
+# run's times, never in the kernel records
+MS_PER_STEP_LSTM = {"lstmp_train_fwd": 2.509, "lstmp_train_bwd": 4.406}
 
 
 def log(phase: str, **fields) -> None:
@@ -752,9 +765,10 @@ def train_kernel_phase(dev):
     return results
 
 
-def device_ms_by_kernel(fn) -> dict:
+def device_ms_by_kernel(fn, counts=None) -> dict:
     """Device milliseconds of one call of ``fn`` by kernel name, from
-    torch.profiler (empty if the profiler saw no device time)."""
+    torch.profiler (empty if the profiler saw no device time); with a dict
+    ``counts``, each kernel's number of launches goes into it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -771,6 +785,8 @@ def device_ms_by_kernel(fn) -> dict:
         # kernels only: an operator's device time is its kernels'
         if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
             out[e.key] = out.get(e.key, 0.0) + us / 1e3
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
     return out
 
 
@@ -1282,6 +1298,8 @@ def lstm_train_kernel_phase(dev):
     for S, T, bf16, mxu, strict in rows:
         fwd_args, bwd_args, (err_f, rel_f, share_f), (err_b, rel_b, share_b) \
             = lstm_train_kernel_check(dev, S, T, bf16, strict, mxu)
+        if (S, T, bf16) == (*BPTT_SPLIT_SHAPE, False):
+            results["redesign"] = lstm_sweep_phase(dev, fwd_args, bwd_args)
         reps = 3 if T > 100 else 10
         times = {
             "fwd": (cuda_ms(lambda: lt.lstmp_train_fwd(*fwd_args), reps, 1),
@@ -1312,6 +1330,98 @@ def lstm_train_kernel_phase(dev):
         results[kind].append({"S": S, "T": T, "bf16": True,
                               "max_abs_err": err})
     return results
+
+
+def lstm_sweep_phase(dev, fwd_args, bwd_args):
+    """At the reference's BPTT chunk in float32: two runs must give the
+    same bits; each kernel's time split by torch.profiler into its
+    persistent sweep (which must be one launch a call) and the rest (the
+    wrapper's copies; in the backward the weight-gradient reductions); the
+    earlier per-step kernels' recorded times; the plan and registers."""
+    from kaldi_aslp_tpu_torch.ops import build
+    from kaldi_aslp_tpu_torch.ops import lstmp_train as lt
+
+    S, T, G = fwd_args[0].shape
+    C_, P_ = G // 4, fwd_args[3].shape[0]
+    runs = []
+    for _ in range(2):
+        gates, cs, rs = lt.lstmp_train_fwd(*fwd_args)
+        runs.append((gates, cs, rs, *lt.lstmp_train_bwd(*bwd_args)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log("lstm_determinism", S=S, T=T, C=C_, P=P_, outputs=len(runs[0]),
+        identical=same)
+    if not same:
+        raise RuntimeError("two runs of the unidirectional kernels differ")
+    del runs
+
+    # the profiles in a process of their own: late in this one,
+    # torch.profiler dropped the persistent sweep and every kernel before
+    # it from its records
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.lstm_profile_child()"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode != 0:
+        raise RuntimeError(f"profile process failed: {child.stderr[-2000:]}")
+    profiles = json.loads(child.stdout.strip().splitlines()[-1])
+    split = {}
+    for kind, fn in (("fwd", lambda: lt.lstmp_train_fwd(*fwd_args)),
+                     ("bwd", lambda: lt.lstmp_train_bwd(*bwd_args))):
+        by_kernel, counts = profiles[kind]
+        sweep = [k for k in by_kernel if "sweep_kernel" in k]
+        per_step = [k for k in by_kernel
+                    if any(n in k for n in ("fwd_cell_kernel",
+                                            "fwd_proj_kernel",
+                                            "bwd_cell_kernel",
+                                            "bwd_dr_kernel"))]
+        launches = sum(counts[k] for k in sweep)
+        if launches != 1 or per_step:
+            raise RuntimeError(f"lstmp_train_{kind}: not one persistent "
+                               f"sweep a call: {counts}")
+        split[kind] = {
+            "ms": cuda_ms(fn, 10, 1), "source": "torch.profiler",
+            "sweep_ms": sum(by_kernel[k] for k in sweep),
+            "rest_ms": sum(v for k, v in by_kernel.items() if k not in sweep),
+            "sweep_launches": launches, "by_kernel": by_kernel}
+        log("lstm_time_split", name=f"lstmp_train_{kind}", S=S, T=T, C=C_,
+            P=P_, **split[kind])
+    log("earlier_times", recorded_in="PERF.md section 6, the earlier "
+        "per-step kernels, not measured in this run", S=S, T=T,
+        ms=MS_PER_STEP_LSTM,
+        measured_ms={f"lstmp_train_{k}": v["ms"] for k, v in split.items()})
+
+    plan = lt.plan_for(S, C_, P_, dev)
+    log_text = build.library_path(lt.SOURCE).with_suffix(".log").read_text()
+    for kernel, backward in (("lstmp_fwd_sweep_kernel", False),
+                             ("lstmp_bwd_sweep_kernel", True)):
+        nb, cpb, stages, smem = plan.kernel_args(backward)
+        log("sweep_plan", kernel=kernel, S=S, C=C_, P=P_, path=plan.path,
+            blocks=nb, threads=256, cells_per_block=cpb, ring_stages=stages,
+            smem_bytes=smem, registers=ptxas_registers(log_text, kernel))
+    if not plan.persistent:
+        raise RuntimeError(f"the BPTT chunk took the per-step kernels: "
+                           f"{plan.reason}")
+    return split
+
+
+def lstm_profile_child():
+    """In a fresh process: the unidirectional kernels' device time by
+    kernel name and launch counts at the reference's BPTT chunk in float32,
+    printed as one JSON line {kind: [ms by kernel, launches by kernel]}."""
+    from kaldi_aslp_tpu_torch.ops import lstmp_train as lt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    fwd_args, bwd_args, _, _ = lstm_train_kernel_check(
+        dev, *BPTT_SPLIT_SHAPE, False)
+    out = {}
+    for kind, fn in (("fwd", lambda: lt.lstmp_train_fwd(*fwd_args)),
+                     ("bwd", lambda: lt.lstmp_train_bwd(*bwd_args))):
+        counts = {}
+        out[kind] = [device_ms_by_kernel(fn, counts), counts]
+    print(json.dumps(out), flush=True)
 
 
 def lstm_train_kernel_check(dev, S, T, bf16, strict=False, mxu_bf16=None):
@@ -1461,12 +1571,17 @@ def bptt_train_phase(model, feats, targets, workdir):
     out = f"{workdir}/lstm_hybrid_trained.zip"
     LstmStreamsTrainer.step = step
     try:
-        for w in wrappers.values():
+        for n, w in wrappers.items():
             w.launches = 0
+            if n.startswith("lstmp_train"):
+                w.per_step = 0
         rc, printed = run_cli(["aslp-nnet-train-lstm-streams",
                                "--device=cuda", "--momentum=0.9", *BPTT_ARGS,
                                feats, targets, model, out])
         launches = {n: w.launches for n, w in wrappers.items()}
+        # every training launch took the persistent sweeps
+        per_step = {n: w.per_step for n, w in wrappers.items()
+                    if n.startswith("lstmp_train")}
     finally:
         LstmStreamsTrainer.step = inner_step
     losses = [st["loss"] for st in steps]
@@ -1494,7 +1609,11 @@ def bptt_train_phase(model, feats, targets, workdir):
     if moved == 0.0:
         raise RuntimeError("the written model equals the initial one")
     log("bptt_train", steps=len(steps), first_quarter_loss=first,
-        last_quarter_loss=last, launches=launches, max_param_change=moved)
+        last_quarter_loss=last, launches=launches, max_param_change=moved,
+        per_step_kernel_calls=per_step)
+    if any(per_step.values()):
+        raise RuntimeError(f"the BPTT run took the per-step kernels: "
+                           f"{per_step}")
 
     # cross-validation: eval() forward on the inference kernel, no update
     seen = {}
@@ -1817,11 +1936,14 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
         # timed at the reference's default chunk, float32 as the model
         timed = next(r for r in rows if (r["S"], r["T"], r["bf16"]) ==
                      (*BPTT_SPLIT_SHAPE, False))
+        sp = lstm_results["redesign"][kind]
         records.append(kernel_record(
             f"lstmp_train_{kind}", "lstmp_train.cu", f"lstm_pallas.py:{line}",
             {"bptt": bptt_launches[f"lstmp_train_{kind}"]}, rows, timed,
             lstmp_train_bound(kind, *BPTT_SPLIT_SHAPE, HYBRID_C, HYBRID_P,
-                              False)))
+                              False),
+            sweep_ms=sp["sweep_ms"], rest_ms=sp["rest_ms"],
+            time_split_source=sp["source"]))
     for kind, line, fn in (("fwd", 561, xg_fwd_bound),
                            ("bwd", 618, xg_bwd_bound)):
         # timed at the bench's shape with bf16 products (NO_XFUSE's mode);

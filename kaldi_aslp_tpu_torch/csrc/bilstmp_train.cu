@@ -72,7 +72,7 @@
 //     order: no atomics, two runs give the same bits.
 // The launch plan (blocks per direction, the cells and columns each block
 // owns, the ring's depth, the dynamic shared memory) is computed by the
-// wrapper (ops/bilstmp_train.py:sweep_plan) and checked here against the
+// wrapper (ops/sweep_plan.py:sweep_plan) and checked here against the
 // layout the kernel uses.  A direction's plan does not depend on how many
 // directions a launch covers, and every output element of a sweep product
 // is summed over K in the same chunk order by whichever block owns it, so
@@ -82,10 +82,12 @@
 //
 // Capacity.  A block owns at most 16 cells (64 gate rows, eight n8 tiles)
 // and at most 64 projection columns (in groups of 8), and its slices, ring
-// and state must fit the 232,448 bytes of shared memory a block may use;
-// with floor(SMs / 2) blocks a direction that is C <= 16 * floor(SMs / 2)
-// (1056 on the H100's 132 SMs) and, at S = 128, P <= 512 at C = 1024.
-// Past it the wrapper raises ValueError.
+// and state must fit the 232,448 bytes of shared memory a block may use.
+// With floor(SMs / 2) blocks a direction that is C <= 16 * floor(SMs / 2)
+// (1056 on the H100's 132 SMs), and every C <= 1024, P <= 512 fits at
+// S <= 128; the per-stream state takes 4 S (8 cpb + ppb) bytes more, so
+// past 128 streams the widths narrow (ops/sweep_plan.py:sweep_plan names
+// the most streams that fit).  Past it the wrapper raises ValueError.
 //
 // What bounds it on the H100.  By the design's arithmetic a forward step
 // reads, per SM, the direction's bf16 r_prev and m rows from L2 (80 +
@@ -112,6 +114,7 @@
 #include <cstdint>
 
 #include "device_math.cuh"
+#include "sweep.cuh"
 
 namespace {
 
@@ -120,48 +123,8 @@ using bf16 = __nv_bfloat16;
 namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
-// PTX helpers: cp.async, ldmatrix, mma.sync m16n8k16 bf16.
+// PTX helpers: ldmatrix, mma.sync m16n8k16 bf16 (cp.async: sweep.cuh).
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared through L2; bytes past src_bytes are 0
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(__cvta_generic_to_global(src)), "r"(src_bytes)
-               : "memory");
-}
-
-// 4 bytes from global to shared (an input no block writes: through L1)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(__cvta_generic_to_global(src))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// wait until at most n (0..2) groups are pending
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  if (n <= 0)
-    cp_async_wait<0>();
-  else if (n == 1)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<2>();
-}
 
 // ldmatrix of four / two 8x8 b16 matrices at a shared-memory byte address
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned a) {
@@ -840,12 +803,12 @@ constexpr int kPairs = 8;       // (m16, n8) tiles per warp per pass
 constexpr int kMaxCells = 16;   // cells a block may own (64 gate rows)
 constexpr int kMaxCols = 64;    // projection columns a block may own
 constexpr int kMaxStages = 4;   // deepest cp.async ring
-constexpr size_t kSmemLimit = 232448;
 
-// The launch plan: ops/bilstmp_train.py:sweep_plan computes it, and the
+// The launch plan: ops/sweep_plan.py:sweep_plan computes it, and the
 // layout below must give its byte count.  The limits above are that
-// module's SMEM_LIMIT, ROWS_PER_PASS, K_CHUNK, MAX_CELLS, MAX_COLS and
-// MAX_STAGES (tests/test_torch_bilstmp_plan.py holds them equal).
+// module's ROWS_PER_PASS, K_CHUNK, MAX_CELLS, MAX_COLS and MAX_STAGES, and
+// sweep.cuh's kSmemLimit its SMEM_LIMIT (tests/test_torch_bilstmp_plan.py
+// holds them equal).
 struct Plan {
   int nbd;     // blocks per direction
   int cpb;     // cells per block
@@ -854,9 +817,6 @@ struct Plan {
   int mg;      // streams per pass, min(128, S rounded up to 16)
   int cp, pp;  // C and P rounded up to 16
 };
-
-__host__ __device__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
-__host__ __device__ size_t align16(size_t v) { return (v + 15) / 16 * 16; }
 
 // Byte offsets of the regions of a sweep's dynamic shared memory.
 struct Layout {
@@ -1426,36 +1386,6 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_sweep_kernel(BwdArgs a) {
   }
 }
 
-// A cooperative launch of 256-thread blocks, all resident at once: the
-// shared memory attribute set, co-residency checked, the error returned
-// if the launch is refused.
-template <typename Args>
-int launch_sweep(void (*kernel)(Args), Args args, int blocks, size_t smem,
-                 cudaStream_t st) {
-  int dev, sms = 0, coop = 0, per_sm = 0, err;
-  if ((err = (int)cudaGetDevice(&dev))) return err;
-  if ((err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                         dev)))
-    return err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((err = (int)cudaDeviceGetAttribute(
-           &sms, cudaDevAttrMultiProcessorCount, dev)))
-    return err;
-  if ((err = (int)cudaFuncSetAttribute(
-           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-    return err;
-  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)))
-    return err;
-  if ((long long)per_sm * sms < blocks)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&args};
-  err = (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                         dim3(kThreads), params, smem, st);
-  if (err) return err;
-  return (int)cudaGetLastError();
-}
-
 Plan make_plan(int nbd, int cpb, int ppb, int nstage, int S, int C, int P) {
   Plan p;
   p.nbd = nbd;
@@ -1523,7 +1453,8 @@ int run_bwd(int d0, int ndir, const bf16* dy, const float* mask,
   a.P = P;
   a.cell_clip = cell_clip;
   a.p = plan;
-  int err = launch_sweep(bwd_sweep_kernel, a, ndir * nbd, (size_t)smem, st);
+  int err = launch_sweep(bwd_sweep_kernel, a, ndir * nbd, kThreads, (size_t)smem,
+                         st);
   if (err) return err;
   const long long G = 4LL * C, rows = (long long)S * T;
   // dx[d] = dgates[d] . W_x[d]
@@ -1558,7 +1489,7 @@ int run_bwd(int d0, int ndir, const bf16* dy, const float* mask,
 //   peep [2, 3, C] f32 (i, f, o), bias [2, G] f32.
 // The launch plan (nbd blocks per direction, cpb cells and ppb projection
 // columns per block, an nstage-deep cp.async ring, smem bytes of dynamic
-// shared memory) comes from ops/bilstmp_train.py:sweep_plan; an entry
+// shared memory) comes from ops/sweep_plan.py:sweep_plan; an entry
 // returns cudaErrorInvalidValue if it does not match the kernel's layout.
 // Each returns a cudaError_t (0 on success).
 
@@ -1608,7 +1539,8 @@ extern "C" int bilstmp_train_fwd(
   a.P = P;
   a.cell_clip = cell_clip;
   a.p = plan;
-  return launch_sweep(fwd_sweep_kernel, a, 2 * nbd, (size_t)smem, st);
+  return launch_sweep(fwd_sweep_kernel, a, 2 * nbd, kThreads, (size_t)smem,
+                      st);
 }
 
 // Backward of both directions.  dy [S, T, 2P] bf16; gates, cs, rprev from

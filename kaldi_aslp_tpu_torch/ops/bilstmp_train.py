@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import dataclass
 
 import torch
 
@@ -41,6 +40,7 @@ from kaldi_aslp_tpu_torch.ops.build import (
     current_stream,
     load_library,
 )
+from kaldi_aslp_tpu_torch.ops.sweep_plan import _round_up, sweep_plan
 from kaldi_aslp_tpu_torch.ops.switches import lstm_switches
 
 SOURCE = "bilstmp_train.cu"
@@ -88,144 +88,7 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# -- launch plan of the persistent sweeps ------------------------------------
-#
-# The sweep kernels (csrc/bilstmp_train.cu) run 256 threads a block and
-# take this plan as arguments; they check that it gives the byte count of
-# the shared-memory layout they use, which _sweep_smem mirrors.  The limits
-# below are that file's kSmemLimit, kRowsMax, kKC, kMaxCells, kMaxCols and
-# kMaxStages; tests/test_torch_bilstmp_plan.py holds the two equal.
-
-SMEM_LIMIT = 232_448      # dynamic shared memory one block may use (H100)
-ROWS_PER_PASS = 128       # streams per pass of a product (8 m16 tiles)
-K_CHUNK = 64              # columns per chunk of the cp.async ring
-MAX_CELLS = 16            # cells a block may own (64 gate rows)
-MAX_COLS = 64             # projection columns a block may own
-MIN_CELLS = 8             # cells a block owns at least (32 gate rows)
-MAX_STAGES = 4            # deepest cp.async ring
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-def _sweep_smem(S: int, C: int, P: int, cpb: int, ppb: int, stages: int,
-                backward: bool) -> int:
-    """Bytes of a sweep block's dynamic shared memory: its weight slices
-    (bf16 rows of K + 8), the cp.async ring, the product's float32 output,
-    the state of its cells and columns, in the backward the seven
-    per-(stream, cell) sums, and what the epilogues read, prefetched while
-    the product runs (forward: a pass's float32 xg of the owned cells and
-    its mask; backward: its bf16 gates and c_prev of the owned cells, dy of
-    the owned columns at two frames, two frames of mask); each region
-    rounded up to 16 bytes."""
-    cp, pp = _round_up(C, 16), _round_up(P, 16)
-    n1 = _round_up(cpb if backward else 4 * cpb, 8)
-    n2 = _round_up(ppb, 8)
-    ld2 = (4 * cp if backward else cp) + 8
-    mg = min(ROWS_PER_PASS, _round_up(S, 16))
-    regions = [2 * n1 * (pp + 8), 2 * n2 * ld2,
-               2 * stages * mg * (K_CHUNK + 8), 4 * mg * (max(n1, n2) + 4),
-               4 * S * cpb, 4 * S * ppb]
-    if backward:
-        c8 = _round_up(cpb, 8)
-        regions += [4 * 7 * S * cpb, 2 * mg * 4 * c8, 2 * mg * c8,
-                    2 * mg * 2 * ppb, 4 * mg * 2]
-    else:
-        regions += [4 * mg * 4 * _round_up(cpb, 4), 4 * mg]
-    return sum(_round_up(r, 16) for r in regions)
-
-
-@dataclass(frozen=True)
-class SweepPlan:
-    """How a persistent sweep lays out one direction: ``blocks_per_dir``
-    blocks, block b owning cells ``cells(b)`` (its rows of W_r, and of
-    W_rm^T in the backward) and projection columns ``cols(b)`` (its rows of
-    W_rm, and of W_r^T in the backward); rings of ``stages_fwd`` /
-    ``stages_bwd`` K_CHUNK-column chunks; ``smem_fwd`` / ``smem_bwd`` bytes
-    of dynamic shared memory.  A launch of ndir directions runs
-    ndir * blocks_per_dir blocks with the same plan per direction."""
-    S: int
-    C: int
-    P: int
-    blocks_per_dir: int
-    cells_per_block: int
-    cols_per_block: int
-    stages_fwd: int
-    stages_bwd: int
-    smem_fwd: int
-    smem_bwd: int
-
-    def cells(self, b: int) -> range:
-        j0 = b * self.cells_per_block
-        return range(min(j0, self.C), min(j0 + self.cells_per_block, self.C))
-
-    def cols(self, b: int) -> range:
-        p0 = b * self.cols_per_block
-        return range(min(p0, self.P), min(p0 + self.cols_per_block, self.P))
-
-    def k_chunks(self, product: str):
-        """The (k0, width) chunks, in the order every output element of a
-        sweep product is summed over them: ``gates`` ([S, P] x W_r^T),
-        ``proj`` ([S, C] x W_rm^T), ``dm`` ([S, P] x W_rm) or ``dr``
-        ([S, 4C] x W_r, K laid out gate * C_pad + j)."""
-        cp, pp = _round_up(self.C, 16), _round_up(self.P, 16)
-        k = {"gates": pp, "proj": cp, "dm": pp, "dr": 4 * cp}[product]
-        return [(k0, min(K_CHUNK, k - k0)) for k0 in range(0, k, K_CHUNK)]
-
-    def kernel_args(self, backward: bool):
-        """(nbd, cpb, ppb, stages, smem) as the C entries take them."""
-        return (self.blocks_per_dir, self.cells_per_block,
-                self.cols_per_block,
-                self.stages_bwd if backward else self.stages_fwd,
-                self.smem_bwd if backward else self.smem_fwd)
-
-
-def sweep_plan(S: int, C: int, P: int, num_sms: int) -> SweepPlan:
-    """The launch plan of the sweeps at these widths on a card of
-    ``num_sms`` SMs: at most floor(num_sms / 2) blocks a direction (both
-    directions' blocks resident at once, one a SM), MIN_CELLS to MAX_CELLS
-    cells a block, the projection columns over the same blocks in groups
-    of 8 (16-byte loads; a block reads the step's whole state row whatever
-    its share, so the fewer blocks the less L2 traffic), and for each sweep
-    the deepest ring (MAX_STAGES down to 2 chunks) that fits SMEM_LIMIT.
-    Raises ValueError past that capacity: C above MAX_CELLS *
-    floor(num_sms / 2) (1056 on an H100's 132 SMs), more than MAX_COLS
-    columns a block, or more shared memory than a block has."""
-    if min(S, C, P) <= 0:
-        raise ValueError(f"S, C, P must be positive, got {S, C, P}")
-    per_dir = num_sms // 2
-    if per_dir < 1:
-        raise ValueError(f"a card of {num_sms} SMs cannot hold both "
-                         "directions' sweeps")
-    cpb = max(MIN_CELLS, math.ceil(C / per_dir))
-    if cpb > MAX_CELLS:
-        raise ValueError(
-            f"cell dim C={C} is past the sweep's capacity: at most "
-            f"{MAX_CELLS} cells in each of {per_dir} blocks a direction, "
-            f"C <= {MAX_CELLS * per_dir} on {num_sms} SMs")
-    nbd = math.ceil(C / cpb)
-    ppb = _round_up(math.ceil(P / nbd), 8)
-    if ppb > MAX_COLS:
-        raise ValueError(
-            f"projection dim P={P} is past the sweep's capacity: at most "
-            f"{MAX_COLS} columns in each of {nbd} blocks, P <= "
-            f"{MAX_COLS * nbd} at C={C}")
-    fits = {}
-    for backward in (False, True):
-        for stages in range(MAX_STAGES, 1, -1):
-            smem = _sweep_smem(S, C, P, cpb, ppb, stages, backward)
-            if smem <= SMEM_LIMIT:
-                fits[backward] = (stages, smem)
-                break
-        else:
-            raise ValueError(
-                f"(S, C, P) = {S, C, P} is past the sweep's capacity: a "
-                f"block needs {smem} bytes of shared memory, more than the "
-                f"{SMEM_LIMIT} it may use")
-    (sf, mf), (sb, mb) = fits[False], fits[True]
-    return SweepPlan(S, C, P, nbd, cpb, ppb, sf, sb, mf, mb)
-
+# The launch plan of the persistent sweeps: ops/sweep_plan.py.
 
 # -- the hoisted GEMM --------------------------------------------------------
 

@@ -8,9 +8,13 @@ and ``_lstmp_bwd_kernel``, their wrappers ``_lstmp_train_fwd`` /
 takes in training (models/recurrent.py:163-190).  The kernels are
 ``csrc/lstmp_train.cu``, built for ``sm_90a`` and bound with ``ctypes``;
 the note at the top of that file says how the TPU design was rethought
-for the H100.  The weight gradients dW_r, dW_rm and dpeep are reduced
-outside the kernel over all frames, as the JAX wrapper does
-(lstm_pallas.py:426-451), with ``torch.matmul`` and sums.
+for the H100: one cooperative, persistent kernel per sweep, each block
+holding its cells' slices of W_r and W_rm in shared memory, launched by
+the plan :func:`plan_for` returns (ops/sweep_plan.py), and past that
+plan's capacity two per-step kernels a frame each way.  The weight
+gradients dW_r, dW_rm and dpeep are reduced outside the kernel over all
+frames, as the JAX wrapper does (lstm_pallas.py:426-451), with
+``torch.matmul`` and sums.
 
 The storage dtype (the dtype of ``xg``) and ``mxu_bf16`` pick one of
 the TPU kernels' three modes (``store_bf16``, ``mxu_bf16``):
@@ -36,6 +40,7 @@ w_r_m [P, C], float32."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +49,11 @@ from kaldi_aslp_tpu_torch.ops.build import (
     check_tensors,
     current_stream,
     load_library,
+)
+from kaldi_aslp_tpu_torch.ops.sweep_plan import (
+    LstmpSweepPlan,
+    _round_up,
+    lstmp_sweep_plan,
 )
 
 SOURCE = "lstmp_train.cu"
@@ -55,13 +65,16 @@ _Streams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    signatures = {"lstmp_train_fwd": 11, "lstmp_train_bwd": 13}
+    signatures = {"lstmp_train_fwd": 13, "lstmp_train_bwd": 17}
     for name, n_ptr in signatures.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
+            # (flags, arrays, S T C P, cell_clip, the plan's nb cpb nstage
+            # smem, the persistent sweep's row and slab, the stream)
             fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * n_ptr
-                           + [ctypes.c_int] * 4
-                           + [ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.c_int] * 4 + [ctypes.c_float]
+                           + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+                           + [ctypes.c_void_p] * 3)
             fn.restype = ctypes.c_int
     return lib
 
@@ -88,6 +101,32 @@ def _products(st: torch.dtype, mxu_bf16: Optional[bool]) -> torch.dtype:
     return BF16 if mxu_bf16 else F32
 
 
+def plan_for(S: int, C: int, P: int, device: torch.device) -> LstmpSweepPlan:
+    """The pair's launch plan on ``device``'s card: the persistent sweeps,
+    or past their capacity the per-step kernels (ops/sweep_plan.py)."""
+    return _plan(S, C, P, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+# a training step asks for the same few plans again and again
+_plan = functools.lru_cache(maxsize=64)(lstmp_sweep_plan)
+
+
+def _sweep_scratch(plan: LstmpSweepPlan, dev: torch.device):
+    """The persistent sweep's state row [S, pp] and partial slabs
+    [nb, S, pp], float32 (the kernel fills both); (None, None) for the
+    per-step kernels."""
+    if not plan.persistent:
+        return None, None
+    pp = _round_up(plan.P, 4)
+    return (torch.empty((plan.S, pp), dtype=F32, device=dev),
+            torch.empty((plan.blocks, plan.S, pp), dtype=F32, device=dev))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _operand(t: torch.Tensor, pt: torch.dtype) -> torch.Tensor:
     """A product operand in float32, rounded to the product dtype first
     (bf16 x bf16 is exact in float32, so float32 sums of these are what
@@ -112,7 +151,9 @@ def lstmp_train_fwd(xg: torch.Tensor, mask: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises; a CPU tensor
     takes :func:`lstmp_train_fwd_reference`.
-    ``lstmp_train_fwd.launches`` counts calls into the C entry."""
+    ``lstmp_train_fwd.launches`` counts calls into the C entry, and
+    ``lstmp_train_fwd.per_step`` those of them that took the per-step
+    kernels (:func:`plan_for` chooses, from the shapes)."""
     S, T, G = xg.shape
     P, C = w_r_m.shape
     st = _storage(xg.dtype)
@@ -130,11 +171,14 @@ def lstmp_train_fwd(xg: torch.Tensor, mask: torch.Tensor,
     if xg.device.type != "cuda":
         raise ValueError(f"no LSTMP training kernel for device {xg.device}")
     dev = xg.device
+    plan = plan_for(S, C, P, dev)
     # the weights in the dtype the products take them in
     w_r, w_rm = w_gifo_r.to(pt).contiguous(), w_r_m.to(pt).contiguous()
-    # the kernel carries the state in place
-    c_state, r_state = init_c.clone(), init_r.clone()
-    m_buf = torch.empty((S, C), dtype=F32, device=dev)
+    c_state = torch.empty((S, C), dtype=F32, device=dev)
+    r_state = torch.empty((S, P), dtype=F32, device=dev)
+    row, slab = _sweep_scratch(plan, dev)
+    m_buf = (torch.empty((S, C), dtype=F32, device=dev) if row is None
+             else None)
     gates = torch.empty((T, S, G), dtype=st, device=dev)
     cs = torch.empty((T, S, C), dtype=st, device=dev)
     rs = torch.empty((T, S, P), dtype=st, device=dev)
@@ -143,16 +187,20 @@ def lstmp_train_fwd(xg: torch.Tensor, mask: torch.Tensor,
         err = lib.lstmp_train_fwd(
             int(st == BF16), int(pt == BF16), xg.data_ptr(), mask.data_ptr(),
             w_r.data_ptr(), w_rm.data_ptr(), peep.data_ptr(),
-            c_state.data_ptr(), r_state.data_ptr(), m_buf.data_ptr(),
+            init_c.data_ptr(), init_r.data_ptr(), c_state.data_ptr(),
+            r_state.data_ptr(), _ptr(m_buf),
             gates.data_ptr(), cs.data_ptr(), rs.data_ptr(),
-            S, T, C, P, float(cell_clip), current_stream(dev))
+            S, T, C, P, float(cell_clip), *plan.kernel_args(backward=False),
+            _ptr(row), _ptr(slab), current_stream(dev))
         lstmp_train_fwd.launches += 1
+        lstmp_train_fwd.per_step += not plan.persistent
     if err != 0:
         raise RuntimeError(f"lstmp_train_fwd failed: CUDA error {err}")
     return gates, cs, rs
 
 
 lstmp_train_fwd.launches = 0
+lstmp_train_fwd.per_step = 0
 
 
 def lstmp_train_fwd_reference(xg, mask, w_gifo_r, w_r_m, peep, init_c,
@@ -208,7 +256,9 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
 
     On a CUDA tensor the sweep launches the kernel or raises; a CPU tensor
     takes :func:`lstmp_train_bwd_reference`.
-    ``lstmp_train_bwd.launches`` counts calls into the C entry."""
+    ``lstmp_train_bwd.launches`` counts calls into the C entry, and
+    ``lstmp_train_bwd.per_step`` those of them that took the per-step
+    kernels (:func:`plan_for` chooses, from the shapes)."""
     T, S, G = gates.shape
     P, C = w_r_m.shape
     st = _storage(gates.dtype)
@@ -230,10 +280,18 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
         raise ValueError(
             f"no LSTMP training kernel for device {gates.device}")
     dev = gates.device
-    w_r_t = w_gifo_r.t().to(pt).contiguous()        # [P, 4C]
-    w_rm_t = w_r_m.t().to(pt).contiguous()          # [C, P]
-    dc_state, dr_state = d_final_c.clone(), d_final_r.clone()
-    dg_buf = torch.empty((S, G), dtype=F32, device=dev)
+    plan = plan_for(S, C, P, dev)
+    # the weights in the product dtype: the persistent sweep reads their
+    # own layouts, the per-step kernels contiguous rows of their transposes
+    w_r, w_rm = w_gifo_r.to(pt).contiguous(), w_r_m.to(pt).contiguous()
+    w_r_t = w_rm_t = dg_buf = None
+    if not plan.persistent:
+        w_r_t = w_r.t().contiguous()                # [P, 4C]
+        w_rm_t = w_rm.t().contiguous()              # [C, P]
+        dg_buf = torch.empty((S, G), dtype=F32, device=dev)
+    dc_state = torch.empty((S, C), dtype=F32, device=dev)
+    dr_state = torch.empty((S, P), dtype=F32, device=dev)
+    row, slab = _sweep_scratch(plan, dev)
     dxg = torch.empty((S, T, G), dtype=st, device=dev)
     drnew = torch.empty((T, S, P), dtype=st, device=dev)
     lib = _library()
@@ -241,11 +299,14 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
         err = lib.lstmp_train_bwd(
             int(st == BF16), int(pt == BF16), dys.data_ptr(), mask.data_ptr(),
             gates.data_ptr(), cs.data_ptr(), init_c.data_ptr(),
-            w_rm_t.data_ptr(), w_r_t.data_ptr(), peep.data_ptr(),
-            dc_state.data_ptr(), dr_state.data_ptr(), dg_buf.data_ptr(),
+            w_r.data_ptr(), w_rm.data_ptr(), _ptr(w_rm_t), _ptr(w_r_t),
+            peep.data_ptr(), d_final_c.data_ptr(), d_final_r.data_ptr(),
+            dc_state.data_ptr(), dr_state.data_ptr(), _ptr(dg_buf),
             dxg.data_ptr(), drnew.data_ptr(), S, T, C, P, float(cell_clip),
+            *plan.kernel_args(backward=True), _ptr(row), _ptr(slab),
             current_stream(dev))
         lstmp_train_bwd.launches += 1
+        lstmp_train_bwd.per_step += not plan.persistent
     if err != 0:
         raise RuntimeError(f"lstmp_train_bwd failed: CUDA error {err}")
     return (dxg, dc_state, dr_state,
@@ -253,6 +314,7 @@ def lstmp_train_bwd(dys, mask, gates, cs, rs, w_gifo_r, w_r_m, peep,
 
 
 lstmp_train_bwd.launches = 0
+lstmp_train_bwd.per_step = 0
 
 
 def lstmp_train_bwd_reference(dys, mask, gates, cs, rs, w_gifo_r, w_r_m,
@@ -340,8 +402,8 @@ class LstmpTrainCore(torch.autograd.Function):
     peep [3, C], init_c [S, C], init_r [S, P], cell_clip, store_bf16,
     mxu_bf16) -> (ys [S, T, P] in the storage dtype, final_c, final_r
     float32).  ``store_bf16`` and ``mxu_bf16`` are the TPU core's flags
-    (bf16 products need bf16 storage).  xg is cast to the storage dtype before the
-    sweep (lstm_pallas.py:346); ys = rs * mask and the final state come from
+    (bf16 products need bf16 storage).  xg is cast to the storage dtype
+    before the sweep (lstm_pallas.py:346); ys = rs * mask and the final state come from
     the stored streams (:473-476).  Gradients flow to everything but the
     mask and the flags, in float32 (xg's in its own dtype)."""
 

@@ -1,13 +1,16 @@
-"""The launch plan of the x-fused BLSTMP sweeps and the hoisted GEMM's
-plain version (kaldi_aslp_tpu_torch/ops/bilstmp_train.py), on the CPU.
+"""The launch plan of the x-fused BLSTMP sweeps (kaldi_aslp_tpu_torch/ops/
+sweep_plan.py:sweep_plan) and the hoisted GEMM's plain version
+(ops/bilstmp_train.py), on the CPU.
 
 The persistent sweep kernels (csrc/bilstmp_train.cu) take their plan as
 arguments and check that it gives the byte count of the shared-memory
 layout they use; what the plan promises is tested here: each block's
 cells and projection columns, each owned once per direction; its shared
-memory within a block's 232,448 bytes; the per-direction backward summing
-every column over K in the fused backward's order; a ValueError past the
-capacity; the plan's limits equal to the kernel source's.  The GEMM's
+memory within a block's 232,448 bytes; a plan for every width inside the
+stated capacity (C <= 1024, P <= 512 at every S <= 128); the
+per-direction backward summing every column over K in the fused
+backward's order; a ValueError past the capacity; the plan's limits equal
+to the kernel source's.  The GEMM's
 plain version is held to the products ``bilstmp_train_bwd_dir_reference``
 computes."""
 
@@ -19,6 +22,7 @@ import torch
 
 from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
 from kaldi_aslp_tpu_torch.ops import build
+from kaldi_aslp_tpu_torch.ops import sweep_plan as sp
 
 H100_SMS = 132
 # (S, C, P): the flagship at the bench's and the CLI's stream counts,
@@ -31,9 +35,9 @@ SHAPES = [(128, 512, 320), (16, 512, 320), (33, 36, 20), (1, 36, 20),
 @pytest.mark.parametrize("S,C,P", SHAPES)
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
 def test_every_gate_row_and_column_is_owned_once(S, C, P, sms):
-    if C > bt.MAX_CELLS * (sms // 2):
+    if C > sp.MAX_CELLS * (sms // 2):
         pytest.skip("past this card's capacity (tested below)")
-    plan = bt.sweep_plan(S, C, P, sms)
+    plan = sp.sweep_plan(S, C, P, sms)
     assert 2 * plan.blocks_per_dir <= sms
     cells = [j for b in range(plan.blocks_per_dir) for j in plan.cells(b)]
     cols = [p for b in range(plan.blocks_per_dir) for p in plan.cols(b)]
@@ -44,25 +48,25 @@ def test_every_gate_row_and_column_is_owned_once(S, C, P, sms):
             for j in plan.cells(b) for g in range(4)]
     assert sorted(rows) == list(range(4 * C))
     for b in range(plan.blocks_per_dir):
-        assert len(plan.cells(b)) <= bt.MAX_CELLS
-        assert len(plan.cols(b)) <= bt.MAX_COLS
+        assert len(plan.cells(b)) <= sp.MAX_CELLS
+        assert len(plan.cols(b)) <= sp.MAX_COLS
     # columns in whole groups of 8: the 16-byte loads of dy
     assert plan.cols_per_block % 8 == 0
 
 @pytest.mark.parametrize("S,C,P", SHAPES)
 def test_shared_memory_fits_a_block(S, C, P):
-    plan = bt.sweep_plan(S, C, P, H100_SMS)
+    plan = sp.sweep_plan(S, C, P, H100_SMS)
     for backward, stages, smem in ((False, plan.stages_fwd, plan.smem_fwd),
                                    (True, plan.stages_bwd, plan.smem_bwd)):
-        assert 2 <= stages <= bt.MAX_STAGES
-        assert smem == bt._sweep_smem(S, C, P, plan.cells_per_block,
+        assert 2 <= stages <= sp.MAX_STAGES
+        assert smem == sp._sweep_smem(S, C, P, plan.cells_per_block,
                                       plan.cols_per_block, stages, backward)
         assert 0 < smem <= 232_448
         assert smem % 16 == 0
         assert plan.kernel_args(backward)[-2:] == (stages, smem)
         # the deepest ring that fits
-        if stages < bt.MAX_STAGES:
-            assert bt._sweep_smem(S, C, P, plan.cells_per_block,
+        if stages < sp.MAX_STAGES:
+            assert sp._sweep_smem(S, C, P, plan.cells_per_block,
                                   plan.cols_per_block, stages + 1,
                                   backward) > 232_448
 
@@ -82,17 +86,17 @@ def test_split_backward_sums_each_column_in_the_fused_order(S, C, P, T, D):
     assert alone_args == fused_args
     assert alone_splits == fused_splits
     assert fused_words == 2 * alone_words
-    plan = bt.sweep_plan(S, C, P, H100_SMS)
+    plan = sp.sweep_plan(S, C, P, H100_SMS)
     assert fused_args == plan.kernel_args(backward=True)
     # the sweep's chunks tile K, padded to 16, once and in increasing order
     for product, k in (("gates", P), ("proj", C), ("dm", P), ("dr", 4 * C)):
         chunks = plan.k_chunks(product)
         ends = [0] + [k0 + w for k0, w in chunks]
         assert [k0 for k0, _ in chunks] == ends[:-1]
-        k_pad = 4 * bt._round_up(C, 16) if product == "dr" else \
-            bt._round_up(k, 16)
+        k_pad = 4 * sp._round_up(C, 16) if product == "dr" else \
+            sp._round_up(k, 16)
         assert ends[-1] == k_pad
-        assert all(0 < w <= bt.K_CHUNK and w % 16 == 0 for _, w in chunks)
+        assert all(0 < w <= sp.K_CHUNK and w % 16 == 0 for _, w in chunks)
     # the weight gradients' split-K workspace fits the largest split product
     G = 4 * C
     for k, (M, N) in zip(fused_splits, ((G, D), (G, P), (P, C))):
@@ -103,37 +107,74 @@ def test_split_backward_sums_each_column_in_the_fused_order(S, C, P, T, D):
 
 def test_plan_limits_match_the_kernel_source():
     """The sweep kernels' own limits are the plan's."""
-    source = (build.CSRC_DIR / bt.SOURCE).read_text()
+    source = (build.CSRC_DIR / bt.SOURCE).read_text() + \
+        (build.CSRC_DIR / "sweep.cuh").read_text()
 
     def constant(name):
         found = re.search(rf"constexpr (?:int|size_t) {name} = (\d+);",
                           source)
         assert found, name
         return int(found.group(1))
-    assert constant("kSmemLimit") == bt.SMEM_LIMIT
-    assert constant("kRowsMax") == bt.ROWS_PER_PASS
-    assert constant("kKC") == bt.K_CHUNK
-    assert constant("kMaxCells") == bt.MAX_CELLS
-    assert constant("kMaxCols") == bt.MAX_COLS
-    assert constant("kMaxStages") == bt.MAX_STAGES
+    assert constant("kSmemLimit") == sp.SMEM_LIMIT
+    assert constant("kRowsMax") == sp.ROWS_PER_PASS
+    assert constant("kKC") == sp.K_CHUNK
+    assert constant("kMaxCells") == sp.MAX_CELLS
+    assert constant("kMaxCols") == sp.MAX_COLS
+    assert constant("kMaxStages") == sp.MAX_STAGES
 
 
 @pytest.mark.parametrize("S,C,P,what", [
     (128, 1057, 512, "C <= 1056 on 132 SMs"),
     (128, 1024, 1024, "232448"),
     (512, 1024, 512, "232448"),
-    (4, 32, 64 * 4 + 1, "P <= 256"),
+    (4, 32, 64 * 66 + 1, "P <= 4224"),
 ])
 def test_past_the_capacity_the_plan_raises(S, C, P, what):
     with pytest.raises(ValueError, match="capacity") as err:
-        bt.sweep_plan(S, C, P, H100_SMS)
+        sp.sweep_plan(S, C, P, H100_SMS)
     assert what in str(err.value)
 
 
 def test_the_capacity_covers_c1024_p512():
-    plan = bt.sweep_plan(128, 1024, 512, H100_SMS)
-    assert plan.cells_per_block <= bt.MAX_CELLS
-    assert max(plan.smem_fwd, plan.smem_bwd) <= bt.SMEM_LIMIT
+    plan = sp.sweep_plan(128, 1024, 512, H100_SMS)
+    assert plan.cells_per_block <= sp.MAX_CELLS
+    assert max(plan.smem_fwd, plan.smem_bwd) <= sp.SMEM_LIMIT
+
+
+GRID = [(C, P) for C in range(64, 1025, 16) for P in range(64, 513, 16)]
+
+
+@pytest.mark.parametrize("S", [16, 64, 97, 128])
+def test_every_width_inside_the_stated_capacity_has_a_plan(S):
+    """C = 64..1024 and P = 64..512 by 16: each point plans, owns each cell
+    and column once, and fits (at S = 97 and 128, (800, 512) raised before
+    the columns were spread over as many blocks as their groups need)."""
+    for C, P in GRID:
+        plan = sp.sweep_plan(S, C, P, H100_SMS)
+        n = plan.blocks_per_dir
+        assert n <= H100_SMS // 2
+        assert [j for b in range(n) for j in plan.cells(b)] == list(range(C))
+        assert [p for b in range(n) for p in plan.cols(b)] == list(range(P))
+        assert plan.cols_per_block == 8
+        assert max(plan.smem_fwd, plan.smem_bwd) <= sp.SMEM_LIMIT
+
+
+def test_the_flagship_plan_is_unchanged():
+    """(128, 512, 320): 64 blocks a direction of 8 cells and 8 columns,
+    4-deep rings, 146,560 / 170,240 bytes, as the sweeps were timed."""
+    plan = sp.sweep_plan(128, 512, 320, H100_SMS)
+    assert plan.kernel_args(False) == (64, 8, 8, 4, 146_560)
+    assert plan.kernel_args(True) == (64, 8, 8, 4, 170_240)
+
+
+def test_past_128_streams_the_error_names_the_streams_that_fit():
+    with pytest.raises(ValueError, match="capacity") as err:
+        sp.sweep_plan(256, 1024, 512, H100_SMS)
+    s_max = int(str(err.value).split("at most S=")[1].split()[0])
+    assert 128 <= s_max < 256
+    sp.sweep_plan(s_max, 1024, 512, H100_SMS)
+    with pytest.raises(ValueError, match="capacity"):
+        sp.sweep_plan(s_max + 1, 1024, 512, H100_SMS)
 
 
 def test_gemm_splits_depend_on_the_shape_alone():

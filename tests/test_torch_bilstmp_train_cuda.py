@@ -76,7 +76,8 @@ def _inputs(S, T, D, C, P, dev, seed):
                                        (1, 6, 40, 512, 320),
                                        (6, 7, 24, 36, 20),
                                        (4, 5, 13, 36, 20),
-                                       (128, 32, 640, 512, 320)])
+                                       (128, 32, 640, 512, 320),
+                                       (128, 8, 40, 800, 512)])
 def test_kernels_match_plain_versions(S, T, D, C, P):
     _needs_card()
     fwd_args, (dy, dc, dr) = _inputs(S, T, D, C, P, torch.device("cuda"),
@@ -129,7 +130,8 @@ def test_two_runs_give_the_same_bits(S, T, D, C, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,T,D,C,P", [(6, 7, 24, 36, 20),
-                                       (128, 32, 640, 512, 320)])
+                                       (128, 32, 640, 512, 320),
+                                       (128, 8, 40, 800, 512)])
 def test_split_backward_halves_equal_the_fused_backward(S, T, D, C, P):
     _needs_card()
     fwd_args, (dy, dc, dr) = _inputs(S, T, D, C, P, torch.device("cuda"),

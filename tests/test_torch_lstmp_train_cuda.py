@@ -3,7 +3,11 @@ csrc/lstmp_train.cu) against their plain PyTorch versions on the card, in
 float32, in bf16 (bf16 storage and bf16 products) and in bf16 storage
 with float32 products (KALDI_ASLP_LSTM_MXU_FP32), with ragged masks, a
 nonzero initial state and nonzero final-state cotangents; and
-``LstmpTrainCore``'s gradients on the card against the CPU.
+``LstmpTrainCore``'s gradients on the card against the CPU; the
+persistent sweeps at one stream, at widths that are no multiple of 4 and
+over two passes of streams (S > 128); two runs bit for bit; and a width
+past the persistent plan's capacity, which the plan sends to the per-step
+kernels and which trains through ``LstmpTrainCore``.
 
 The kernels have no CPU mode, so these tests skip where there is no CUDA
 card.  This file imports no JAX; run it on the card with
@@ -35,6 +39,7 @@ from kaldi_aslp_tpu_torch.ops.lstmp_train import (
     lstmp_train_bwd_reference,
     lstmp_train_fwd,
     lstmp_train_fwd_reference,
+    plan_for,
 )
 
 F32_TOL, BF16_TOL, BF16_SHARE = 1e-4, 2e-2, 1e-2
@@ -83,8 +88,13 @@ def _inputs(S, T, C, P, dev, seed, store_bf16):
     return fwd, cots
 
 
-SHAPES = [(5, 7, 32, 16), (33, 9, 800, 512), (17, 6, 37, 600)]
-SHAPE_IDS = ["small", "hybrid-width", "ragged-width"]
+# one stream; C = 13, P = 7 no multiple of 4; 130 streams take two passes
+SHAPES = [(5, 7, 32, 16), (33, 9, 800, 512), (17, 6, 37, 600),
+          (1, 5, 800, 512), (6, 4, 13, 7), (130, 3, 64, 40)]
+SHAPE_IDS = ["small", "hybrid-width", "ragged-width", "one-stream",
+             "odd-width", "two-passes"]
+MODE_ARGS = [(False, None), (True, None), (True, False)]
+MODE_ARG_IDS = ["f32", "bf16", "bf16-f32-products"]
 
 
 def _kernels_vs_plain(S, T, C, P, store_bf16, strict, mxu_bf16=None):
@@ -98,6 +108,8 @@ def _kernels_vs_plain(S, T, C, P, store_bf16, strict, mxu_bf16=None):
     # the kernel's float32 outputs in bf16 storage to F32_TOL only if strict
     tol = BF16_TOL if store_bf16 and not strict else F32_TOL
     before = (lstmp_train_fwd.launches, lstmp_train_bwd.launches)
+    per_step = (lstmp_train_fwd.per_step, lstmp_train_bwd.per_step)
+    persistent = plan_for(S, C, P, xg.device).persistent
     got = lstmp_train_fwd(*fwd_args, 50.0, mxu_bf16)
     want = lstmp_train_fwd_reference(*fwd_args, 50.0, mxu_bf16)
     torch.cuda.synchronize()
@@ -112,6 +124,8 @@ def _kernels_vs_plain(S, T, C, P, store_bf16, strict, mxu_bf16=None):
     torch.cuda.synchronize()
     assert (lstmp_train_fwd.launches, lstmp_train_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+    assert (lstmp_train_fwd.per_step, lstmp_train_bwd.per_step) == tuple(
+        n + (not persistent) for n in per_step)
     for name, g, w in zip(("dxg", "d_init_c", "d_init_r", "d_w_gifo_r",
                            "d_w_r_m", "dpeep"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
@@ -171,3 +185,51 @@ def test_core_gradients_on_the_card_match_the_cpu(store_bf16):
                            "init_r"], grads["cuda"], grads["cpu"]):
         assert g.dtype == torch.float32, name
         _hold(name, g, w, BF16_TOL if store_bf16 else F32_TOL)
+
+
+def _run_pair(fwd_args, cots, mxu_bf16):
+    xg, mask, w_r, w_rm, peep, c0, r0 = fwd_args
+    dy, dc, dr = cots
+    fwd = lstmp_train_fwd(*fwd_args, 50.0, mxu_bf16)
+    bwd = lstmp_train_bwd(dy, mask, *fwd, w_r, w_rm, peep, c0, r0, dc, dr,
+                          50.0, mxu_bf16)
+    torch.cuda.synchronize()
+    return (*fwd, *bwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_bf16,mxu_bf16", MODE_ARGS, ids=MODE_ARG_IDS)
+def test_two_runs_give_the_same_bits(store_bf16, mxu_bf16):
+    _needs_card()
+    S, T, C, P = 33, 9, 800, 512
+    fwd_args, cots = _inputs(S, T, C, P, torch.device("cuda"), 5, store_bf16)
+    assert plan_for(S, C, P, fwd_args[0].device).persistent
+    first = _run_pair(fwd_args, cots, mxu_bf16)
+    second = _run_pair(fwd_args, cots, mxu_bf16)
+    for g, w in zip(first, second):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_past_the_persistent_capacity_the_per_step_kernels_train():
+    """C = 2048, P = 512 in float32 at 100 streams: the plan picks the
+    per-step kernels from the shapes, counts them, and LstmpTrainCore
+    trains through them as it trains at any width."""
+    _needs_card()
+    S, T, C, P = 100, 3, 2048, 512
+    dev = torch.device("cuda")
+    plan = plan_for(S, C, P, dev)
+    assert not plan.persistent and "shared memory" in plan.reason
+    _kernels_vs_plain(S, T, C, P, False, strict=False)
+    fwd_args, cots = _inputs(S, T, C, P, dev, 17, False)
+    xg, mask, w_r, w_rm, peep, c0, r0 = fwd_args
+    leaves = [t.clone().requires_grad_() for t in (xg, w_r, w_rm, peep)]
+    before = (lstmp_train_fwd.per_step, lstmp_train_bwd.per_step)
+    ys, fc, fr = LstmpTrainCore.apply(leaves[0], mask, *leaves[1:], c0, r0,
+                                      50.0, False, False)
+    (ys * cots[0]).sum().backward()
+    torch.cuda.synchronize()
+    assert (lstmp_train_fwd.per_step, lstmp_train_bwd.per_step) == (
+        before[0] + 1, before[1] + 1)
+    for t in leaves:
+        assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
