@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of this repository on one NVIDIA card, in turns.
+
+    python3 chip_ab.py TREE_A TREE_B [ROUNDS]
+
+Each tree is a directory holding ``chip_smoke.py`` and the port's package
+(for example two ``git archive`` unpackings).  For ROUNDS rounds (default
+4) and each tree in turn, a fresh process in that tree builds the
+unidirectional LSTMP training kernels, times them at the LSTM hybrid's
+BPTT chunk (S=100, T=20, C=800, P=512, float32; CUDA events, median of
+20) and splits three BPTT steps by phase (``chip_smoke.bptt_step_split``).
+One JSON line a reading.  The step is partly host-bound and a shared
+host drifts, so two versions compare only like this: on one card, in one
+process tree, alternating.
+
+Imports nothing of JAX and nothing of kaldi_aslp_tpu."""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+CHILD = r'''
+import json, sys, tempfile
+import torch
+import chip_smoke as cs
+from kaldi_aslp_tpu_torch.ops import lstmp_train as lt
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+fwd_args, bwd_args, _, _ = cs.lstm_train_kernel_check(
+    dev, *cs.BPTT_SPLIT_SHAPE, False)
+cs.log("ab_kernels",
+       lstmp_train_fwd_ms=cs.cuda_ms(
+           lambda: lt.lstmp_train_fwd(*fwd_args), 20, 2),
+       lstmp_train_bwd_ms=cs.cuda_ms(
+           lambda: lt.lstmp_train_bwd(*bwd_args), 20, 2))
+with tempfile.TemporaryDirectory() as workdir:
+    model, _, _ = cs.write_bptt_files(workdir)
+    for _ in range(3):
+        cs.bptt_step_split(model, dev)
+'''
+
+
+def main(argv) -> int:
+    if len(argv) not in (3, 4):
+        print(__doc__, file=sys.stderr)
+        return 2
+    trees, rounds = argv[1:3], int(argv[3]) if len(argv) == 4 else 4
+    for round_ in range(rounds):
+        for tree in trees:
+            child = subprocess.run([sys.executable, "-c", CHILD], cwd=tree,
+                                   capture_output=True, text=True)
+            if child.returncode != 0:
+                print(child.stderr[-2000:], file=sys.stderr)
+                return child.returncode
+            for line in child.stdout.splitlines():
+                if line.startswith("{"):
+                    reading = json.loads(line)
+                    print(json.dumps({"tree": tree, "round": round_,
+                                      **reading}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

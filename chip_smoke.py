@@ -11,10 +11,22 @@ exits nonzero:
                 (sm_90a), one nvcc each, all at once;
   3. kernel   - hold the LSTMP inference kernel against its plain PyTorch
                 version on the card at the flagship's widths (C=512,
-                P=320) and the shapes of the served path and of a
-                training batch, and at the LSTM hybrid's (C=800, P=512)
-                and the shapes of its cross-validation run; time both
-                with CUDA events;
+                P=320) and the shapes of the served chunk, an offline
+                utterance and a training batch, and at the LSTM hybrid's
+                (C=800, P=512) and the shapes of its cross-validation
+                run; the two-direction call (a BLSTMP layer in one
+                launch) at the flagship's shapes too, which must equal two
+                one-direction calls bit for bit; every call twice for the
+                same bits; time each with CUDA events beside its plain
+                version and beside the per-step kernels under a plan made
+                here (the planned path must not be slower), and up to 4
+                streams beside the few-stream sweep's barrier exchange;
+                the plan and the sweeps' registers (from the -Xptxas -v
+                log); a torch.profiler split of one call at the served
+                chunk and at the hybrid's CV chunk, which must show one
+                persistent sweep and no per-frame kernel; an
+                earlier_times line with the per-step kernels' recorded
+                time;
   4. slice    - serve the flagship BLSTM-CTC (3 x BLSTMP, C=512, P=320,
                 40 fbank inputs, 72 CTC targets; random weights from a
                 numpy seed; its CTC TLG built by the port's own graph
@@ -22,8 +34,11 @@ exits nonzero:
                 CLI session factory with --device=cuda: 2 requests one
                 after the other, then 2 at the same time; each must give
                 partial events and one final event, and every chunk's
-                network forward must have launched the kernel 6 times
-                (3 layers x 2 directions);
+                network forward must have launched the kernel's
+                two-direction entry 3 times (once a layer), on a
+                persistent sweep and never the per-step kernels; then one
+                warm session's 16-frame chunk timed by part (fbank + CMN,
+                acoustic forward, Viterbi advance, backtrace);
   5. check    - one request's per-chunk acoustic scores from the card
                 against the port on the CPU (plain versions);
   6. train-kernels - hold the BLSTMP training kernels (forward and
@@ -102,7 +117,7 @@ exits nonzero:
                 the model it writes must load again and differ from the
                 initial one; then --cross-validate=true must leave the
                 parameters unchanged, print FRAME_ACCURACY and launch the
-                inference kernel twice per chunk;
+                inference kernel twice per chunk, on a persistent sweep;
  12. bptt-check - one chunk's loss and parameter gradients on the card
                 against the port on the CPU (plain versions), the same
                 chunk's eval() outputs and loss (the cross-validation
@@ -140,13 +155,23 @@ CROSS_CHECK_ATOL = 1e-3                    # log-domain scores, card vs CPU
 C, P, FEAT_DIM, TARGETS, LAYERS = 512, 320, 40, 72, 3
 # the LSTM hybrid (kaldi_aslp_tpu/models/flagship.py:build_lstm_hybrid)
 HYBRID_C, HYBRID_P, HYBRID_PDFS, HYBRID_LAYERS = 800, 512, 3019, 2
-# (S, T, D, C, P): the flagship's served path and training batch, then the
-# hybrid's cross-validation chunks (16 and 100 streams of 20 frames, both
-# layers' input widths)
-KERNEL_SHAPES = [(1, 16, 40, C, P), (1, 16, 640, C, P), (8, 200, 640, C, P),
-                 (128, 400, 640, C, P)] + [
+# (S, T, D, C, P): the flagship's served chunk, an offline utterance of 4 s
+# and training batches, then the hybrid's cross-validation chunks (16 and
+# 100 streams of 20 frames, both layers' input widths)
+KERNEL_SHAPES = [(1, 16, 40, C, P), (1, 16, 640, C, P), (1, 400, 640, C, P),
+                 (8, 200, 640, C, P), (128, 400, 640, C, P)] + [
     (S, 20, D, HYBRID_C, HYBRID_P) for S in (16, 100)
     for D in (FEAT_DIM, HYBRID_P)]
+# the rows at which both directions of a BLSTMP layer also run in one call
+BI_KERNEL_SHAPES = [(1, 16, 640, C, P), (1, 400, 640, C, P),
+                    (8, 200, 640, C, P), (128, 400, 640, C, P)]
+# the rows whose call is profiled: one persistent sweep, no per-frame kernel
+PROFILED_SHAPES = [(1, 16, 640, C, P), (100, 20, HYBRID_P, HYBRID_C, HYBRID_P)]
+# one direction at the served chunk (S, T = 1, 16) with the earlier per-step
+# kernels, two launches a frame, as PERF.md section 6 records it (an H100
+# 80GB HBM3 at 700 W): logged beside this run's times, never in the kernel
+# records
+MS_PER_STEP_LSTMP_FORWARD = 0.2067
 # training kernels: bf16 streams and products on both sides, summed in
 # another order, so a stored bf16 value may land one step (2^-8 of
 # itself) away and carry that through the recurrence; held relative to
@@ -304,14 +329,16 @@ def bound(ops, nbytes):
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def lstmp_forward_bound(S, T, C, P):
-    # in: xg [S, T, G], mask, W_r [G, P], W_rm [P, C], peep [3, C], c0,
-    # r0; out: ys [S, T, P], c_T, r_T; all float32.  Per frame and stream
-    # r_prev . W_r^T and m . W_rm^T: 2 (GP + PC) float32 FLOP
+def lstmp_forward_bound(S, T, C, P, directions=1):
+    # per direction in: xg [S, T, G], W_r [G, P], W_rm [P, C], peep [3, C];
+    # out: its columns of ys [S, T, P]; once: mask, c0, r0 in, c_T, r_T
+    # out; all float32.  Per direction, frame and stream r_prev . W_r^T and
+    # m . W_rm^T: 2 (GP + PC) float32 FLOP
     G = 4 * C
-    nbytes = 4 * (S * T * (G + 1 + P) + G * P + P * C + 3 * C
-                  + 2 * S * (C + P))
-    return bound([(2 * S * T * (G * P + P * C), PEAK_F32)], nbytes)
+    nbytes = 4 * (directions * (S * T * (G + P) + G * P + P * C + 3 * C)
+                  + S * T + 2 * S * (C + P))
+    return bound([(directions * 2 * S * T * (G * P + P * C), PEAK_F32)],
+                 nbytes)
 
 
 def bilstmp_fwd_bound(S, T, D, C, P):
@@ -409,10 +436,11 @@ def ctc_bound(S, T, U):
 # -- phase 3 -----------------------------------------------------------------
 
 def kernel_phase(dev):
-    from kaldi_aslp_tpu_torch.ops.lstmp import (
-        lstmp_forward,
-        lstmp_forward_reference,
-    )
+    import dataclasses
+
+    from kaldi_aslp_tpu_torch.ops import build
+    from kaldi_aslp_tpu_torch.ops import lstmp as lp
+    from kaldi_aslp_tpu_torch.ops import sweep_plan as sp
 
     results = []
     for S, T, D, C_, P_ in KERNEL_SHAPES:
@@ -421,36 +449,202 @@ def kernel_phase(dev):
         def t(a):
             return torch.from_numpy(a).to(dev)
         x = t(rs.randn(S, T, D).astype(np.float32))
-        w_x, bias = t(uniform(rs, 4 * C_, D)), t(uniform(rs, 4 * C_))
-        xg = (torch.matmul(x, w_x.t()) + bias).contiguous()
         lens = np.full(S, T)
         if S > 1:
             lens = rs.randint(T // 4, T + 1, size=S)
             lens[0] = T
         mask = t((np.arange(T)[None, :] < lens[:, None]).astype(np.float32))
-        args = (xg, mask, t(uniform(rs, 4 * C_, P_)),
-                t(uniform(rs, P_, C_)), t(uniform(rs, 3, C_)),
-                t(uniform(rs, S, C_, scale=0.5)),
-                t(uniform(rs, S, P_, scale=0.5)))
-        got = lstmp_forward(*args)
-        want = lstmp_forward_reference(*args)
-        torch.cuda.synchronize()
-        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-        for name, g, w in zip(("ys", "c_T", "r_T"), got, want):
-            if not torch.isfinite(g).all():
-                raise RuntimeError(f"kernel {name} not finite at {S, T, D}")
-            torch.testing.assert_close(g, w, **KERNEL_TOL)
-        reps = 20 if T <= 16 else 5
-        ms = cuda_ms(lambda: lstmp_forward(*args), reps)
-        plain_ms = cuda_ms(lambda: lstmp_forward_reference(*args),
-                           max(reps // 4, 3))
-        results.append({"S": S, "T": T, "D": D, "C": C_,
-                        "max_abs_err": max(errs), "ms": ms,
-                        "plain_ms": plain_ms})
-        log("kernel", name="lstmp_forward", S=S, T=T, D=D, C=C_, P=P_,
-            err_ys=errs[0], err_c=errs[1], err_r=errs[2], tol=KERNEL_TOL,
-            ms=ms, plain_ms=plain_ms)
+        xgs, weights = [], []
+        for _ in range(2):      # direction f, then b
+            w_x, bias = t(uniform(rs, 4 * C_, D)), t(uniform(rs, 4 * C_))
+            xgs.append((torch.matmul(x, w_x.t()) + bias).contiguous())
+            weights.append((t(uniform(rs, 4 * C_, P_)),
+                            t(uniform(rs, P_, C_)), t(uniform(rs, 3, C_))))
+        c0 = t(uniform(rs, S, C_, scale=0.5))
+        r0 = t(uniform(rs, S, P_, scale=0.5))
+        one = (xgs[0], mask, *weights[0], c0, r0)
+        two = (*xgs, mask, *weights, c0, r0)
+        calls = [(1, lambda: lp.lstmp_forward(*one),
+                  lambda: lp.lstmp_forward_reference(*one))]
+        if (S, T, D, C_, P_) in BI_KERNEL_SHAPES:
+            calls.append((2, lambda: lp.blstmp_forward(*two),
+                          lambda: lp.blstmp_forward_reference(*two)))
+        for directions, kernel, plain in calls:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            for name, g, w in zip(("ys", "c_T", "r_T"), got, want):
+                if not torch.isfinite(g).all():
+                    raise RuntimeError(
+                        f"kernel {name} not finite at {S, T, D, directions}")
+                torch.testing.assert_close(g, w, **KERNEL_TOL)
+            again = kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(
+                    f"two runs differ at {S, T, D, directions}")
+            if directions == 2:
+                # the same bits as two one-direction calls and the flips
+                y_f, c_f, r_f = lp.lstmp_forward(*one)
+                y_b, _, _ = lp.lstmp_forward(
+                    torch.flip(xgs[1], (1,)).contiguous(),
+                    torch.flip(mask, (1,)).contiguous(), *weights[1],
+                    torch.zeros_like(c0), torch.zeros_like(r0))
+                torch.cuda.synchronize()
+                halves = (torch.cat([y_f, torch.flip(y_b, (1,))], dim=-1),
+                          c_f, r_f)
+                if not all(torch.equal(a, b) for a, b in zip(got, halves)):
+                    raise RuntimeError(
+                        "the two-direction call differs from two "
+                        f"one-direction calls at {S, T, D}")
+            del got, want, again
+            plan = lp.plan_for(S, C_, P_, directions, dev)
+            if not plan.persistent:
+                raise RuntimeError(f"{S, C_, P_, directions} took the "
+                                   f"per-step kernels: {plan.reason}")
+            launch_args = (xgs[:directions], mask, weights[:directions], c0,
+                           r0, 50.0)
+            # the same C entry under other plans, made here: the per-step
+            # kernels, and up to FEW_TAG_STREAMS streams the few-stream
+            # sweep's barrier exchange
+            per_step = sp.lstmp_infer_per_step(
+                S, C_, P_, directions, "timed beside the planned path")
+            others = {"per_step": per_step}
+            if plan.exchange == sp.TAGS:
+                others["barrier"] = dataclasses.replace(
+                    plan, exchange=sp.BARRIER)
+            for other in others.values():
+                alt = lp._launch(other, *launch_args)
+                ref = plain()
+                torch.cuda.synchronize()
+                for g, w in zip(alt, ref):
+                    torch.testing.assert_close(g, w, **KERNEL_TOL)
+                del alt, ref
+            reps = 20 if S * T <= 3200 else 5
+            ms = cuda_ms(kernel, reps)
+            other_ms = {k: cuda_ms(lambda: lp._launch(other, *launch_args),
+                                   reps) for k, other in others.items()}
+            plain_ms = cuda_ms(plain, 3, 1)
+            bound_ms, bound_by = lstmp_forward_bound(S, T, C_, P_, directions)
+            row = {"S": S, "T": T, "D": D, "C": C_, "P": P_,
+                   "directions": directions, "max_abs_err": max(errs),
+                   "ms": ms, "plain_ms": plain_ms,
+                   "per_step_ms": other_ms["per_step"],
+                   "barrier_exchange_ms": other_ms.get("barrier"),
+                   "us_per_frame": 1e3 * ms / T, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "regime": plan.regime,
+                   "exchange": plan.exchange,
+                   "blocks": directions * plan.blocks_per_dir,
+                   "cells_per_block": plan.cells_per_block,
+                   "cols_per_block": plan.cols_per_block,
+                   "ring_stages": plan.stages, "smem_bytes": plan.smem}
+            results.append(row)
+            log("kernel", name="lstmp_forward" if directions == 1
+                else "blstmp_forward", **row, err_ys=errs[0], err_c=errs[1],
+                err_r=errs[2], tol=KERNEL_TOL, identical_twice=True)
+            if ms > other_ms["per_step"]:
+                raise RuntimeError(
+                    f"the planned path ({ms} ms) is slower than the "
+                    f"per-step kernels ({other_ms['per_step']} ms) at "
+                    f"{S, T, D, C_, P_, directions}")
+            if (S, T, D, C_, P_) in PROFILED_SHAPES:
+                # one call is one persistent kernel
+                counts = {}
+                by_kernel = device_ms_by_kernel(kernel, counts)
+                sweeps = sum(n for k, n in counts.items()
+                             if "sweep_kernel" in k)
+                per_frame = [k for k in counts if "step_cell_kernel" in k
+                             or "step_proj_kernel" in k]
+                log("kernel_profile", S=S, T=T, C=C_, P=P_,
+                    directions=directions, by_kernel_ms=by_kernel,
+                    launches=counts)
+                if sweeps != 1 or per_frame:
+                    raise RuntimeError(
+                        f"a call at {S, T, C_, P_, directions} is not one "
+                        f"persistent sweep: {counts}")
+    served = {r["directions"]: r["ms"] for r in results
+              if (r["S"], r["T"], r["D"]) == (1, 16, 2 * P)}
+    log("earlier_times", recorded_in="PERF.md section 6, the earlier "
+        "per-step kernels through the wrapper of that time, not measured "
+        "in this run", S=1, T=16, one_direction_ms=MS_PER_STEP_LSTMP_FORWARD,
+        measured_ms={"one_direction": served[1], "two_directions": served[2]})
+    log_text = build.library_path(lp.SOURCE).with_suffix(".log").read_text()
+    log("infer_sweeps", threads=sp.FWD_THREADS, registers={
+        k: ptxas_registers_all(log_text, k)
+        for k in ("lstmp_few_sweep_kernel", "lstmp_infer_sweep_kernel")})
+    call_split(dev)
     return results
+
+
+def call_split(dev):
+    """Where a served call's time goes, for one direction and two at
+    S = 1, C = 512, P = 320: the sweep's device time at T = 16 and at T = 1
+    (the launch, the weight fill and one frame: the call's fixed part on
+    the card) by torch.profiler, and the host's time (host clock, the card
+    idle before each call, median) in the whole wrapper, in its argument
+    checks and in the C entry alone (the counters' memset and the
+    cooperative launch)."""
+    from kaldi_aslp_tpu_torch.ops import lstmp as lp
+
+    rs = np.random.RandomState(5)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def host_us(fn, reps=100):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return 1e6 * float(np.median(times))
+
+    weights = [(t(uniform(rs, 4 * C, P)), t(uniform(rs, P, C)),
+                t(uniform(rs, 3, C))) for _ in range(2)]
+    c0, r0 = t(uniform(rs, 1, C, scale=0.5)), t(uniform(rs, 1, P, scale=0.5))
+    for directions in (1, 2):
+        out = {}
+        for T in (16, 1):
+            xgs = [t(rs.randn(1, T, 4 * C).astype(np.float32))
+                   for _ in range(directions)]
+            mask = torch.ones((1, T), device=dev)
+            plan = lp.plan_for(1, C, P, directions, dev)
+
+            def call():
+                if directions == 1:
+                    return lp.lstmp_forward(xgs[0], mask, *weights[0], c0, r0)
+                return lp.blstmp_forward(*xgs, mask, *weights, c0, r0)
+            by_kernel = device_ms_by_kernel(call)
+            out[f"device_sweep_us_T{T}"] = 1e3 * sum(
+                ms for k, ms in by_kernel.items() if "sweep_kernel" in k)
+            if T == 1:
+                continue
+            out["host_call_us"] = host_us(call)
+            out["host_checks_us"] = host_us(lambda: (
+                lp._check(xgs, mask, weights[:directions], c0, r0),
+                lp.refuse_autograd(*xgs, mask, c0, r0)))
+            out["host_launch_us"] = host_us(lambda: lp._launch(
+                plan, xgs, mask, weights[:directions], c0, r0, 50.0))
+            out["events_ms"] = cuda_ms(call, 20)
+        frames = 15
+        out["device_us_per_frame"] = (out["device_sweep_us_T16"]
+                                      - out["device_sweep_us_T1"]) / frames
+        log("call_split", S=1, T=16, C=C, P=P, directions=directions, **out)
+
+
+def ptxas_registers_all(log_text: str, kernel: str):
+    """Registers of every instance of ``kernel`` in an -Xptxas -v log, in
+    the log's order."""
+    lines = log_text.splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for later in lines[i + 1:i + 4]:
+                if "Used" in later and "registers" in later:
+                    found.append(int(later.split("Used")[1].split()[0]))
+    return found
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -562,7 +756,7 @@ def slice_phase(paths, device: str):
         OnlineServerOptions,
         OnlineTcpServer,
     )
-    from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
+    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
 
     factory = session_factory_from_argv(
         [f"--device={device}", f"--num-mel-bins={FEAT_DIM}", *paths])
@@ -606,20 +800,94 @@ def slice_phase(paths, device: str):
         finally:
             await server.stop()
 
-    lstmp_forward.launches = 0
+    for wrapper in (blstmp_forward, lstmp_forward):
+        wrapper.launches = wrapper.per_step = 0
     stats, concurrent_s = asyncio.run(serve())
-    launches = lstmp_forward.launches
+    # a BLSTMP layer is one launch of the two-direction entry
+    launches, per_step = blstmp_forward.launches, blstmp_forward.per_step
     for i, st in enumerate(stats):
         log("request", index=i, concurrent=i >= 2, acoustic_fn_calls=calls[i],
             **st)
-    if launches != 2 * LAYERS * sum(calls) or launches == 0:
+    if launches != LAYERS * sum(calls) or launches == 0 or per_step \
+            or lstmp_forward.launches:
         raise RuntimeError(
-            f"{launches} LSTMP launches for {sum(calls)} acoustic_fn calls")
+            f"{launches} two-direction LSTMP launches ({per_step} on the "
+            f"per-step kernels) and {lstmp_forward.launches} one-direction "
+            f"for {sum(calls)} acoustic_fn calls")
     log("slice", requests=len(stats), acoustic_fn_calls=sum(calls),
-        lstmp_launches=launches,
+        blstmp_launches=launches, per_step=per_step,
         concurrent_pair_audio_s_per_s=(
             (stats[2]["audio_s"] + stats[3]["audio_s"]) / concurrent_s))
+    chunk_split(factory, pcms[0])
     return launches, recorded
+
+
+def chunk_split(factory, pcm: bytes, chunks: int = 8):
+    """One warm session's 16-frame chunks timed by part, each part a
+    synchronised call between two CUDA events (every part ends on the host:
+    the events' span is the part's wall time on the card's clock): the
+    median over ``chunks`` chunks after 1 s of audio through the session.
+    Then the same chunks' acoustic forward with the inference kernel on its
+    per-step kernels (the plan replaced here, for this reading only), as the
+    path ran before the persistent sweep: the same run's yardstick."""
+    from kaldi_aslp_tpu_torch.ops import lstmp as lp
+    from kaldi_aslp_tpu_torch.ops import sweep_plan as sp
+
+    session = factory()
+    samples = np.frombuffer(pcm, dtype="<i2").astype(np.float32)
+    warm = SAMPLE_RATE
+    session.accept_samples(samples[:warm])
+    frames_per_chunk = session.chunk_frames
+    step = frames_per_chunk * SAMPLE_RATE // 100      # 10 ms frames
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    parts = {"fbank_cmn": [], "acoustic_forward": [], "viterbi_advance": [],
+             "backtrace": []}
+    pending = np.zeros((0, session.features.dim), np.float32)
+    timed_chunks = []
+    for i in range(chunks):
+        piece = samples[warm + i * step: warm + (i + 1) * step]
+        frames, ms = timed(lambda: session.features.accept_waveform(piece))
+        parts["fbank_cmn"].append(ms)
+        pending = np.concatenate([pending, frames])
+        if len(pending) < frames_per_chunk:
+            raise RuntimeError(f"{len(pending)} frames from {len(piece)} "
+                               "samples: no whole chunk")
+        chunk, pending = (pending[:frames_per_chunk],
+                          pending[frames_per_chunk:])
+        scores, ms = timed(lambda: session.acoustic_fn(chunk))
+        parts["acoustic_forward"].append(ms)
+        timed_chunks.append(chunk)
+        _, ms = timed(lambda: session.decoder.advance_decoding(scores))
+        parts["viterbi_advance"].append(ms)
+        _, ms = timed(lambda: (
+            session.decoder.get_partial_path(),
+            session.decoder.trailing_silence_frames(session.sil_tids)))
+        parts["backtrace"].append(ms)
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    planned = lp.plan_for
+    lp.plan_for = lambda S, C_, P_, directions, device: \
+        sp.lstmp_infer_per_step(S, C_, P_, directions, "the yardstick")
+    try:
+        session.acoustic_fn(timed_chunks[0])
+        per_step = [timed(lambda: session.acoustic_fn(c))[1]
+                    for c in timed_chunks]
+    finally:
+        lp.plan_for = planned
+    log("chunk_split", frames=frames_per_chunk, chunks=chunks,
+        **{f"{k}_ms": v for k, v in med.items()},
+        chunk_ms=sum(med.values()),
+        acoustic_forward_on_per_step_kernels_ms=float(np.median(per_step)),
+        clock="CUDA events around a synchronised call, median")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -793,13 +1061,8 @@ def device_ms_by_kernel(fn, counts=None) -> dict:
 def ptxas_registers(log_text: str, kernel: str):
     """Registers ptxas gave the kernel whose mangled name holds
     ``kernel``, from an -Xptxas -v log."""
-    lines = log_text.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
-            for later in lines[i + 1:i + 4]:
-                if "Used" in later and "registers" in later:
-                    return int(later.split("Used")[1].split()[0])
-    return None
+    found = ptxas_registers_all(log_text, kernel)
+    return found[0] if found else None
 
 
 def x_fused_phase(dev, fwd_args, bwd_args):
@@ -1635,21 +1898,25 @@ def bptt_train_phase(model, feats, targets, workdir):
     LstmStreamsTrainer.evaluate = evaluate
     try:
         for w in wrappers.values():
-            w.launches = 0
+            w.launches = w.per_step = 0
         rc, printed = run_cli(["aslp-nnet-train-lstm-streams",
                                "--device=cuda", "--cross-validate=true",
                                *BPTT_ARGS, feats, targets, out])
         cv_launches = {n: w.launches for n, w in wrappers.items()}
+        cv_per_step = wrappers["lstmp_forward"].per_step
     finally:
         LstmStreamsTrainer.evaluate = inner_eval
     want = {"lstmp_train_fwd": 0, "lstmp_train_bwd": 0,
             "lstmp_forward": HYBRID_LAYERS * seen.get("chunks", -1)}
     log("bptt_cv", chunks=seen.get("chunks"), launches=cv_launches,
-        params_unchanged=seen.get("unchanged"))
+        per_step=cv_per_step, params_unchanged=seen.get("unchanged"))
     if rc != 0 or "FRAME_ACCURACY" not in printed or cv_launches != want \
-            or not seen.get("unchanged") or not seen["chunks"]:
-        raise RuntimeError(f"cross-validation: exit {rc}, {cv_launches}, "
-                           f"want {want}, {seen}")
+            or cv_per_step or not seen.get("unchanged") \
+            or not seen["chunks"]:
+        raise RuntimeError(f"cross-validation: exit {rc}, {cv_launches} "
+                           f"({cv_per_step} on the per-step kernels), want "
+                           f"{want}, {seen}")
+    launches["lstmp_forward_cv"] = cv_launches["lstmp_forward"]
     return launches
 
 
@@ -1888,8 +2155,10 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
     def launched(name):
         return {run: n[name] for run, n in runs.items() if n[name]}
 
-    served = next(r for r in kernel_results if (r["S"], r["T"]) == (1, 16)
-                  and r["D"] == 2 * P)
+    # the served chunk: a BLSTMP layer is one two-direction call; the
+    # one-direction call at the same shape beside it
+    served = {r["directions"]: r for r in kernel_results
+              if (r["S"], r["T"], r["D"]) == (1, 16, 2 * P)}
     S, T, D = TRAIN_SHAPES[-1]
     split = train_results["redesign"]["split"]
 
@@ -1907,9 +2176,17 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
                 "for the alpha and beta pair")
     records = [
         kernel_record("lstmp_forward", "lstmp_forward.cu",
-                      "lstm_pallas.py:43", {"serving": serving_launches},
-                      kernel_results, served,
-                      lstmp_forward_bound(1, 16, C, P)),
+                      "lstm_pallas.py:43",
+                      {"serving": serving_launches,
+                       "bptt_cv": bptt_launches["lstmp_forward_cv"]},
+                      kernel_results, served[2],
+                      (served[2]["bound_ms"], served[2]["bound_by"]),
+                      timed_at="S, T = 1, 16, both directions of a BLSTMP "
+                      "layer in one launch (the served chunk's call)",
+                      one_direction={k: served[1][k] for k in
+                                     ("ms", "plain_ms", "bound_ms",
+                                      "per_step_ms")},
+                      per_step_ms=served[2]["per_step_ms"]),
         kernel_record("bilstmp_train_fwd", "bilstmp_train.cu",
                       "lstm_pallas.py:1037", launched("bilstmp_train_fwd"),
                       train_results["fwd"], train_results["fwd"][-1],

@@ -1,8 +1,9 @@
 // What the persistent LSTMP sweeps share (bilstmp_train.cu, the x-fused
-// BLSTMP pair; lstmp_train.cu, the unidirectional pair): the cp.async PTX
-// they stage the step's state rows with, the limit of a block's dynamic
-// shared memory, and the cooperative launch that keeps every block of a
-// sweep resident.  Their launch plans are ops/sweep_plan.py.
+// BLSTMP pair; lstmp_train.cu, the unidirectional pair; lstmp_forward.cu,
+// the inference kernel): the cp.async PTX they stage the step's state rows
+// with, the limit of a block's dynamic shared memory, the cooperative
+// launch that keeps every block of a sweep resident, and a barrier over
+// some of a launch's blocks.  Their launch plans are ops/sweep_plan.py.
 
 #pragma once
 
@@ -65,20 +66,53 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     cp_async_wait<2>();
 }
 
+// A barrier over the blocks that share `counter` (in global memory, 0 at
+// launch, only ever added to): the block arrives, then waits until
+// `arrivals` blocks have, in all of the launch so far.  What the block's
+// threads wrote before it is visible after it to every block that passes,
+// to loads that read L2 (ld.global.cg, cp.async.cg).  Every block of the
+// group must be resident (a cooperative launch) and call it the same
+// number of times.  A wait of kBarrierPolls polls (many seconds, where a
+// step takes microseconds) can only be a fault in the launch: the kernel
+// traps, and the caller sees a launch failure instead of a hung card.
+constexpr unsigned kBarrierPolls = 1u << 26;
+
+__device__ __forceinline__ void counter_barrier(unsigned* counter,
+                                                unsigned arrivals) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const size_t at = __cvta_generic_to_global(counter);
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(at),
+                 "r"(1u)
+                 : "memory");
+    unsigned seen, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(at)
+                   : "memory");
+      if (++polls == kBarrierPolls) __trap();
+    } while (seen < arrivals);
+  }
+  __syncthreads();
+}
+
 // A cooperative launch of `blocks` blocks of `threads` threads, all
 // resident at once: the shared memory attribute set, co-residency
 // checked, the error returned if the launch is refused.  The attribute and
-// the occupancy query cost more host time than the launch, so each kernel
-// keeps the (device, shared memory) it last set them for and the blocks
-// an SM then holds, and repeats them only when that changes.
+// the occupancy query cost more host time than the launch, so each argument
+// type keeps the (kernel, device, shared memory) it last set them for and
+// the blocks an SM then holds, and repeats them only when that changes.
 template <typename Args>
 int launch_sweep(void (*kernel)(Args), Args args, int blocks, int threads,
                  size_t smem, cudaStream_t st) {
   static int set_dev = -1, set_threads = 0, per_sm = 0, sms = 0;
   static size_t set_smem = 0;
+  static void (*set_kernel)(Args) = nullptr;
   int dev, err;
   if ((err = (int)cudaGetDevice(&dev))) return err;
-  if (dev != set_dev || smem != set_smem || threads != set_threads) {
+  if (kernel != set_kernel || dev != set_dev || smem != set_smem ||
+      threads != set_threads) {
     int coop = 0;
     set_dev = -1;
     if ((err = (int)cudaDeviceGetAttribute(
@@ -95,6 +129,7 @@ int launch_sweep(void (*kernel)(Args), Args args, int blocks, int threads,
     if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &per_sm, kernel, threads, smem)))
       return err;
+    set_kernel = kernel;
     set_dev = dev;
     set_smem = smem;
     set_threads = threads;

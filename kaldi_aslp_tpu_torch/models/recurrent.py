@@ -18,9 +18,11 @@ the place of JAX's ``train=`` argument:
   - eval: the input projection ``x W_gifo_x^T + b`` is one float32
     matmul and the recurrence runs in ops/lstmp.py (the inference CUDA
     kernel on the card, its plain version on the CPU), as the TPU path
-    runs ``_lstmp_kernel``.  It runs under ``torch.no_grad()`` on every
-    device: the kernel has no backward, so an eval forward gives no
-    gradients anywhere rather than only on the CPU;
+    runs ``_lstmp_kernel``; a BLSTMP runs both directions in one call
+    (``blstmp_forward``: the backward direction walks the frames in
+    reverse inside the kernel, nothing is flipped).  It runs under
+    ``torch.no_grad()`` on every device: the kernel has no backward, so an
+    eval forward gives no gradients anywhere rather than only on the CPU;
   - training, bf16 BLSTMP: both directions in one core, routed as
     ``_Bidirectional._apply_fused`` routes them (recurrent.py:441-488):
     ops/bilstmp_train.py:BiLstmpTrainCore (the x-fused core) unless
@@ -51,7 +53,7 @@ from torch import nn
 from kaldi_aslp_tpu_torch.models.component import Component, register
 from kaldi_aslp_tpu_torch.ops.bilstmp_train import BiLstmpTrainCore
 from kaldi_aslp_tpu_torch.ops.bilstmp_xg_train import BiLstmpXgTrainCore
-from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
+from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
 from kaldi_aslp_tpu_torch.ops.lstmp_train import LstmpTrainCore
 from kaldi_aslp_tpu_torch.ops.switches import lstm_switches
 
@@ -131,17 +133,20 @@ class LstmProjectedStreams(Component):
         if self.training:
             return self._forward_train(x, state, mask)
         with torch.no_grad():
-            ys, c, r = lstmp_forward(*self._recurrence_args(x, state, mask),
-                                     cell_clip=self.cell_clip)
+            ys, c, r = lstmp_forward(
+                self._input_projection(x), mask.contiguous(),
+                *self._recurrent_weights(), state["c"].contiguous(),
+                state["r"].contiguous(), cell_clip=self.cell_clip)
         return ys, {"c": c, "r": r}
 
-    def _recurrence_args(self, x, state, mask):
-        xg = torch.matmul(x, self.w_gifo_x.t()) + self.bias
+    def _input_projection(self, x):
+        return (torch.matmul(x, self.w_gifo_x.t()) + self.bias).contiguous()
+
+    def _recurrent_weights(self):
+        """(w_gifo_r, w_r_m, peep [3, C]) as ops/lstmp.py takes them."""
         peep = torch.stack([self.peephole_i_c, self.peephole_f_c,
                             self.peephole_o_c])
-        return (xg.contiguous(), mask.contiguous(), self.w_gifo_r,
-                self.w_r_m, peep, state["c"].contiguous(),
-                state["r"].contiguous())
+        return self.w_gifo_r, self.w_r_m, peep
 
     def _forward_train(self, x, state, mask):
         """The Pallas training branch of recurrent.py:163-190: the bf16
@@ -167,7 +172,9 @@ class _Bidirectional(Component):
     (kaldi_aslp_tpu/models/recurrent.py:_Bidirectional).
 
     The backward pass flips x and the mask in time; the masked carry
-    makes the flipped-to-front padding a no-op."""
+    makes the flipped-to-front padding a no-op.  An LSTMP pair in eval mode
+    runs both directions in one ops/lstmp.py call, which walks the backward
+    direction's frames in reverse instead."""
 
     updatable = True
     recurrent = True
@@ -198,6 +205,16 @@ class _Bidirectional(Component):
         if (self.training and self.attrs.get("bf16", False)
                 and self.cell_cls is LstmProjectedStreams):
             return self._forward_fused(x, state, mask)
+        if not self.training and self.cell_cls is LstmProjectedStreams:
+            f, b = self.fwd, self.bwd
+            with torch.no_grad():
+                ys, c, r = blstmp_forward(
+                    f._input_projection(x), b._input_projection(x),
+                    mask.contiguous(), f._recurrent_weights(),
+                    b._recurrent_weights(),
+                    state["fwd"]["c"].contiguous(),
+                    state["fwd"]["r"].contiguous(), cell_clip=f.cell_clip)
+            return ys, {"fwd": {"c": c, "r": r}}
         y_f, s_f = self.fwd(x, state["fwd"], mask=mask)
         y_b, _ = self.bwd(torch.flip(x, (1,)), None,
                           mask=torch.flip(mask, (1,)))

@@ -101,6 +101,13 @@ def check_tensors(device: torch.device,
             raise ValueError(f"{name} must be contiguous")
 
 
+# the stream's handle without a torch.cuda.Stream object around it, which
+# costs a short kernel's launch to build; absent from some builds
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def current_stream(device: torch.device) -> int:
     """PyTorch's current CUDA stream on ``device``, for a C entry."""
+    if _RAW_STREAM is not None and device.index is not None:
+        return _RAW_STREAM(device.index)
     return torch.cuda.current_stream(device).cuda_stream

@@ -1,16 +1,19 @@
 """Launch plans of the persistent LSTMP sweeps, in Python so that the CPU
 tests can check them.
 
-Two kernels take these plans as arguments and check that each gives the
+Three kernels take these plans as arguments and check that each gives the
 byte count of the shared-memory layout they use:
 
   - the x-fused BLSTMP sweeps (csrc/bilstmp_train.cu, ``fwd_sweep_kernel``
     and ``bwd_sweep_kernel``): :func:`sweep_plan`;
   - the unidirectional LSTMP sweeps (csrc/lstmp_train.cu,
     ``lstmp_fwd_sweep_kernel`` and ``lstmp_bwd_sweep_kernel``):
-    :func:`lstmp_sweep_plan`.
+    :func:`lstmp_sweep_plan`;
+  - the LSTMP inference sweeps (csrc/lstmp_forward.cu,
+    ``lstmp_few_sweep_kernel`` and ``lstmp_infer_sweep_kernel``), one or
+    two directions a launch: :func:`lstmp_infer_plan`.
 
-Both share the limit of one block's dynamic shared memory and the
+All share the limit of one block's dynamic shared memory and the
 constants of csrc/sweep.cuh; the limits below are those files' constants
 (tests/test_torch_bilstmp_plan.py and tests/test_torch_lstmp_plan.py
 hold them equal)."""
@@ -289,3 +292,161 @@ def lstmp_sweep_plan(S: int, C: int, P: int, num_sms: int) -> LstmpSweepPlan:
     return per_step(
         f"(S, C, P) = {S, C, P} needs {max(fwd, bwd)} bytes of shared "
         f"memory a block, more than {SMEM_LIMIT}")
+
+
+# -- the LSTMP inference sweeps ------------------------------------------------
+#
+# One launch a call, one or two directions (a BLSTMP layer's) of
+# ``blocks_per_dir`` blocks each, 256 threads a block.  The limits are
+# csrc/lstmp_forward.cu's kFwdThreads, kFewMaxStreams, kFwdMaxCells and
+# kBarWords; FWD_MIN_CELLS is the plan's own choice: a block has 8 warps and
+# the few-stream sweep gives a cell to a warp, so fewer cells a block would
+# only add blocks to the barrier.
+
+FWD_THREADS = 256
+FEW_MAX_STREAMS = 16      # streams the few-stream sweep sums in one pass
+FEW_TAG_STREAMS = 4       # most streams handed off by tagged values
+FWD_MAX_CELLS = 16        # cells a block may own
+FWD_MIN_CELLS = 8         # cells a block owns at least (one a warp)
+BAR_WORDS = 64            # scratch words of the directions' barrier counters
+
+PER_STEP, FEW, MANY = "per_step", "few", "many"
+TAGS, BARRIER = "tags", "barrier"
+
+
+def _few_tile(S: int) -> int:
+    """Streams the few-stream sweep's register sums cover: the next power
+    of 2."""
+    return 1 << max(S - 1, 0).bit_length()
+
+
+def _few_smem(S: int, C: int, P: int, cpb: int, ppb: int) -> int:
+    """Bytes of a few-stream block's dynamic shared memory, all float32: the
+    staged state rows r_prev [ST][P] and m [ST][C], W_r's gate rows of the owned cells
+    [4 cpb][P], W_rm's rows of the owned columns [ppb][C], c of the owned
+    cells [ST][cpb], r of the owned columns [ST][ppb] and the owned cells'
+    peepholes [3][cpb] (ST = S rounded up to a power of 2); each region
+    rounded up to 16 bytes."""
+    st = _few_tile(S)
+    regions = [4 * st * P, 4 * st * C, 4 * 4 * cpb * P, 4 * ppb * C,
+               4 * st * cpb, 4 * st * ppb, 4 * 3 * cpb]
+    return sum(_round_up(r, 16) for r in regions)
+
+
+@dataclass(frozen=True)
+class LstmpInferPlan:
+    """How an inference call of ``directions`` directions runs.  ``regime``
+    FEW or MANY: one cooperative launch of directions * ``blocks_per_dir``
+    blocks, block b of a direction owning cells ``cells(b)`` (their four
+    gate rows of W_r) and, in the few-stream sweep, projection columns
+    ``cols(b)`` (their rows of W_rm; the many-stream sweep keeps the owned
+    cells' columns of W_rm and a ring of ``stages`` chunks instead), within
+    ``smem`` bytes of shared memory.  The few-stream sweep hands the step's
+    state rows from their owners to every block by ``exchange``: TAGS (up to
+    FEW_TAG_STREAMS streams: each value stored with the step's tag in one
+    8-byte word, polled by its readers, no barrier) or BARRIER (the
+    direction's counter barrier, then one cp.async group).  PER_STEP
+    (``reason`` says why): two launches a frame and direction."""
+    S: int
+    C: int
+    P: int
+    directions: int
+    regime: str
+    blocks_per_dir: int
+    cells_per_block: int
+    cols_per_block: int
+    stages: int
+    smem: int
+    reason: str = ""
+    exchange: str = ""
+
+    @property
+    def persistent(self) -> bool:
+        return self.regime != PER_STEP
+
+    def cells(self, b: int) -> range:
+        j0 = b * self.cells_per_block
+        return range(min(j0, self.C), min(j0 + self.cells_per_block, self.C))
+
+    def cols(self, b: int) -> range:
+        p0 = b * self.cols_per_block
+        return range(min(p0, self.P), min(p0 + self.cols_per_block, self.P))
+
+    def kernel_args(self):
+        """(regime, nbd, cpb, ppb, nstage, smem) as the C entry takes
+        them: regime 1 the few-stream sweep with the barrier exchange, 3
+        with the tag exchange, 2 the many-stream sweep, 0 (and zeros) the
+        per-step kernels."""
+        code = {PER_STEP: 0, FEW: 3 if self.exchange == TAGS else 1,
+                MANY: 2}[self.regime]
+        return (code, self.blocks_per_dir, self.cells_per_block,
+                self.cols_per_block, self.stages, self.smem)
+
+    def scratch_words(self) -> int:
+        """float32 words of the call's scratch.  Both sweeps: the barrier
+        counters; few streams: a direction's m row [S, C] and r row [S, P],
+        two words an element (a value and its tag); many streams: direction b's state, then a direction's state row
+        [S, pp] and partial slabs [blocks, S, pp].  The per-step kernels:
+        m [S, C] and direction b's state.  Rows rounded up to 4 words."""
+        sc, sp = _round_up(self.S * self.C, 4), _round_up(self.S * self.P, 4)
+        state_b = (self.directions - 1) * (sc + sp)
+        if self.regime == FEW:
+            return BAR_WORDS + self.directions * 2 * (sc + sp)
+        if self.regime == MANY:
+            rows = (self.blocks_per_dir + 1) * self.S * _round_up(self.P, 4)
+            return BAR_WORDS + state_b + self.directions * rows
+        return sc + state_b
+
+
+def lstmp_infer_per_step(S: int, C: int, P: int, directions: int,
+                         reason: str) -> LstmpInferPlan:
+    """The plan that takes the per-step kernels."""
+    return LstmpInferPlan(S, C, P, directions, PER_STEP, 0, 0, 0, 0, 0,
+                          reason)
+
+
+def lstmp_infer_plan(S: int, C: int, P: int, directions: int,
+                     num_sms: int) -> LstmpInferPlan:
+    """The inference call's plan on a card of ``num_sms`` SMs.  Every
+    direction's blocks are resident at once, one an SM: FWD_MIN_CELLS to
+    FWD_MAX_CELLS cells a block over at most floor(num_sms / directions)
+    blocks a direction (8 cells on 64 blocks at C = 512 for one direction
+    or two; 8 on 100 at C = 800 for one).  At S <= FEW_MAX_STREAMS the
+    few-stream sweep if its layout fits SMEM_LIMIT, else (and past 16
+    streams) the many-stream sweep with the deepest ring (UNI_MAX_STAGES
+    down to 2) that fits.
+
+    Capacity: C <= FWD_MAX_CELLS * floor(num_sms / directions) (2112 for
+    one direction on 132 SMs, 1056 for two) and the shared memory; at
+    P = 512 the many-stream sweep holds one direction of every C <= 2112 at
+    S <= 100 and of C <= 1848 at S = 128.  Past it the plan selects the
+    per-step kernels (``regime`` PER_STEP), from the shapes alone."""
+    if min(S, C, P) <= 0:
+        raise ValueError(f"S, C, P must be positive, got {S, C, P}")
+    if directions not in (1, 2):
+        raise ValueError(f"1 or 2 directions, got {directions}")
+    per_dir = num_sms // directions
+    cpb = min(max(FWD_MIN_CELLS, math.ceil(C / max(per_dir, 1))), C)
+    if per_dir < 1 or cpb > FWD_MAX_CELLS:
+        return lstmp_infer_per_step(
+            S, C, P, directions,
+            f"C={C} needs {cpb} cells a block on {per_dir} SMs a direction, "
+            f"more than {FWD_MAX_CELLS}")
+    blocks = math.ceil(C / cpb)
+    if S <= FEW_MAX_STREAMS:
+        ppb = math.ceil(P / blocks)
+        smem = _few_smem(S, C, P, cpb, ppb)
+        if smem <= SMEM_LIMIT:
+            return LstmpInferPlan(
+                S, C, P, directions, FEW, blocks, cpb, ppb, 0, smem,
+                exchange=TAGS if S <= FEW_TAG_STREAMS else BARRIER)
+    chunks = math.ceil(_round_up(P, 4) / UNI_K_CHUNK)
+    for stages in range(min(UNI_MAX_STAGES, max(2, chunks)), 1, -1):
+        smem = _uni_smem(S, C, P, cpb, stages, False)
+        if smem <= SMEM_LIMIT:
+            return LstmpInferPlan(S, C, P, directions, MANY, blocks, cpb, 0,
+                                  stages, smem)
+    return lstmp_infer_per_step(
+        S, C, P, directions,
+        f"(S, C, P) = {S, C, P} needs {smem} bytes of shared memory a "
+        f"block, more than {SMEM_LIMIT}")

@@ -1,5 +1,6 @@
-"""The launch plan of the unidirectional LSTMP training sweeps
-(kaldi_aslp_tpu_torch/ops/sweep_plan.py:lstmp_sweep_plan), on the CPU.
+"""The launch plans of the unidirectional LSTMP training sweeps
+(kaldi_aslp_tpu_torch/ops/sweep_plan.py:lstmp_sweep_plan) and of the LSTMP
+inference sweeps (lstmp_infer_plan, at the end), on the CPU.
 
 The persistent sweep kernels (csrc/lstmp_train.cu) take their plan as
 arguments and check that it gives the byte count of the shared-memory
@@ -67,8 +68,8 @@ def test_shared_memory_fits_a_block(S, C, P):
 
 def test_plan_limits_match_the_kernel_source():
     """The sweep kernels' own limits are the plan's."""
-    source = (build.CSRC_DIR / lt.SOURCE).read_text() + \
-        (build.CSRC_DIR / "sweep.cuh").read_text()
+    source = "".join((build.CSRC_DIR / name).read_text() for name in
+                     (lt.SOURCE, "lstmp_sweep.cuh", "sweep.cuh"))
 
     def constant(name):
         found = re.search(rf"constexpr (?:int|size_t) {name} = (\d+);",
@@ -116,3 +117,148 @@ def test_the_plan_depends_on_the_shapes_alone():
         115, 7, "persistent")
     with pytest.raises(ValueError, match="positive"):
         sp.lstmp_sweep_plan(0, 800, 512, H100_SMS)
+
+
+# -- the inference sweeps -----------------------------------------------------
+#
+# csrc/lstmp_forward.cu takes lstmp_infer_plan's plan as arguments and
+# checks it against its own layouts; what the plan promises is tested here.
+
+# (S, C, P): the flagship's served chunk, a small batch and a training-size
+# batch; the LSTM hybrid's cross-validation chunk
+INFER_SHAPES = [(1, 512, 320), (8, 512, 320), (128, 512, 320),
+                (100, 800, 512)]
+
+
+def _check_infer_plan(plan, S, C, P, directions, sms):
+    """What every persistent inference plan promises."""
+    assert plan.persistent and plan.regime in (sp.FEW, sp.MANY)
+    nbd, cpb = plan.blocks_per_dir, plan.cells_per_block
+    # all directions' blocks resident at once, one an SM
+    assert 0 < directions * nbd <= sms
+    assert [j for b in range(nbd) for j in plan.cells(b)] == list(range(C))
+    assert all(len(plan.cells(b)) > 0 for b in range(nbd))
+    assert cpb <= sp.FWD_MAX_CELLS
+    assert 0 < plan.smem <= sp.SMEM_LIMIT and plan.smem % 16 == 0
+    if plan.regime == sp.FEW:
+        assert S <= sp.FEW_MAX_STREAMS
+        assert plan.exchange == (sp.TAGS if S <= sp.FEW_TAG_STREAMS
+                                 else sp.BARRIER)
+        assert [p for b in range(nbd) for p in plan.cols(b)] == list(range(P))
+        assert plan.smem == sp._few_smem(S, C, P, cpb, plan.cols_per_block)
+        assert plan.kernel_args() == (
+            3 if plan.exchange == sp.TAGS else 1, nbd, cpb,
+            plan.cols_per_block, 0, plan.smem)
+    else:
+        assert plan.exchange == "" and 2 <= plan.stages <= sp.UNI_MAX_STAGES
+        assert plan.smem == sp._uni_smem(S, C, P, cpb, plan.stages, False)
+        assert plan.kernel_args() == (2, nbd, cpb, 0, plan.stages, plan.smem)
+    assert plan.scratch_words() > sp.BAR_WORDS
+
+
+@pytest.mark.parametrize("S,C,P", INFER_SHAPES)
+@pytest.mark.parametrize("directions", [1, 2])
+def test_infer_plan_at_the_models_shapes(S, C, P, directions):
+    plan = sp.lstmp_infer_plan(S, C, P, directions, H100_SMS)
+    _check_infer_plan(plan, S, C, P, directions, H100_SMS)
+    assert plan.regime == (sp.FEW if S <= 16 else sp.MANY)
+    if C == 512:
+        # the flagship: 8 cells on 64 blocks a direction, one direction or
+        # two, so a BLSTMP call sums as two LSTMP calls do
+        assert (plan.blocks_per_dir, plan.cells_per_block) == (64, 8)
+        if plan.regime == sp.FEW:
+            assert plan.cols_per_block == 5
+            # the resident weights: 8 cells' gate rows and 5 columns' rows
+            assert 4 * (4 * 8 * 320 + 5 * 512) == 51200 < plan.smem
+    elif directions == 1:
+        assert (plan.blocks_per_dir, plan.cells_per_block) == (100, 8)
+    else:
+        assert (plan.blocks_per_dir, plan.cells_per_block) == (62, 13)
+
+
+@pytest.mark.parametrize("S", [1, 16, 100, 128])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_infer_plan_over_the_grid(S, directions):
+    """C = 64 .. 2112, P = 64 .. 512 by 16 on 132 SMs: every persistent plan
+    keeps its promises, and past the capacity the plan says why."""
+    per_dir = H100_SMS // directions
+    seen = set()
+    for C in range(64, 2113, 16):
+        for P in range(64, 513, 16):
+            plan = sp.lstmp_infer_plan(S, C, P, directions, H100_SMS)
+            seen.add(plan.regime)
+            if plan.persistent:
+                _check_infer_plan(plan, S, C, P, directions, H100_SMS)
+                continue
+            assert plan.kernel_args() == (0, 0, 0, 0, 0, 0)
+            if C > sp.FWD_MAX_CELLS * per_dir:
+                assert "cells a block" in plan.reason
+            else:
+                assert "shared memory" in plan.reason
+                cpb = max(sp.FWD_MIN_CELLS, -(-C // per_dir))
+                assert sp._uni_smem(S, C, P, cpb, 2, False) > sp.SMEM_LIMIT
+    assert sp.PER_STEP in seen or (directions == 1 and S <= 100)
+    assert (sp.FEW in seen) == (S <= 16)
+
+
+@pytest.mark.parametrize("S,C,P,directions,why", [
+    (128, 2048, 512, 1, "shared memory"),
+    (100, 2048, 512, 2, "cells a block"),
+    (4, 2113, 16, 1, "cells a block"),
+])
+def test_past_the_capacity_the_infer_plan_selects_the_per_step_kernels(
+        S, C, P, directions, why):
+    plan = sp.lstmp_infer_plan(S, C, P, directions, H100_SMS)
+    assert not plan.persistent and plan.regime == sp.PER_STEP
+    assert why in plan.reason
+    assert plan == sp.lstmp_infer_per_step(S, C, P, directions, plan.reason)
+    # m [S, C], and direction b's state
+    sc, spp = sp._round_up(S * C, 4), sp._round_up(S * P, 4)
+    assert plan.scratch_words() == sc + (directions - 1) * (sc + spp)
+
+
+def test_the_stated_inference_capacity_at_p512():
+    """What the kernel note, README and SKILL.md state: at P = 512 one
+    direction of every C <= 2112 runs persistently at S <= 100 (C = 2048
+    at S = 100 on a ring of 2 chunks), at S = 128 every C <= 1848."""
+    for S in (1, 16, 64, 100):
+        assert all(sp.lstmp_infer_plan(S, C, 512, 1, H100_SMS).persistent
+                   for C in range(8, 2113, 8))
+    assert sp.lstmp_infer_plan(100, 2048, 512, 1, H100_SMS).stages == 2
+    assert all(sp.lstmp_infer_plan(128, C, 512, 1, H100_SMS).persistent
+               for C in range(8, 1849, 8))
+    assert not sp.lstmp_infer_plan(128, 1856, 512, 1, H100_SMS).persistent
+    # two directions: 16 cells on 66 blocks each
+    assert sp.lstmp_infer_plan(1, 1056, 512, 2, H100_SMS).persistent
+    assert not sp.lstmp_infer_plan(1, 1057, 512, 2, H100_SMS).persistent
+
+
+def test_infer_plan_limits_match_the_kernel_source():
+    source = "".join((build.CSRC_DIR / name).read_text() for name in
+                     ("lstmp_forward.cu", "lstmp_sweep.cuh", "sweep.cuh"))
+
+    def constant(name):
+        found = re.search(rf"constexpr (?:int|size_t) {name} = (\d+);",
+                          source)
+        assert found, name
+        return int(found.group(1))
+    assert constant("kSmemLimit") == sp.SMEM_LIMIT
+    assert constant("kFwdThreads") == sp.FWD_THREADS
+    assert constant("kFewMaxStreams") == sp.FEW_MAX_STREAMS
+    assert constant("kFewTagStreams") == sp.FEW_TAG_STREAMS
+    assert constant("kFwdMaxCells") == sp.FWD_MAX_CELLS == sp.UNI_MAX_CELLS
+    assert constant("kBarWords") == sp.BAR_WORDS
+    assert constant("kUniMaxStages") == sp.UNI_MAX_STAGES
+    # a warp a cell: the plan's least cells a block is the block's warps
+    assert sp.FWD_MIN_CELLS == sp.FWD_THREADS // 32
+
+
+def test_the_infer_plan_depends_on_the_shapes_alone():
+    first = sp.lstmp_infer_plan(1, 512, 320, 2, H100_SMS)
+    assert first == sp.lstmp_infer_plan(1, 512, 320, 2, H100_SMS)
+    with pytest.raises(ValueError, match="positive"):
+        sp.lstmp_infer_plan(0, 512, 320, 1, H100_SMS)
+    with pytest.raises(ValueError, match="directions"):
+        sp.lstmp_infer_plan(1, 512, 320, 3, H100_SMS)
+    # a card too small for two directions' blocks takes the per-step kernels
+    assert not sp.lstmp_infer_plan(1, 512, 320, 2, 1).persistent
