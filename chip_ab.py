@@ -8,7 +8,11 @@ Each tree is a directory holding ``chip_smoke.py`` and the port's package
 4) and each tree in turn, a fresh process in that tree builds the
 unidirectional LSTMP training kernels, times them at the LSTM hybrid's
 BPTT chunk (S=100, T=20, C=800, P=512, float32; CUDA events, median of
-20) and splits three BPTT steps by phase (``chip_smoke.bptt_step_split``).
+20) and splits three BPTT steps by phase (``chip_smoke.bptt_step_split``);
+then builds the x-fused BLSTMP training kernels and times them at the CTC
+bench's shape (S=128, T=400, D=640, C=512, P=320, ragged mask; CUDA
+events, median of 10), with their outputs' SHA-256 digests, which must
+agree between two trees whose kernels give the same bits.
 One JSON line a reading.  The step is partly host-bound and a shared
 host drifts, so two versions compare only like this: on one card, in one
 process tree, alternating.
@@ -40,6 +44,41 @@ with tempfile.TemporaryDirectory() as workdir:
     model, _, _ = cs.write_bptt_files(workdir)
     for _ in range(3):
         cs.bptt_step_split(model, dev)
+
+import hashlib
+import numpy as np
+from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
+
+S, T, D = cs.TRAIN_SHAPES[-1]
+C, P, G, bf16 = cs.C, cs.P, 4 * cs.C, torch.bfloat16
+rs = np.random.RandomState(S * 1000 + T + D)
+def t(a):
+    return torch.from_numpy(a).to(dev)
+lens = rs.randint(T // 4, T + 1, size=S)
+lens[0] = T
+mask = t((np.arange(T)[None, :] < lens[:, None]).astype(np.float32))
+fwd_args = (t(rs.randn(S, T, D).astype(np.float32)).to(bf16), mask,
+            t(cs.uniform(rs, 2, G, D)).to(bf16),
+            t(cs.uniform(rs, 2, G, P)).to(bf16),
+            t(cs.uniform(rs, 2, P, C)).to(bf16), t(cs.uniform(rs, 2, 3, C)),
+            t(cs.uniform(rs, 2, G)), t(cs.uniform(rs, S, C, scale=0.5)),
+            t(cs.uniform(rs, S, P, scale=0.5)))
+x, _, wx, wr, wrm, peep, _, init_c, _ = fwd_args
+fwd = bt.bilstmp_train_fwd(*fwd_args)
+_, gates, cs_, rprev, _, _ = fwd
+bwd_args = (t(rs.randn(S, T, 2 * P).astype(np.float32)).to(bf16), mask, x,
+            gates, cs_, rprev, wx, wr, wrm, peep, init_c,
+            t(rs.randn(S, C).astype(np.float32)),
+            t(rs.randn(S, P).astype(np.float32)))
+bwd = bt.bilstmp_train_bwd(*bwd_args)
+digest = hashlib.sha256()
+for out in (*fwd, *bwd):
+    digest.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+cs.log("ab_x_fused", S=S, T=T, D=D, outputs_sha256=digest.hexdigest(),
+       bilstmp_train_fwd_ms=cs.cuda_ms(
+           lambda: bt.bilstmp_train_fwd(*fwd_args), 10, 2),
+       bilstmp_train_bwd_ms=cs.cuda_ms(
+           lambda: bt.bilstmp_train_bwd(*bwd_args), 10, 2))
 '''
 
 

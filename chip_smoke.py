@@ -61,7 +61,13 @@ exits nonzero:
                 and backward) against their plain versions at C=512,
                 P=320, (S, T) = (16, 200) and (128, 400), ragged masks, a
                 nonzero initial state and final-state cotangents, with
-                bf16 and with float32 products; then the per-direction
+                bf16 and with float32 products; at (128, 400) in both
+                modes also: the forward and backward run twice must give
+                the same bits, the per-step kernels timed beside the
+                sweeps, each kernel's time split by torch.profiler into
+                its persistent sweep (one launch a call), GEMMs (the
+                backward's two, on the TMA kernel) and the rest, and the
+                sweeps' plan and registers; then the per-direction
                 x-fused backward for d = 0 and 1 at the shapes of phase 6,
                 and the two halves against the fused backward on the same
                 inputs (largest difference 0); time each beside its plain
@@ -84,7 +90,9 @@ exits nonzero:
                 (KALDI_ASLP_LSTM_NO_XFUSE, _MXU_FP32, _SPLIT_BWD, set in
                 os.environ around the run): each CLI step must launch the
                 kernels of that switch's path (TRAIN_RUNS) and no other
-                training kernel;
+                training kernel, on the persistent sweeps (no per-step
+                kernel); a step_split_paths line puts the four paths'
+                steps side by side;
  10. lstm-train-kernels - hold the unidirectional LSTMP training kernels
                 (forward and backward) against their plain versions at the
                 LSTM hybrid's widths (C=800, P=512) with ragged masks, a
@@ -229,6 +237,12 @@ TRAIN_RUNS = {
                   "bilstmp_train_bwd_dir": 2 * LAYERS}}
 # the xg-fed kernels at TRAIN_SHAPES without D (they never see x)
 XG_SHAPES = sorted({(S, T) for S, T, _ in TRAIN_SHAPES})
+# the bench's shape, where the xg-fed sweeps are profiled, run twice for
+# the same bits and timed beside the per-step kernels
+XG_SWEEP_SHAPE = XG_SHAPES[-1]
+# the per-step kernels of the xg-fed and unidirectional training pairs
+PER_STEP_KERNELS = ("fwd_cell_kernel", "fwd_proj_kernel", "bwd_cell_kernel",
+                    "bwd_dr_kernel")
 # With float32 products only the storage rounds to bf16 and no rounded
 # value feeds the recurrence, so a stored value differs only where the
 # float32 sums (summed in another order) put it on a rounding boundary:
@@ -1033,28 +1047,42 @@ def train_kernel_phase(dev):
     return results
 
 
-def device_ms_by_kernel(fn, counts=None) -> dict:
+# cycles of the spin that device_ms_by_kernel queues a profiled call
+# behind (about 10 ms on an H100)
+PROFILE_SPIN_CYCLES = 20_000_000
+
+
+def device_ms_by_kernel(fn, counts=None, tries: int = 3) -> dict:
     """Device milliseconds of one call of ``fn`` by kernel name, from
-    torch.profiler (empty if the profiler saw no device time); with a dict
-    ``counts``, each kernel's number of launches goes into it."""
+    torch.profiler (empty if the profiler saw no device time in ``tries``
+    profiles); with a dict ``counts``, each kernel's number of launches
+    goes into it.  Inside the profiled window the call queues behind a
+    spin kernel (dropped from the result): late in a long process the
+    profiler dropped the first kernels of a short call, or all of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        # kernels only: an operator's device time is its kernels'
-        if us and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3
-            if counts is not None:
-                counts[e.key] = counts.get(e.key, 0) + e.count
+    out, seen = {}, {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            # kernels only: an operator's device time is its kernels'
+            if (us and str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and "spin_kernel" not in e.key):
+                out[e.key] = out.get(e.key, 0.0) + us / 1e3
+                seen[e.key] = seen.get(e.key, 0) + e.count
+        if out:
+            break
+    if counts is not None:
+        counts.update(seen)
     return out
 
 
@@ -1206,6 +1234,45 @@ def hold_xg(name, got, want, names, mxu_bf16):
 
 # -- phase 6b ----------------------------------------------------------------
 
+def ragged_mask(rs, S, T, dev):
+    lens = rs.randint(T // 4, T + 1, size=S)
+    lens[0] = T
+    return torch.from_numpy(
+        (np.arange(T)[None, :] < lens[:, None]).astype(np.float32)).to(dev)
+
+
+def xg_case(dev, S, T, mxu):
+    """The xg-fed pair's inputs at (S, T) and the flagship's widths, from
+    a numpy seed: the forward's arguments, and the backward's dy and
+    final-state cotangents."""
+    rs = np.random.RandomState(S * 1000 + T + 2 + mxu)
+    G = 4 * C
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    mask = ragged_mask(rs, S, T, dev)
+    fwd_args = (t(rs.randn(S, T, G).astype(np.float32)).to(torch.bfloat16),
+                t(rs.randn(S, T, G).astype(np.float32)).to(torch.bfloat16),
+                mask, t(uniform(rs, 2, G, P)), t(uniform(rs, 2, P, C)),
+                t(uniform(rs, 2, 3, C)), t(uniform(rs, 2, G)),
+                t(uniform(rs, S, C, scale=0.5)),
+                t(uniform(rs, S, P, scale=0.5)), 50.0, mxu)
+    cots = (t(rs.randn(S, T, 2 * P).astype(np.float32)).to(torch.bfloat16),
+            t(rs.randn(S, C).astype(np.float32)),
+            t(rs.randn(S, P).astype(np.float32)))
+    return fwd_args, cots
+
+
+def xg_bwd_args(fwd_args, streams, cots):
+    """The backward's arguments, fed the forward's stored ``streams``
+    (ys, gates, cs, rprev, ...)."""
+    _, _, mask, wr, wrm, peep, _, init_c, _, clip, mxu = fwd_args
+    _, gates, cs, rprev, *_ = streams
+    dy, dc, dr = cots
+    return (dy, mask, gates, cs, rprev, wr, wrm, peep, init_c, dc, dr, clip,
+            mxu)
+
+
 def xg_train_kernel_phase(dev):
     from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
     from kaldi_aslp_tpu_torch.ops import bilstmp_xg_train as xt
@@ -1216,33 +1283,17 @@ def xg_train_kernel_phase(dev):
     def t(a):
         return torch.from_numpy(a).to(dev)
 
-    def ragged_mask(rs, S, T):
-        lens = rs.randint(T // 4, T + 1, size=S)
-        lens[0] = T
-        return t((np.arange(T)[None, :] < lens[:, None]).astype(np.float32))
-
     for S, T in XG_SHAPES:
+        cases = {}
         for mxu in (True, False):
-            rs = np.random.RandomState(S * 1000 + T + 2 + mxu)
-            mask = ragged_mask(rs, S, T)
-            fwd_args = (t(rs.randn(S, T, G).astype(np.float32)).to(bf16),
-                        t(rs.randn(S, T, G).astype(np.float32)).to(bf16),
-                        mask, t(uniform(rs, 2, G, P)), t(uniform(rs, 2, P, C)),
-                        t(uniform(rs, 2, 3, C)), t(uniform(rs, 2, G)),
-                        t(uniform(rs, S, C, scale=0.5)),
-                        t(uniform(rs, S, P, scale=0.5)), 50.0, mxu)
-            _, _, _, wr, wrm, peep, _, init_c, *_ = fwd_args
+            fwd_args, cots = xg_case(dev, S, T, mxu)
             got = xt.bilstmp_xg_train_fwd(*fwd_args)
             want = xt.bilstmp_xg_train_fwd_reference(*fwd_args)
             torch.cuda.synchronize()
             err_f, rel_f = hold_xg("bilstmp_xg_train_fwd", got, want,
                                    ("ys", "gates", "cs", "rprev", "c_T",
                                     "r_T"), mxu)
-            _, gates, cs, rprev, _, _ = want
-            bwd_args = (t(rs.randn(S, T, 2 * P).astype(np.float32)).to(bf16),
-                        mask, gates, cs, rprev, wr, wrm, peep, init_c,
-                        t(rs.randn(S, C).astype(np.float32)),
-                        t(rs.randn(S, P).astype(np.float32)), 50.0, mxu)
+            bwd_args = xg_bwd_args(fwd_args, want, cots)
             got = xt.bilstmp_xg_train_bwd(*bwd_args)
             want = xt.bilstmp_xg_train_bwd_reference(*bwd_args)
             torch.cuda.synchronize()
@@ -1250,6 +1301,7 @@ def xg_train_kernel_phase(dev):
                                    ("dxg", "d_init_c", "d_init_r", "dwr",
                                     "dwrm", "dbias", "dpeep"), mxu)
             del got, want
+            cases[mxu] = (fwd_args, bwd_args)
             reps = 3 if S * T > 10000 else 5
             times = {
                 "fwd": (cuda_ms(lambda: xt.bilstmp_xg_train_fwd(*fwd_args),
@@ -1260,22 +1312,26 @@ def xg_train_kernel_phase(dev):
                                 reps, 1),
                         cuda_ms(lambda: xt.bilstmp_xg_train_bwd_reference(
                             *bwd_args), 2, 1))}
+            plan = xt.plan_for(S, C, P, mxu, dev)
             for kind, err, rel in (("fwd", err_f, rel_f),
                                    ("bwd", err_b, rel_b)):
                 ms, plain_ms = times[kind]
                 results[kind].append({"S": S, "T": T, "mxu_bf16": mxu,
                                       "max_abs_err": err, "ms": ms,
-                                      "plain_ms": plain_ms})
+                                      "plain_ms": plain_ms,
+                                      "path": plan.path})
                 log("xg_train_kernel", name=f"bilstmp_xg_train_{kind}", S=S,
-                    T=T, C=C, P=P, mxu_bf16=mxu, rel_err=rel,
+                    T=T, C=C, P=P, mxu_bf16=mxu, path=plan.path, rel_err=rel,
                     rtol=TRAIN_KERNEL_RTOL if mxu else XG_F32_RTOL, ms=ms,
                     plain_ms=plain_ms)
+        if (S, T) == XG_SWEEP_SHAPE:
+            results["redesign"] = xg_sweep_phase(dev, cases)
 
     names = ("dx", "d_init_c", "d_init_r", "dwx", "dwr", "dwrm", "dbias",
              "dpeep")
     for S, T, D in TRAIN_SHAPES:
         rs = np.random.RandomState(S * 1000 + T + D + 3)
-        mask = ragged_mask(rs, S, T)
+        mask = ragged_mask(rs, S, T, dev)
         fwd_args = (t(rs.randn(S, T, D).astype(np.float32)).to(bf16), mask,
                     t(uniform(rs, 2, G, D)).to(bf16),
                     t(uniform(rs, 2, G, P)).to(bf16),
@@ -1324,6 +1380,137 @@ def xg_train_kernel_phase(dev):
             raise RuntimeError(f"the split backward's halves differ from the "
                                f"fused backward by {vs_fused} at {S, T, D}")
     return results
+
+
+def xg_sweep_phase(dev, cases):
+    """At the bench's shape, for each product mode ({mxu_bf16: (fwd_args,
+    bwd_args)}): two runs must give the same bits; the per-step kernels
+    timed beside the sweeps; each wrapper's time split by torch.profiler
+    into its persistent sweep (one launch a call, no per-step kernel),
+    GEMMs (the backward's dW_r and dW_rm, in gemm_tma_kernel) and the
+    rest; the sweeps' plan and registers."""
+    from kaldi_aslp_tpu_torch.ops import bilstmp_xg_train as xt
+    from kaldi_aslp_tpu_torch.ops import build
+
+    S, T = XG_SWEEP_SHAPE
+    fns = {}
+    for mxu, (fwd_args, bwd_args) in cases.items():
+        runs = []
+        for _ in range(2):
+            runs.append((*xt.bilstmp_xg_train_fwd(*fwd_args),
+                         *xt.bilstmp_xg_train_bwd(*bwd_args)))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log("xg_determinism", S=S, T=T, C=C, P=P, mxu_bf16=mxu,
+            outputs=len(runs[0]), identical=same)
+        if not same:
+            raise RuntimeError(f"two runs of the xg-fed kernels differ "
+                               f"(mxu_bf16={mxu})")
+        del runs
+        fns[mxu] = {
+            kind: (lambda f=fn, a=args: f(*a),
+                   lambda f=fn, a=args: on_xg_per_step(lambda: f(*a)))
+            for kind, fn, args in (("fwd", xt.bilstmp_xg_train_fwd, fwd_args),
+                                   ("bwd", xt.bilstmp_xg_train_bwd, bwd_args))}
+
+    # the profiles in a process of their own, as lstm_sweep_phase's
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.xg_profile_child()"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode != 0:
+        raise RuntimeError(f"profile process failed: {child.stderr[-2000:]}")
+    profiles = json.loads(child.stdout.strip().splitlines()[-1])
+    split = {}
+    for mxu in cases:
+        for kind in ("fwd", "bwd"):
+            name = f"bilstmp_xg_train_{kind}"
+            by_kernel, counts, per_step = profiles[f"{kind}-{int(mxu)}"]
+            parts = {"sweep": [], "gemm": [], "other": []}
+            for key in by_kernel:
+                parts["sweep" if "sweep_kernel" in key else
+                      "gemm" if "gemm_" in key or "splitk_reduce" in key
+                      else "other"].append(key)
+            sweeps = sum(counts[k] for k in parts["sweep"])
+            stepped = [k for k in by_kernel
+                       if any(n in k for n in PER_STEP_KERNELS)]
+            gemm_ok = kind == "fwd" or (
+                sum(counts[k] for k in parts["gemm"] if "gemm_tma" in k) == 2
+                and not any("gemm_bf16_kernel" in k for k in by_kernel))
+            if sweeps != 1 or stepped or per_step or not gemm_ok:
+                raise RuntimeError(
+                    f"{name} (mxu_bf16={mxu}): not one persistent sweep "
+                    f"(and in the backward two TMA GEMMs) a call: {counts}, "
+                    f"per_step {per_step}")
+            sweep_fn, per_step_fn = fns[mxu][kind]
+            split[kind, mxu] = {
+                "ms": cuda_ms(sweep_fn, 3, 1),
+                "per_step_ms": cuda_ms(per_step_fn, 1, 1),
+                "source": "torch.profiler", "sweep_launches": sweeps,
+                **{f"{k}_ms": sum(by_kernel[n] for n in v)
+                   for k, v in parts.items()},
+                "by_kernel": by_kernel}
+            log("time_split", name=name, S=S, T=T, C=C, P=P, mxu_bf16=mxu,
+                **split[kind, mxu])
+
+    # the sweeps' plans and what ptxas gave them
+    log_text = build.library_path(xt.SOURCE).with_suffix(".log").read_text()
+    for mxu in cases:
+        plan = xt.plan_for(S, C, P, mxu, dev)
+        if not plan.persistent:
+            raise RuntimeError(f"the bench's shape took the per-step "
+                               f"kernels: {plan.reason}")
+        for kind, backward in (("fwd", False), ("bwd", True)):
+            # the tensor-core sweeps by their mangled names' length prefix
+            kernel = (f"16{kind}_sweep_kernel" if mxu else
+                      f"xg_fma_{kind}_sweep_kernel")
+            nbd, cpb, ppb, stages, smem = plan.kernel_args(backward)
+            log("sweep_plan", kernel=kernel[2:] if mxu else kernel, mxu_bf16=mxu, S=S,
+                C=C, P=P, path=plan.path, blocks=2 * nbd, threads=256,
+                cells_per_block=cpb, cols_per_block=ppb, ring_stages=stages,
+                smem_bytes=smem, registers=ptxas_registers(log_text, kernel))
+    return split
+
+
+def on_xg_per_step(fn):
+    """fn() with the xg-fed wrappers planned onto their per-step kernels,
+    as chunk_split puts lstmp_forward's per-step plan in place."""
+    from kaldi_aslp_tpu_torch.ops import bilstmp_xg_train as xt
+    from kaldi_aslp_tpu_torch.ops import sweep_plan as sp
+
+    planned = xt.plan_for
+    xt.plan_for = lambda S, C_, P_, mxu_bf16, device: \
+        sp.bilstmp_xg_per_step(S, C_, P_, mxu_bf16, "the yardstick")
+    try:
+        return fn()
+    finally:
+        xt.plan_for = planned
+
+
+def xg_profile_child():
+    """In a fresh process: the xg-fed kernels' device time by kernel name,
+    launch counts and per-step calls at XG_SWEEP_SHAPE in both product
+    modes, printed as one JSON line {"kind-mode": [ms by kernel, launches
+    by kernel, per_step]}."""
+    from kaldi_aslp_tpu_torch.ops import bilstmp_xg_train as xt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {}
+    for mxu in (True, False):
+        fwd_args, cots = xg_case(dev, *XG_SWEEP_SHAPE, mxu)
+        bwd_args = xg_bwd_args(fwd_args, xt.bilstmp_xg_train_fwd(*fwd_args),
+                               cots)
+        for kind, fn in (
+                ("fwd", lambda: xt.bilstmp_xg_train_fwd(*fwd_args)),
+                ("bwd", lambda: xt.bilstmp_xg_train_bwd(*bwd_args))):
+            wrapper = getattr(xt, f"bilstmp_xg_train_{kind}")
+            counts, before = {}, wrapper.per_step
+            by_kernel = device_ms_by_kernel(fn, counts)
+            out[f"{kind}-{int(mxu)}"] = [by_kernel, counts,
+                                         wrapper.per_step - before]
+    print(json.dumps(out), flush=True)
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -1417,10 +1604,15 @@ def train_phase(model, feats, labels, workdir, switch=None):
         with switch_env(switch):
             for w in (*wrappers.values(), lstmp_forward):
                 w.launches = 0
+                if hasattr(w, "per_step"):
+                    w.per_step = 0
             rc = cli_main(["aslp-nnet-train-ctc-streams", "--device=cuda",
                            "--momentum=0.9", f"--num-streams={TRAIN_STREAMS}",
                            feats, labels, model, out])
             launches = {n: w.launches for n, w in wrappers.items()}
+            # the persistent sweeps, never the per-step kernels
+            per_step = {n: w.per_step for n, w in wrappers.items()
+                        if hasattr(w, "per_step")}
     finally:
         CtcTrainer.step = inner
     for i, st in enumerate(steps):
@@ -1432,6 +1624,8 @@ def train_phase(model, feats, labels, workdir, switch=None):
             raise RuntimeError(f"step launched {st['launches']} on "
                                f"{st['streams']} streams, want "
                                f"{per_step_want} on {TRAIN_STREAMS}")
+    if any(per_step.values()):
+        raise RuntimeError(f"training took the per-step kernels: {per_step}")
     losses = [st["loss"] for st in steps]
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not fall: {losses}")
@@ -1448,7 +1642,8 @@ def train_phase(model, feats, labels, workdir, switch=None):
     if moved == 0.0:
         raise RuntimeError("the written model equals the initial one")
     log("train", switch=switch, steps=len(steps), losses=losses,
-        launches=launches, max_param_change=moved)
+        launches=launches, per_step_kernel_calls=per_step,
+        max_param_change=moved)
     return launches
 
 
@@ -1541,12 +1736,13 @@ def _step_split(model, dev, switch):
         splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
     med = np.median(np.asarray(splits), axis=0)
     step_ms = float(med.sum())
-    log("step_split", switch=switch, S=S, T=T, U=U,
-        forward_ms=float(med[0]),
-        loss_ms=float(med[1]), backward_ms=float(med[2]),
-        update_ms=float(med[3]), step_ms=step_ms,
-        audio_s_per_s=S * T * 0.01 / (step_ms / 1e3),
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    reading = {"forward_ms": float(med[0]), "loss_ms": float(med[1]),
+               "backward_ms": float(med[2]), "update_ms": float(med[3]),
+               "step_ms": step_ms,
+               "audio_s_per_s": S * T * 0.01 / (step_ms / 1e3),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("step_split", switch=switch, S=S, T=T, U=U, **reading)
+    return reading
 
 
 # -- phase 10 ----------------------------------------------------------------
@@ -1635,10 +1831,7 @@ def lstm_sweep_phase(dev, fwd_args, bwd_args):
         by_kernel, counts = profiles[kind]
         sweep = [k for k in by_kernel if "sweep_kernel" in k]
         per_step = [k for k in by_kernel
-                    if any(n in k for n in ("fwd_cell_kernel",
-                                            "fwd_proj_kernel",
-                                            "bwd_cell_kernel",
-                                            "bwd_dr_kernel"))]
+                    if any(n in k for n in PER_STEP_KERNELS)]
         launches = sum(counts[k] for k in sweep)
         if launches != 1 or per_step:
             raise RuntimeError(f"lstmp_train_{kind}: not one persistent "
@@ -2126,13 +2319,17 @@ def main() -> int:
         model, feats, labels = write_train_files(workdir)
         runs = {"default": train_phase(model, feats, labels, workdir)}
         train_cross_check(model, feats, labels)
-        step_split(model, dev)
+        steps = {"default": step_split(model, dev)}
         for switch in SWITCHES:
             runs[switch] = train_phase(model, feats, labels, workdir, switch)
         for switch in SWITCHES:
             train_cross_check(model, feats, labels, switch)
         for switch in SWITCHES:
-            step_split(model, dev, switch)
+            steps[switch] = step_split(model, dev, switch)
+        log("step_split_paths", S=CTC_SHAPE[0], T=CTC_SHAPE[1],
+            step_ms={k: v["step_ms"] for k, v in steps.items()},
+            forward_ms={k: v["forward_ms"] for k, v in steps.items()},
+            backward_ms={k: v["backward_ms"] for k, v in steps.items()})
         lstm_results = lstm_train_kernel_phase(dev)
         model, feats, targets = write_bptt_files(workdir)
         bptt_launches = bptt_train_phase(model, feats, targets, workdir)
@@ -2226,12 +2423,17 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
         # timed at the bench's shape with bf16 products (NO_XFUSE's mode);
         # the float32-products figures (MXU_FP32's) beside them
         f32 = xg[kind, False]
+        tc, fma = (xg_results["redesign"][kind, m] for m in (True, False))
         records.append(kernel_record(
             f"bilstmp_xg_train_{kind}", "bilstmp_xg_train.cu",
             f"lstm_pallas.py:{line}", launched(f"bilstmp_xg_train_{kind}"),
             xg_results[kind], xg[kind, True], fn(S, T, C, P, True),
+            sweep_ms=tc["sweep_ms"], gemm_ms=tc["gemm_ms"],
+            per_step_ms=tc["per_step_ms"], time_split_source=tc["source"],
             ms_f32_products=f32["ms"], plain_ms_f32_products=f32["plain_ms"],
-            bound_ms_f32_products=fn(S, T, C, P, False)[0]))
+            bound_ms_f32_products=fn(S, T, C, P, False)[0],
+            sweep_ms_f32_products=fma["sweep_ms"],
+            per_step_ms_f32_products=fma["per_step_ms"]))
     records.append(kernel_record(
         "bilstmp_train_bwd_dir", "bilstmp_train.cu", "lstm_pallas.py:1154",
         launched("bilstmp_train_bwd_dir"), xg_results["bwd_dir"],

@@ -11,7 +11,12 @@ package's bf16 BLSTMP takes in training under ``KALDI_ASLP_LSTM_NO_XFUSE``
 or ``KALDI_ASLP_LSTM_MXU_FP32`` (models/recurrent.py:474-486).  The
 kernels are ``csrc/bilstmp_xg_train.cu``, built for ``sm_90a`` and bound
 with ``ctypes``; the note at the top of that file says how the TPU design
-was rethought for the H100.
+was rethought for the H100.  Each call is one persistent sweep of both
+directions, picked by :func:`plan_for` from the shapes and the product
+mode: with bf16 products the x-fused pair's tensor-core sweeps
+(csrc/bilstmp_sweep.cuh), with float32 products the FMA sweeps, past
+either's capacity the per-step kernels.  The backward's dW_r and dW_rm
+run on the hand GEMM :func:`bilstmp_gemm_bf16`.
 
 Rounding follows the TPU kernels (``store_bf16=True``, as the JAX
 package calls them):
@@ -37,29 +42,49 @@ that frame t of direction d starts from; dxg [2, S, T, G]."""
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
+from kaldi_aslp_tpu_torch.ops.bilstmp_train import (
+    bilstmp_gemm_bf16,
+    bilstmp_gemm_bf16_reference,
+)
 from kaldi_aslp_tpu_torch.ops.build import (
     check_tensors,
     current_stream,
     load_library,
+)
+from kaldi_aslp_tpu_torch.ops.sweep_plan import (
+    BAR_WORDS,
+    TENSOR_CORE,
+    XgSweepPlan,
+    _round_up,
+    bilstmp_xg_plan,
 )
 
 SOURCE = "bilstmp_xg_train.cu"
 BF16 = torch.bfloat16
 F32 = torch.float32
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (pointers after the mode flag, then S, T, C, P, cell_clip and the rest)
+_SIGNATURES = {
+    "bilstmp_xg_sweep_fwd": (13, [_I] * 4 + [_L, _P, _P, _P]),
+    "bilstmp_xg_sweep_bwd": (14, [_I] * 4 + [_L, _P, _P, _P]),
+    "bilstmp_xg_train_fwd": (14, []),
+    "bilstmp_xg_train_bwd": (16, []),
+}
+
 
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    for name, n_ptr in (("bilstmp_xg_train_fwd", 14),
-                        ("bilstmp_xg_train_bwd", 16)):
+    for name, (n_ptr, tail) in _SIGNATURES.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr
-                           + [ctypes.c_int] * 4
-                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.argtypes = ([_I] + [_P] * n_ptr + [_I] * 4
+                           + [ctypes.c_float] + tail + [_P])
             fn.restype = ctypes.c_int
     return lib
 
@@ -67,6 +92,45 @@ def _library() -> ctypes.CDLL:
 def build() -> None:
     """Compile (if needed) and load the kernel library."""
     _library()
+
+
+def plan_for(S: int, C: int, P: int, mxu_bf16: bool,
+             device: torch.device) -> XgSweepPlan:
+    """The pair's launch plan on ``device``'s card: a persistent sweep for
+    the product mode, or past its capacity the per-step kernels
+    (ops/sweep_plan.py:bilstmp_xg_plan)."""
+    return _plan(S, C, P, torch.cuda.get_device_properties(
+        device).multi_processor_count, bool(mxu_bf16))
+
+
+# a training step asks for the same few plans again and again
+_plan = functools.lru_cache(maxsize=64)(bilstmp_xg_plan)
+
+
+def _sweep_scratch(plan: XgSweepPlan, dev: torch.device, backward: bool):
+    """(row, part, bar) of a persistent sweep.  Tensor-core sweeps: the
+    step's bf16 state row [2, S, pp] (r_prev forward, dr_new backward) and
+    the bf16 m rows [2, S, cp] (forward) or dgates rows [2, S, 4 cp]
+    (backward), zero-padded to 16 columns a gate; no barrier words.  FMA
+    sweeps: the float32 state row [2, S, pp] and partial slabs
+    [2, nbd, S, pp] (the kernel fills both) and the directions' barrier
+    counters (the kernel clears them)."""
+    S, C = plan.S, plan.C
+    pp = plan.row_width()
+    if plan.path == TENSOR_CORE:
+        cp = _round_up(C, 16)
+        row = torch.zeros((2, S, pp), dtype=BF16, device=dev)
+        part = torch.zeros((2, S, 4 * cp if backward else cp), dtype=BF16,
+                           device=dev)
+        return row, part, None
+    return (torch.empty((2, S, pp), dtype=F32, device=dev),
+            torch.empty((2, plan.blocks_per_dir, S, pp), dtype=F32,
+                        device=dev),
+            torch.empty(BAR_WORDS, dtype=torch.int32, device=dev))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _operand(t: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
@@ -96,8 +160,10 @@ def bilstmp_xg_train_fwd(xgf, xgb, mask, wr, wrm, peep, bias, init_c,
     float32.
 
     On a CUDA tensor this launches the kernel or raises; a CPU tensor
-    takes :func:`bilstmp_xg_train_fwd_reference`.
-    ``bilstmp_xg_train_fwd.launches`` counts calls into the C entry."""
+    takes :func:`bilstmp_xg_train_fwd_reference`.  :func:`plan_for` picks
+    the persistent sweep of the product mode or the per-step kernels.
+    ``bilstmp_xg_train_fwd.launches`` counts calls into the C entries, and
+    ``.per_step`` those that took the per-step kernels."""
     S, T, G = xgf.shape
     P, C = wrm.shape[1], wrm.shape[2]
     check_tensors(xgf.device, {
@@ -114,33 +180,47 @@ def bilstmp_xg_train_fwd(xgf, xgb, mask, wr, wrm, peep, bias, init_c,
                                               cell_clip, mxu_bf16)
     _check_device(xgf.device)
     dev = xgf.device
+    plan = plan_for(S, C, P, mxu_bf16, dev)
     wt = BF16 if mxu_bf16 else F32
     c_state = torch.stack([init_c, torch.zeros_like(init_c)])
     r_state = torch.stack([init_r, torch.zeros_like(init_r)])
-    m_buf = torch.empty((2, S, C), dtype=F32, device=dev)
     gates = torch.empty((2, S, T, G), dtype=BF16, device=dev)
     cs = torch.empty((2, S, T, C), dtype=BF16, device=dev)
     rprev = torch.empty((2, S, T, P), dtype=BF16, device=dev)
     rprev[0, :, 0] = init_r.to(BF16)
     rprev[1, :, T - 1] = 0
     ys = torch.empty((S, T, 2 * P), dtype=BF16, device=dev)
+    # the weights rounded once to the products' type
     w_r, w_rm = wr.to(wt).contiguous(), wrm.to(wt).contiguous()
+    arrays = (xgf.data_ptr(), xgb.data_ptr(), mask.data_ptr(),
+              w_r.data_ptr(), w_rm.data_ptr(), peep.data_ptr(),
+              bias.data_ptr(), c_state.data_ptr(), r_state.data_ptr())
+    streams = (gates.data_ptr(), cs.data_ptr(), rprev.data_ptr(),
+               ys.data_ptr(), S, T, C, P, float(cell_clip))
     lib = _library()
     with torch.cuda.device(dev):
-        err = lib.bilstmp_xg_train_fwd(
-            int(mxu_bf16), xgf.data_ptr(), xgb.data_ptr(), mask.data_ptr(),
-            w_r.data_ptr(), w_rm.data_ptr(), peep.data_ptr(),
-            bias.data_ptr(), c_state.data_ptr(), r_state.data_ptr(),
-            m_buf.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-            rprev.data_ptr(), ys.data_ptr(), S, T, C, P, float(cell_clip),
-            current_stream(dev))
+        if plan.persistent:
+            row, part, bar = _sweep_scratch(plan, dev, backward=False)
+            if plan.path == TENSOR_CORE:
+                row[0, :, :P] = init_r.to(BF16)
+            err = lib.bilstmp_xg_sweep_fwd(
+                int(mxu_bf16), *arrays, *streams,
+                *plan.kernel_args(backward=False), row.data_ptr(),
+                part.data_ptr(), _ptr(bar), current_stream(dev))
+        else:
+            m_buf = torch.empty((2, S, C), dtype=F32, device=dev)
+            err = lib.bilstmp_xg_train_fwd(
+                int(mxu_bf16), *arrays, m_buf.data_ptr(), *streams,
+                current_stream(dev))
         bilstmp_xg_train_fwd.launches += 1
+        bilstmp_xg_train_fwd.per_step += not plan.persistent
     if err != 0:
         raise RuntimeError(f"bilstmp_xg_train_fwd failed: CUDA error {err}")
     return ys, gates, cs, rprev, c_state[0], r_state[0]
 
 
 bilstmp_xg_train_fwd.launches = 0
+bilstmp_xg_train_fwd.per_step = 0
 
 
 def bilstmp_xg_train_fwd_reference(xgf, xgb, mask, wr, wrm, peep, bias,
@@ -202,9 +282,11 @@ def bilstmp_xg_train_bwd(dy, mask, gates, cs, rprev, wr, wrm, peep, init_c,
     cotangents of xgf and xgb; d_init_c, d_init_r, dwr [2, 4C, P],
     dwrm [2, P, C], dbias [2, 4C], dpeep [2, 3, C] float32).
 
-    On a CUDA tensor the sweep launches the kernel or raises; a CPU tensor
-    takes :func:`bilstmp_xg_train_bwd_reference`.
-    ``bilstmp_xg_train_bwd.launches`` counts calls into the C entry."""
+    On a CUDA tensor the sweep launches the kernel or raises, and the two
+    reductions run on the hand GEMM (:func:`bilstmp_gemm_bf16`); a CPU
+    tensor takes :func:`bilstmp_xg_train_bwd_reference`.  The plan and
+    the counters ``bilstmp_xg_train_bwd.launches`` / ``.per_step`` as for
+    :func:`bilstmp_xg_train_fwd`."""
     S, T = mask.shape
     P, C = wrm.shape[1], wrm.shape[2]
     G = 4 * C
@@ -221,35 +303,53 @@ def bilstmp_xg_train_bwd(dy, mask, gates, cs, rprev, wr, wrm, peep, init_c,
                                               d_r_T, cell_clip, mxu_bf16)
     _check_device(mask.device)
     dev = mask.device
+    plan = plan_for(S, C, P, mxu_bf16, dev)
     wt = BF16 if mxu_bf16 else F32
-    wr_t = wr.transpose(1, 2).to(wt).contiguous()      # [2, P, G]
-    wrm_t = wrm.transpose(1, 2).to(wt).contiguous()    # [2, C, P]
+    if plan.persistent and plan.path != TENSOR_CORE:
+        # the FMA sweep reads the weights in their own layouts
+        w_a, w_b = wr.contiguous(), wrm.contiguous()
+    else:
+        w_r_t = wr.transpose(1, 2).to(wt).contiguous()     # [2, P, G]
+        w_rm_t = wrm.transpose(1, 2).to(wt).contiguous()   # [2, C, P]
+        # the tensor-core sweep takes (W_r^T, W_rm^T), the per-step
+        # kernels (W_rm^T, W_r^T)
+        w_a, w_b = (w_r_t, w_rm_t) if plan.persistent else (w_rm_t, w_r_t)
     dc_state = torch.stack([d_c_T, torch.zeros_like(d_c_T)])
     dr_state = torch.stack([d_r_T, torch.zeros_like(d_r_T)])
-    acc = torch.zeros((2, S, 7 * C), dtype=F32, device=dev)
-    dg_buf = torch.empty((2, S, G), dtype=F32, device=dev)
     dxg = torch.empty((2, S, T, G), dtype=BF16, device=dev)
     m_s = torch.empty((2, S, T, C), dtype=BF16, device=dev)
     drn = torch.empty((2, S, T, P), dtype=BF16, device=dev)
     dbp = torch.empty((2, 7 * C), dtype=F32, device=dev)
+    head = (dy.data_ptr(), mask.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+            init_c.data_ptr(), w_a.data_ptr(), w_b.data_ptr(),
+            peep.data_ptr(), dc_state.data_ptr(), dr_state.data_ptr())
+    tail = (dxg.data_ptr(), m_s.data_ptr(), drn.data_ptr(), dbp.data_ptr(),
+            S, T, C, P, float(cell_clip))
     lib = _library()
     with torch.cuda.device(dev):
-        err = lib.bilstmp_xg_train_bwd(
-            int(mxu_bf16), dy.data_ptr(), mask.data_ptr(), gates.data_ptr(),
-            cs.data_ptr(), init_c.data_ptr(), wrm_t.data_ptr(),
-            wr_t.data_ptr(), peep.data_ptr(), dc_state.data_ptr(),
-            dr_state.data_ptr(), acc.data_ptr(), dg_buf.data_ptr(),
-            dxg.data_ptr(), m_s.data_ptr(), drn.data_ptr(), dbp.data_ptr(),
-            S, T, C, P, float(cell_clip), current_stream(dev))
+        if plan.persistent:
+            row, part, bar = _sweep_scratch(plan, dev, backward=True)
+            err = lib.bilstmp_xg_sweep_bwd(
+                int(mxu_bf16), *head, *tail,
+                *plan.kernel_args(backward=True), row.data_ptr(),
+                part.data_ptr(), _ptr(bar), current_stream(dev))
+        else:
+            acc = torch.zeros((2, S, 7 * C), dtype=F32, device=dev)
+            dg_buf = torch.empty((2, S, G), dtype=F32, device=dev)
+            err = lib.bilstmp_xg_train_bwd(
+                int(mxu_bf16), *head, acc.data_ptr(), dg_buf.data_ptr(),
+                *tail, current_stream(dev))
         bilstmp_xg_train_bwd.launches += 1
+        bilstmp_xg_train_bwd.per_step += not plan.persistent
     if err != 0:
         raise RuntimeError(f"bilstmp_xg_train_bwd failed: CUDA error {err}")
     return (dxg, dc_state[0], dr_state[0],
-            *_weight_grads(dxg, drn, m_s, rprev),
+            *_weight_grads(dxg, drn, m_s, rprev, bilstmp_gemm_bf16),
             dbp[:, :G], dbp[:, G:].reshape(2, 3, C))
 
 
 bilstmp_xg_train_bwd.launches = 0
+bilstmp_xg_train_bwd.per_step = 0
 
 
 def bilstmp_xg_train_bwd_reference(dy, mask, gates, cs, rprev, wr, wrm,
@@ -309,17 +409,18 @@ def bilstmp_xg_train_bwd_reference(dy, mask, gates, cs, rprev, wr, wrm,
             dpeep[d, 2] += (do_lin * c).sum(0)
             dr[d] = (1.0 - mk) * dr_after + _operand(dgl, mxu_bf16) @ wr_o[d]
             drn[d, :, t] = dr_new.to(BF16)
-    return (dxg, dc[0], dr[0], *_weight_grads(dxg, drn, m_s, rprev), dbias,
-            dpeep)
+    return (dxg, dc[0], dr[0],
+            *_weight_grads(dxg, drn, m_s, rprev, bilstmp_gemm_bf16_reference),
+            dbias, dpeep)
 
 
-def _weight_grads(dxg, drn, m_s, rprev):
+def _weight_grads(dxg, drn, m_s, rprev, gemm):
     """(dwr [2, 4C, P], dwrm [2, P, C]): lstm_pallas.py:878-894's ``mm2``
-    over every frame and stream of the stored bf16 streams, float32 sums
-    (the operands are bf16 already, so ``mxu_bf16`` changes nothing)."""
+    over every frame and stream of the stored bf16 streams, bf16 operands
+    and float32 sums (so ``mxu_bf16`` changes nothing), by ``gemm``: the
+    hand GEMM or its plain version."""
     def mm2(a, b):      # einsum "dsta,dstb->dab"
-        return (a.float().flatten(1, 2).transpose(1, 2)
-                @ b.float().flatten(1, 2))
+        return gemm(a.flatten(1, 2).transpose(1, 2), b.flatten(1, 2))
     return mm2(dxg, rprev), mm2(drn, m_s)
 
 

@@ -1,11 +1,16 @@
 """Launch plans of the persistent LSTMP sweeps, in Python so that the CPU
 tests can check them.
 
-Three kernels take these plans as arguments and check that each gives the
-byte count of the shared-memory layout they use:
+Four kernel pairs take these plans as arguments and check that each gives
+the byte count of the shared-memory layout they use:
 
-  - the x-fused BLSTMP sweeps (csrc/bilstmp_train.cu, ``fwd_sweep_kernel``
-    and ``bwd_sweep_kernel``): :func:`sweep_plan`;
+  - the x-fused BLSTMP sweeps (csrc/bilstmp_sweep.cuh, ``fwd_sweep_kernel``
+    and ``bwd_sweep_kernel``, built in csrc/bilstmp_train.cu):
+    :func:`sweep_plan`;
+  - the xg-fed BLSTMP pair (csrc/bilstmp_xg_train.cu): the same sweeps with
+    bf16 products, the FMA sweeps ``xg_fma_fwd_sweep_kernel`` /
+    ``xg_fma_bwd_sweep_kernel`` with float32 products, or past their
+    capacity the per-step kernels: :func:`bilstmp_xg_plan`;
   - the unidirectional LSTMP sweeps (csrc/lstmp_train.cu,
     ``lstmp_fwd_sweep_kernel`` and ``lstmp_bwd_sweep_kernel``):
     :func:`lstmp_sweep_plan`;
@@ -15,8 +20,8 @@ byte count of the shared-memory layout they use:
 
 All share the limit of one block's dynamic shared memory and the
 constants of csrc/sweep.cuh; the limits below are those files' constants
-(tests/test_torch_bilstmp_plan.py and tests/test_torch_lstmp_plan.py
-hold them equal)."""
+(tests/test_torch_bilstmp_plan.py, tests/test_torch_bilstmp_xg_plan.py and
+tests/test_torch_lstmp_plan.py hold them equal)."""
 
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ def _round_up(v: int, m: int) -> int:
 
 # -- the x-fused BLSTMP sweeps ------------------------------------------------
 #
-# 256 threads a block.  The limits are csrc/bilstmp_train.cu's kRowsMax,
+# 256 threads a block.  The limits are csrc/bilstmp_sweep.cuh's kRowsMax,
 # kKC, kMaxCells, kMaxCols and kMaxStages.
 
 ROWS_PER_PASS = 128       # streams per pass of a product (8 m16 tiles)
@@ -44,15 +49,15 @@ MAX_STAGES = 4            # deepest cp.async ring
 
 
 def _sweep_smem(S: int, C: int, P: int, cpb: int, ppb: int, stages: int,
-                backward: bool) -> int:
+                backward: bool, xg_bf16: bool = False) -> int:
     """Bytes of a sweep block's dynamic shared memory: its weight slices
     (bf16 rows of K + 8), the cp.async ring, the product's float32 output,
     the state of its cells and columns, in the backward the seven
     per-(stream, cell) sums, and what the epilogues read, prefetched while
-    the product runs (forward: a pass's float32 xg of the owned cells and
-    its mask; backward: its bf16 gates and c_prev of the owned cells, dy of
-    the owned columns at two frames, two frames of mask); each region
-    rounded up to 16 bytes."""
+    the product runs (forward: a pass's xg of the owned cells, float32 or
+    with ``xg_bf16`` bf16 in groups of 8, and its mask; backward: its bf16
+    gates and c_prev of the owned cells, dy of the owned columns at two
+    frames, two frames of mask); each region rounded up to 16 bytes."""
     cp, pp = _round_up(C, 16), _round_up(P, 16)
     n1 = _round_up(cpb if backward else 4 * cpb, 8)
     n2 = _round_up(ppb, 8)
@@ -66,7 +71,9 @@ def _sweep_smem(S: int, C: int, P: int, cpb: int, ppb: int, stages: int,
         regions += [4 * 7 * S * cpb, 2 * mg * 4 * c8, 2 * mg * c8,
                     2 * mg * 2 * ppb, 4 * mg * 2]
     else:
-        regions += [4 * mg * 4 * _round_up(cpb, 4), 4 * mg]
+        xg = 2 * mg * 4 * _round_up(cpb, 8) if xg_bf16 else \
+            4 * mg * 4 * _round_up(cpb, 4)
+        regions += [xg, 4 * mg]
     return sum(_round_up(r, 16) for r in regions)
 
 
@@ -126,7 +133,8 @@ def _deepest_ring(smem_at, limit: int = SMEM_LIMIT):
     return None
 
 
-def sweep_plan(S: int, C: int, P: int, num_sms: int) -> SweepPlan:
+def sweep_plan(S: int, C: int, P: int, num_sms: int,
+               xg_bf16: bool = False) -> SweepPlan:
     """The launch plan of the x-fused sweeps at these widths on a card of
     ``num_sms`` SMs: MIN_CELLS to MAX_CELLS cells a block over at most
     floor(num_sms / 2) blocks a direction (both directions' blocks
@@ -135,7 +143,8 @@ def sweep_plan(S: int, C: int, P: int, num_sms: int) -> SweepPlan:
     owns two groups while another could own one: a backward W_r^T slice of
     two groups is twice as large); the columns in groups of 8 (16-byte
     loads); and for each sweep the deepest ring (MAX_STAGES down to 2
-    chunks) that fits SMEM_LIMIT.
+    chunks) that fits SMEM_LIMIT.  ``xg_bf16``: the forward prefetches
+    bf16 xg (the xg-fed pair's layout), not float32.
 
     Capacity: C <= MAX_CELLS * floor(num_sms / 2) (1056 on an H100's 132
     SMs), at most MAX_COLS columns a block, and the shared memory.  With
@@ -166,7 +175,7 @@ def sweep_plan(S: int, C: int, P: int, num_sms: int) -> SweepPlan:
     fits = {}
     for backward in (False, True):
         def smem_at(stages, s=S):
-            return _sweep_smem(s, C, P, cpb, ppb, stages, backward)
+            return _sweep_smem(s, C, P, cpb, ppb, stages, backward, xg_bf16)
         fits[backward] = _deepest_ring(smem_at)
         if fits[backward] is None:
             s_max = 0
@@ -450,3 +459,132 @@ def lstmp_infer_plan(S: int, C: int, P: int, directions: int,
         S, C, P, directions,
         f"(S, C, P) = {S, C, P} needs {smem} bytes of shared memory a "
         f"block, more than {SMEM_LIMIT}")
+
+
+# -- the xg-fed BLSTMP pair ---------------------------------------------------
+#
+# bf16 products take the sweeps of :func:`sweep_plan` (xg_bf16); float32
+# products the FMA sweeps of csrc/bilstmp_xg_train.cu, each direction on
+# lstmp_sweep.cuh's layout (the UNI_* limits) with, in the backward, the
+# seven per-(stream, cell) dbias / dpeep sums after it.
+
+TENSOR_CORE, FMA = "tensor_core", "fma"
+
+
+def _xg_fma_smem(S: int, C: int, P: int, cpb: int, stages: int,
+                 backward: bool) -> int:
+    """Bytes of an FMA sweep block's dynamic shared memory: the
+    unidirectional layout (:func:`_uni_smem`), plus in the backward the
+    float32 sums [7][S][cpb]."""
+    sums = _round_up(4 * 7 * S * cpb, 16) if backward else 0
+    return _uni_smem(S, C, P, cpb, stages, backward) + sums
+
+
+@dataclass(frozen=True)
+class XgSweepPlan:
+    """How the xg-fed pair runs.  ``path`` TENSOR_CORE (bf16 products) or
+    FMA (float32 products): each sweep is one cooperative launch of
+    2 * ``blocks_per_dir`` blocks, block b of a direction owning cells
+    ``cells(b)`` and, on the tensor-core sweeps, projection columns
+    ``cols(b)``; rings of ``stages_fwd`` / ``stages_bwd`` chunks and
+    ``smem_fwd`` / ``smem_bwd`` bytes of shared memory.  PER_STEP
+    (``reason`` says why): two launches a frame each way."""
+    S: int
+    C: int
+    P: int
+    mxu_bf16: bool
+    path: str
+    blocks_per_dir: int
+    cells_per_block: int
+    cols_per_block: int
+    stages_fwd: int
+    stages_bwd: int
+    smem_fwd: int
+    smem_bwd: int
+    reason: str = ""
+
+    @property
+    def persistent(self) -> bool:
+        return self.path != PER_STEP
+
+    def cells(self, b: int) -> range:
+        j0 = b * self.cells_per_block
+        return range(min(j0, self.C), min(j0 + self.cells_per_block, self.C))
+
+    def cols(self, b: int) -> range:
+        p0 = b * self.cols_per_block
+        return range(min(p0, self.P), min(p0 + self.cols_per_block, self.P))
+
+    def kernel_args(self, backward: bool):
+        """(nbd, cpb, ppb, stages, smem) as the sweeps' C entries take
+        them."""
+        return (self.blocks_per_dir, self.cells_per_block,
+                self.cols_per_block,
+                self.stages_bwd if backward else self.stages_fwd,
+                self.smem_bwd if backward else self.smem_fwd)
+
+    def row_width(self) -> int:
+        """Columns of a scratch state row: P rounded up to 16 (bf16 rows
+        of the tensor-core sweeps) or to 4 (float32 rows of the FMA
+        sweeps)."""
+        return _round_up(self.P, 16 if self.path == TENSOR_CORE else 4)
+
+
+def bilstmp_xg_per_step(S: int, C: int, P: int, mxu_bf16: bool,
+                        reason: str) -> XgSweepPlan:
+    """The plan that takes the per-step kernels."""
+    return XgSweepPlan(S, C, P, bool(mxu_bf16), PER_STEP, 0, 0, 0, 0, 0, 0,
+                       0, reason)
+
+
+def bilstmp_xg_plan(S: int, C: int, P: int, num_sms: int,
+                    mxu_bf16: bool) -> XgSweepPlan:
+    """The xg-fed pair's plan on a card of ``num_sms`` SMs, from the shapes
+    alone.
+
+    bf16 products: the tensor-core sweeps, laid out by :func:`sweep_plan`
+    with the bf16 xg prefetch; within its capacity (C <= 1056 on 132 SMs,
+    every C <= 1024, P <= 512 at S <= 128).  Float32 products: the FMA
+    sweeps, UNI_MIN_CELLS to UNI_MAX_CELLS cells a block over at most
+    floor(num_sms / 2) blocks a direction (8 cells on 64 blocks at
+    C = 512), each sweep with the deepest ring (up to one stage a chunk of
+    the state row, UNI_MAX_STAGES at most, 2 at least) that fits
+    SMEM_LIMIT; capacity C <= UNI_MAX_CELLS * floor(num_sms / 2) and the
+    shared memory.  Past either capacity the per-step kernels
+    (``path`` PER_STEP), never an error."""
+    if min(S, C, P) <= 0:
+        raise ValueError(f"S, C, P must be positive, got {S, C, P}")
+
+    def per_step(reason):
+        return bilstmp_xg_per_step(S, C, P, mxu_bf16, reason)
+    if mxu_bf16:
+        try:
+            sp = sweep_plan(S, C, P, num_sms, xg_bf16=True)
+        except ValueError as err:
+            return per_step(str(err))
+        return XgSweepPlan(S, C, P, True, TENSOR_CORE, sp.blocks_per_dir,
+                           sp.cells_per_block, sp.cols_per_block,
+                           sp.stages_fwd, sp.stages_bwd, sp.smem_fwd,
+                           sp.smem_bwd)
+    per_dir = num_sms // 2
+    cpb = min(max(UNI_MIN_CELLS, math.ceil(C / max(per_dir, 1))), C)
+    if per_dir < 1 or cpb > UNI_MAX_CELLS:
+        return per_step(f"C={C} needs {cpb} cells a block on {per_dir} SMs "
+                        f"a direction, more than {UNI_MAX_CELLS}")
+    chunks = math.ceil(_round_up(P, 4) / UNI_K_CHUNK)
+    fits = []
+    for backward in (False, True):
+        for stages in range(min(UNI_MAX_STAGES, max(2, chunks)), 1, -1):
+            smem = _xg_fma_smem(S, C, P, cpb, stages, backward)
+            if smem <= SMEM_LIMIT:
+                fits.append((stages, smem))
+                break
+        else:
+            kind = "backward" if backward else "forward"
+            return per_step(
+                f"(S, C, P) = {S, C, P}: the {kind} sweep needs "
+                f"{_xg_fma_smem(S, C, P, cpb, 2, backward)} bytes of shared "
+                f"memory a block, more than {SMEM_LIMIT}")
+    (sf, mf), (sb, mb) = fits
+    return XgSweepPlan(S, C, P, False, FMA, math.ceil(C / cpb), cpb, 0, sf,
+                       sb, mf, mb)

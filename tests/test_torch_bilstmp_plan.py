@@ -2,7 +2,7 @@
 sweep_plan.py:sweep_plan) and the hoisted GEMM's plain version
 (ops/bilstmp_train.py), on the CPU.
 
-The persistent sweep kernels (csrc/bilstmp_train.cu) take their plan as
+The persistent sweep kernels (csrc/bilstmp_sweep.cuh) take their plan as
 arguments and check that it gives the byte count of the shared-memory
 layout they use; what the plan promises is tested here: each block's
 cells and projection columns, each owned once per direction; its shared
@@ -107,8 +107,8 @@ def test_split_backward_sums_each_column_in_the_fused_order(S, C, P, T, D):
 
 def test_plan_limits_match_the_kernel_source():
     """The sweep kernels' own limits are the plan's."""
-    source = (build.CSRC_DIR / bt.SOURCE).read_text() + \
-        (build.CSRC_DIR / "sweep.cuh").read_text()
+    source = "".join((build.CSRC_DIR / name).read_text() for name in (
+        bt.SOURCE, "bilstmp_sweep.cuh", "sweep.cuh"))
 
     def constant(name):
         found = re.search(rf"constexpr (?:int|size_t) {name} = (\d+);",

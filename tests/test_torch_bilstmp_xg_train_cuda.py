@@ -2,8 +2,9 @@
 csrc/bilstmp_xg_train.cu) and the per-direction x-fused backward
 (csrc/bilstmp_train.cu's bilstmp_train_bwd_dir) against their plain
 PyTorch versions on the card, with ragged masks, a nonzero initial state
-and nonzero final-state cotangents, in both product modes; and the two
-autograd paths on the card against the CPU.
+and nonzero final-state cotangents, in both product modes, on the planned persistent sweeps and on
+the per-step kernels, each twice for the same bits; and the two autograd
+paths on the card against the CPU.
 
 The kernels have no CPU mode, so these tests skip where there is no CUDA
 card.  This file imports no JAX; run it on the card with
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
+from kaldi_aslp_tpu_torch.ops import bilstmp_xg_train as xt
 from kaldi_aslp_tpu_torch.ops.bilstmp_xg_train import (
     BiLstmpXgTrainCore,
     bilstmp_xg_train_bwd,
@@ -36,6 +38,7 @@ from kaldi_aslp_tpu_torch.ops.bilstmp_xg_train import (
     bilstmp_xg_train_fwd,
     bilstmp_xg_train_fwd_reference,
 )
+from kaldi_aslp_tpu_torch.ops.sweep_plan import bilstmp_xg_per_step
 
 BF16_PRODUCTS_TOL = 1e-2
 F32_PRODUCTS_TOL = {"bf16": 4e-3, "kernel_f32": 1e-4, "reduction": 1e-3}
@@ -93,32 +96,97 @@ def _xg_inputs(S, T, C, P, dev, seed):
     return fwd, cots
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mxu_bf16", [True, False],
-                         ids=["bf16-products", "f32-products"])
-@pytest.mark.parametrize("S,T,C,P", [(5, 7, 32, 16), (16, 20, 512, 320),
-                                     (33, 9, 600, 37)])
-def test_xg_kernels_match_plain_versions(S, T, C, P, mxu_bf16):
-    _needs_card()
+# (S, T, C, P): small widths, odd widths (no 16-byte xg groups: the
+# element-wise prefetch), the flagship at the CLI's and the bench's stream
+# counts, and widths that are no multiple of 8
+XG_SHAPES = [(5, 7, 32, 16), (33, 9, 36, 20), (16, 20, 512, 320),
+             (128, 24, 512, 320), (33, 9, 600, 37)]
+
+
+def _run_pair(S, T, C, P, mxu_bf16):
+    """The kernels' forward and backward and their plain versions on the
+    same inputs; the backward fed the plain forward's streams."""
     fwd_args, (dy, dc, dr) = _xg_inputs(S, T, C, P, torch.device("cuda"),
                                         seed=S * T + C)
     _, _, mask, wr, wrm, peep, _, init_c, _ = fwd_args
-    before = (bilstmp_xg_train_fwd.launches, bilstmp_xg_train_bwd.launches)
-    got = bilstmp_xg_train_fwd(*fwd_args, 50.0, mxu_bf16)
-    want = bilstmp_xg_train_fwd_reference(*fwd_args, 50.0, mxu_bf16)
-    torch.cuda.synchronize()
-    for name, g, w in zip(FWD_NAMES, got, want):
-        _hold(name, g, w, mxu_bf16)
-    _, gates, cs, rprev, _, _ = want
+    got_f = bilstmp_xg_train_fwd(*fwd_args, 50.0, mxu_bf16)
+    want_f = bilstmp_xg_train_fwd_reference(*fwd_args, 50.0, mxu_bf16)
+    _, gates, cs, rprev, _, _ = want_f
     bwd_args = (dy, mask, gates, cs, rprev, wr, wrm, peep, init_c, dc, dr,
                 50.0, mxu_bf16)
-    got = bilstmp_xg_train_bwd(*bwd_args)
-    want = bilstmp_xg_train_bwd_reference(*bwd_args)
+    got_b = bilstmp_xg_train_bwd(*bwd_args)
+    want_b = bilstmp_xg_train_bwd_reference(*bwd_args)
     torch.cuda.synchronize()
-    assert (bilstmp_xg_train_fwd.launches, bilstmp_xg_train_bwd.launches) \
-        == (before[0] + 1, before[1] + 1)
-    for name, g, w in zip(BWD_NAMES, got, want):
+    return got_f, want_f, got_b, want_b
+
+
+def _counts():
+    return (bilstmp_xg_train_fwd.launches, bilstmp_xg_train_fwd.per_step,
+            bilstmp_xg_train_bwd.launches, bilstmp_xg_train_bwd.per_step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [True, False],
+                         ids=["bf16-products", "f32-products"])
+@pytest.mark.parametrize("S,T,C,P", XG_SHAPES)
+def test_xg_kernels_match_plain_versions(S, T, C, P, mxu_bf16):
+    """The planned path: at these widths a persistent sweep each way (the
+    counters say so), held to the plain versions."""
+    _needs_card()
+    plan = xt.plan_for(S, C, P, mxu_bf16, torch.device("cuda"))
+    assert plan.persistent, plan.reason
+    before = _counts()
+    got_f, want_f, got_b, want_b = _run_pair(S, T, C, P, mxu_bf16)
+    assert _counts() == (before[0] + 1, before[1], before[2] + 1, before[3])
+    for name, g, w in zip(FWD_NAMES, got_f, want_f):
         _hold(name, g, w, mxu_bf16)
+    for name, g, w in zip(BWD_NAMES, got_b, want_b):
+        _hold(name, g, w, mxu_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [True, False],
+                         ids=["bf16-products", "f32-products"])
+@pytest.mark.parametrize("S,T,C,P", [(5, 7, 32, 16), (33, 9, 36, 20),
+                                     (16, 20, 512, 320)])
+def test_forced_per_step_plan_matches_plain_versions(S, T, C, P, mxu_bf16,
+                                                     monkeypatch):
+    """The per-step kernels, which the plan takes past the sweeps'
+    capacity, still hold the plain versions; each call counts once in
+    ``per_step``."""
+    _needs_card()
+    monkeypatch.setattr(xt, "plan_for", lambda S_, C_, P_, mxu, device:
+                        bilstmp_xg_per_step(S_, C_, P_, mxu, "forced"))
+    before = _counts()
+    got_f, want_f, got_b, want_b = _run_pair(S, T, C, P, mxu_bf16)
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
+                         before[3] + 1)
+    for name, g, w in zip(FWD_NAMES, got_f, want_f):
+        _hold(name, g, w, mxu_bf16)
+    for name, g, w in zip(BWD_NAMES, got_b, want_b):
+        _hold(name, g, w, mxu_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu_bf16", [True, False],
+                         ids=["bf16-products", "f32-products"])
+@pytest.mark.parametrize("S,T,C,P", [(33, 9, 36, 20), (128, 24, 512, 320)])
+def test_xg_kernels_give_the_same_bits_twice(S, T, C, P, mxu_bf16):
+    """Every sum has one owner and a fixed order."""
+    _needs_card()
+    fwd_args, (dy, dc, dr) = _xg_inputs(S, T, C, P, torch.device("cuda"),
+                                        seed=7 * S + C)
+    _, _, mask, wr, wrm, peep, _, init_c, _ = fwd_args
+    runs = []
+    for _ in range(2):
+        f = bilstmp_xg_train_fwd(*fwd_args, 50.0, mxu_bf16)
+        _, gates, cs, rprev, _, _ = f
+        b = bilstmp_xg_train_bwd(dy, mask, gates, cs, rprev, wr, wrm, peep,
+                                 init_c, dc, dr, 50.0, mxu_bf16)
+        runs.append((*f, *b))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), i
 
 
 def _xf_inputs(S, T, D, C, P, dev, seed):
