@@ -12,7 +12,11 @@ BPTT chunk (S=100, T=20, C=800, P=512, float32; CUDA events, median of
 then builds the x-fused BLSTMP training kernels and times them at the CTC
 bench's shape (S=128, T=400, D=640, C=512, P=320, ragged mask; CUDA
 events, median of 10), with their outputs' SHA-256 digests, which must
-agree between two trees whose kernels give the same bits.
+agree between two trees whose kernels give the same bits; then the CTC
+loss at the bench's shape (S=128, T=400, U=40, V=72, ragged lengths):
+``ops/ctc.py:ctc_alpha_beta`` (the emission gather and both recursions)
+and ``ctc_loss`` forward and backward, by CUDA events (median of 20),
+through each tree's own CTC kernels.
 One JSON line a reading.  The step is partly host-bound and a shared
 host drifts, so two versions compare only like this: on one card, in one
 process tree, alternating.
@@ -79,6 +83,26 @@ cs.log("ab_x_fused", S=S, T=T, D=D, outputs_sha256=digest.hexdigest(),
            lambda: bt.bilstmp_train_fwd(*fwd_args), 10, 2),
        bilstmp_train_bwd_ms=cs.cuda_ms(
            lambda: bt.bilstmp_train_bwd(*bwd_args), 10, 2))
+
+from kaldi_aslp_tpu_torch.ops import ctc
+
+S, T, U, V = cs.CTC_SHAPE
+rs = np.random.RandomState(7)
+lab_lens = rs.randint(U // 4, U + 1, size=S).astype(np.int32)
+in_lens = rs.randint(T // 2, T + 1, size=S).astype(np.int32)
+lab_lens[0], in_lens[0] = U, T
+in_lens = np.maximum(in_lens, 2 * lab_lens + 1).astype(np.int32)
+logits = t(rs.randn(S, T, V).astype(np.float32)).requires_grad_()
+labels, in_lens, lab_lens = (t(a) for a in (
+    rs.randint(1, V, (S, U)).astype(np.int32), in_lens, lab_lens))
+log_probs = torch.log_softmax(logits.detach(), -1)
+def loss():
+    logits.grad = None
+    ctc.ctc_loss(logits, labels, in_lens, lab_lens).sum().backward()
+cs.log("ab_ctc", S=S, T=T, U=U, V=V,
+       ctc_alpha_beta_ms=cs.cuda_ms(lambda: ctc.ctc_alpha_beta(
+           log_probs, labels, in_lens, lab_lens), 20, 2),
+       ctc_loss_ms=cs.cuda_ms(loss, 20, 2))
 '''
 
 

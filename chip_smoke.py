@@ -45,11 +45,16 @@ exits nonzero:
                 backward) against their plain versions at C=512, P=320
                 with ragged masks, a nonzero initial state and nonzero
                 final-state cotangents, at (S, T, D) = (16, 200, 40),
-                (16, 200, 640) and (128, 400, 640), and the CTC alpha and
-                beta kernels at (S, T, U, V) = (128, 400, 40, 72) with
-                ragged lengths; time each beside its plain version, and
-                F.ctc_loss forward and backward as the pair's yardstick;
-                then, at (128, 400, 640): the forward and backward run
+                (16, 200, 640) and (128, 400, 640); time each beside its
+                plain version; the CTC pair (alpha and beta in one launch)
+                at (S, T, U, V) = (128, 400, 40, 72) with ragged lengths
+                against its plain versions, twice for the same bits, timed
+                by CUDA events, by torch.profiler (one warp kernel a call)
+                and by its wrapper's host time, beside the wide kernel on
+                the same inputs, and the port's whole ctc_loss forward and
+                backward beside F.ctc_loss's (the library yardstick, both
+                from the logits); then, at (128, 400, 640): the forward
+                and backward run
                 twice must give the same bits; the hoisted GEMM
                 (bilstmp_gemm_bf16) at the five shapes of its products
                 against its plain version, timed with its TFLOP/s beside
@@ -77,7 +82,8 @@ exits nonzero:
                 flagship on it through the CLI, aslp-nnet-train-ctc-streams
                 --device=cuda, momentum 0.9: 4 steps on one batch of 16
                 streams; every step must launch the BLSTMP training
-                kernels 3 times each and the CTC kernels once each, the
+                kernels 3 times each and the CTC pair once (on its warp
+                kernel, never the wide one), the
                 loss must be finite and fall, and the model it writes
                 must load again;
   8. train-check - one step's loss and parameter gradients on the card
@@ -188,6 +194,9 @@ TRAIN_KERNEL_RTOL = 2e-2
 TRAIN_SHAPES = [(16, 200, 40), (16, 200, 640), (128, 400, 640)]
 CTC_SHAPE = (128, 400, 40, 72)        # S, T, U, V (bench.py:44)
 CTC_TOL = dict(rtol=1e-4, atol=1e-4)  # float32 recursions
+# the port's summed CTC loss against F.ctc_loss's on the same logits:
+# float32 recursions on both sides, summed in another order
+CTC_LOSS_RTOL = 1e-4
 TRAIN_STREAMS, TRAIN_STEPS = 16, 4
 # card vs CPU, one step: loss relative; gradients relative to each
 # parameter's largest |gradient| (bf16 products through three layers)
@@ -226,7 +235,7 @@ BPTT_SPLIT_SHAPE = (100, 20)   # the reference's num_stream, batch_size
 SWITCHES = ("KALDI_ASLP_LSTM_NO_XFUSE", "KALDI_ASLP_LSTM_MXU_FP32",
             "KALDI_ASLP_LSTM_SPLIT_BWD")
 # the CTC CLI's launches per step on each path (None: no switch set);
-# every other training kernel launches no time, the CTC pair once each
+# every other training kernel launches no time, the CTC pair once
 TRAIN_RUNS = {
     None: {"bilstmp_train_fwd": LAYERS, "bilstmp_train_bwd": LAYERS},
     SWITCHES[0]: {"bilstmp_xg_train_fwd": LAYERS,
@@ -438,13 +447,14 @@ def lstmp_train_bound(kind, S, T, C, P, bf16):
     return bound([(flop, peak), (flop, peak)], nbytes)
 
 
-def ctc_bound(S, T, U):
-    # in: lp_t [T, S, U'] and skip_ok [S, U'] f32, the two length vectors;
-    # out: alpha or beta [T, S, U'] f32 (U' = 2U + 1).  Per (t, s, u) a
+def ctc_bound(T, S, Up, input_lengths):
+    # the pair in one launch.  in: lp_t [T, S, U'] and skip_ok [S, U'] f32,
+    # the two length vectors; out: alphas and betas [T, S, U'] f32.  Per
+    # recursion step of a stream (len - 1 of them each way) and state a
     # three-way log-sum-exp plus the emission: about 12 float32 operations
-    Up = 2 * U + 1
-    return bound([(12 * T * S * Up, PEAK_F32)],
-                 4 * (2 * T * S * Up + S * Up + 2 * S))
+    steps = 2 * int(np.maximum(np.asarray(input_lengths) - 1, 0).sum())
+    return bound([(12 * steps * Up, PEAK_F32)],
+                 4 * (3 * T * S * Up + S * Up + 2 * S))
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -604,16 +614,6 @@ def call_split(dev):
 
     def t(a):
         return torch.from_numpy(a).to(dev)
-
-    def host_us(fn, reps=100):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        return 1e6 * float(np.median(times))
 
     weights = [(t(uniform(rs, 4 * C, P)), t(uniform(rs, P, C)),
                 t(uniform(rs, 3, C))) for _ in range(2)]
@@ -948,8 +948,6 @@ def hold(name: str, got, want, names, rtol: float):
 
 def train_kernel_phase(dev):
     from kaldi_aslp_tpu_torch.ops import bilstmp_train as bt
-    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
-    from kaldi_aslp_tpu_torch.ops.ctc import ctc_emissions
 
     bf16 = torch.bfloat16
     results = {"fwd": [], "bwd": []}
@@ -1004,47 +1002,197 @@ def train_kernel_phase(dev):
 
     results["redesign"] = x_fused_phase(dev, fwd_args, bwd_args)
 
+    results["ctc"] = ctc_phase(dev)
+    return results
+
+
+def finite_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| where ``want`` is finite (where it is -inf,
+    assert_close has held ``got`` to the same)."""
+    finite = torch.isfinite(want)
+    return float((got[finite] - want[finite]).abs().max())
+
+
+def host_us(fn, reps=100):
+    """Median host microseconds of ``fn`` with the card idle before each
+    call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * float(np.median(times))
+
+
+def ctc_case(dev):
+    """The CTC inputs at CTC_SHAPE with ragged lengths: (logits, labels,
+    input lengths, label lengths, the recursions' arguments)."""
+    from kaldi_aslp_tpu_torch.ops.ctc import ctc_emissions
+
     S, T, U, V = CTC_SHAPE
     rs = np.random.RandomState(7)
     lab_lens = rs.randint(U // 4, U + 1, size=S).astype(np.int32)
     in_lens = rs.randint(T // 2, T + 1, size=S).astype(np.int32)
     lab_lens[0], in_lens[0] = U, T
     in_lens = np.maximum(in_lens, 2 * lab_lens + 1).astype(np.int32)
-    log_probs = torch.log_softmax(
-        torch.from_numpy(rs.randn(S, T, V).astype(np.float32)).to(dev), -1)
+    logits = torch.from_numpy(rs.randn(S, T, V).astype(np.float32)).to(dev)
     labels = torch.from_numpy(
         rs.randint(1, V, (S, U)).astype(np.int32)).to(dev)
+    in_lens_d = torch.from_numpy(in_lens).to(dev)
+    lab_lens_d = torch.from_numpy(lab_lens).to(dev)
     lp_t, skip_ok, _, _, exp_lens = ctc_emissions(
-        log_probs, labels, torch.from_numpy(lab_lens).to(dev))
-    args = (lp_t, skip_ok, torch.from_numpy(in_lens).to(dev), exp_lens)
-    for name, kernel, plain in (
-            ("ctc_alpha", cab.ctc_alpha, cab.ctc_alpha_reference),
-            ("ctc_beta", cab.ctc_beta, cab.ctc_beta_reference)):
-        got, want = kernel(*args), plain(*args)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **CTC_TOL)
-        err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: kernel(*args), 10)
-        plain_ms = cuda_ms(lambda: plain(*args), 3, 1)
-        results[name] = [{"S": S, "T": T, "U": U, "max_abs_err": err,
-                          "ms": ms, "plain_ms": plain_ms}]
-        log("train_kernel", name=name, S=S, T=T, U=U, V=V, max_abs_err=err,
-            tol=CTC_TOL, ms=ms, plain_ms=plain_ms)
+        torch.log_softmax(logits, -1), labels, lab_lens_d)
+    return logits, labels, in_lens_d, lab_lens_d, (lp_t, skip_ok, in_lens_d,
+                                                   exp_lens)
 
-    # the yardstick: one PyTorch call for the same loss and gradient, the
-    # pair's recursions together (the port never calls it)
-    lp = log_probs.transpose(0, 1).contiguous().requires_grad_()
-    lengths = (torch.from_numpy(in_lens).long().to(dev),
-               torch.from_numpy(lab_lens).long().to(dev))
+
+@contextlib.contextmanager
+def ctc_wide():
+    """A context in which the CTC pair runs on its wide kernel (its plan in
+    place of plan_for)."""
+    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+
+    planned = cab.plan_for
+    cab.plan_for = cab.wide_plan
+    try:
+        yield
+    finally:
+        cab.plan_for = planned
+
+
+def ctc_profile_child():
+    """In a fresh process: the CTC pair's device time by kernel name and
+    launches by kernel at CTC_SHAPE, on its planned (warp) kernel and on
+    the wide one, printed as one JSON line {"warp" | "wide": [ms by
+    kernel, launches by kernel]}."""
+    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+
+    args = ctc_case(torch.device("cuda"))[-1]
+    out = {}
+    for name, context in (("warp", contextlib.nullcontext),
+                          ("wide", ctc_wide)):
+        with context():
+            counts = {}
+            by_kernel = device_ms_by_kernel(
+                lambda: cab.ctc_alpha_beta(*args), counts)
+            out[name] = [by_kernel, counts]
+    print(json.dumps(out), flush=True)
+
+
+def ctc_phase(dev):
+    """The CTC pair at CTC_SHAPE with ragged lengths: one launch for both
+    recursions against the plain versions and twice for the same bits;
+    its time by CUDA events, its device time by torch.profiler (in a
+    process of its own; one kernel a call) and its wrapper's host time;
+    the wide kernel at the same inputs as the same run's yardstick; then
+    the port's whole ctc_loss forward and backward beside F.ctc_loss's on
+    the same logits."""
+    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+    from kaldi_aslp_tpu_torch.ops.ctc import ctc_loss
+
+    S, T, U, V = CTC_SHAPE
+    logits, labels, in_lens_d, lab_lens_d, args = ctc_case(dev)
+    in_lens = in_lens_d.cpu().numpy()
+    Up = args[0].shape[2]
+    plan = cab.plan_for(Up)
+    if plan.wide:
+        raise RuntimeError(f"U' = {Up} planned on the wide kernel")
+
+    def pair():
+        return cab.ctc_alpha_beta(*args)
+
+    def plain():
+        return cab.ctc_alpha_beta_reference(*args)
+
+    def held():
+        got, want = pair(), plain()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **CTC_TOL)
+        return got, max(finite_err(g, w) for g, w in zip(got, want))
+
+    got, err = held()
+    again = pair()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError("two runs of the CTC pair differ")
+    del got, again
+    ms = cuda_ms(pair, 20)
+    plain_ms = cuda_ms(plain, 3, 1)
+    host_call_us = host_us(pair)
+    host_checks_us = host_us(lambda: cab._check(*args))
+    wide_before = cab.ctc_alpha_beta.wide
+    with ctc_wide():
+        _, wide_err = held()
+        wide_ms = cuda_ms(pair, 20)
+    if cab.ctc_alpha_beta.wide == wide_before:
+        raise RuntimeError("the forced wide plan launched no wide kernel")
+
+    # the profiles in a process of their own, as xg_sweep_phase's: late in
+    # this one the profiler saw no kernel of the call
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.ctc_profile_child()"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode != 0:
+        raise RuntimeError(f"profile process failed: {child.stderr[-2000:]}")
+    profiles = json.loads(child.stdout.strip().splitlines()[-1])
+    (by_kernel, counts), (wide_by_kernel, wide_counts) = (
+        profiles["warp"], profiles["wide"])
+    for want, seen in (("ctc_warp_kernel", counts),
+                       ("ctc_wide_kernel", wide_counts)):
+        if sum(seen.values()) != 1 or not all(want in k for k in seen):
+            raise RuntimeError(f"a CTC pair call is not one {want}: {seen}")
+
+    # the port's whole loss beside F.ctc_loss, both from the logits:
+    # log-softmax, the recursions and the gradient to the logits
+    lg = logits.detach().requires_grad_()
+    lengths = (in_lens_d.long(), lab_lens_d.long())
+
+    def port_loss():
+        lg.grad = None
+        loss = ctc_loss(lg, labels, in_lens_d, lab_lens_d).sum()
+        loss.backward()
+        return loss.detach()
 
     def library():
-        lp.grad = None
-        torch.nn.functional.ctc_loss(lp, labels.long(), *lengths,
-                                     reduction="sum").backward()
-    results["ctc_library_ms"] = cuda_ms(library, 10)
-    log("train_kernel", name="F.ctc_loss forward+backward", S=S, T=T, U=U,
-        V=V, ms=results["ctc_library_ms"])
-    return results
+        lg.grad = None
+        loss = torch.nn.functional.ctc_loss(
+            torch.log_softmax(lg, -1).transpose(0, 1), labels.long(),
+            *lengths, reduction="sum")
+        loss.backward()
+        return loss.detach()
+    port_value, port_grad = float(port_loss()), lg.grad.clone()
+    lib_value = float(library())
+    loss_rel = abs(port_value - lib_value) / abs(lib_value)
+    grad_err = float((lg.grad - port_grad).abs().max())
+    if not loss_rel <= CTC_LOSS_RTOL:
+        raise RuntimeError(f"ctc_loss {port_value} vs F.ctc_loss "
+                           f"{lib_value}")
+    loss_ms = cuda_ms(port_loss, 10)
+    library_ms = cuda_ms(library, 10)
+    bound_ms, bound_by = ctc_bound(T, S, Up, in_lens)
+    out = {"S": S, "T": T, "U": U, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "device_ms": sum(by_kernel.values()),
+           "host_call_us": host_call_us, "host_checks_us": host_checks_us,
+           "wide_ms": wide_ms, "wide_device_ms": sum(wide_by_kernel.values()),
+           "wide_max_abs_err": wide_err, "loss_ms": loss_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    log("ctc_pair", V=V, states_per_lane=plan.states_per_lane,
+        tol=CTC_TOL, identical_twice=True, launches_by_kernel=counts,
+        by_kernel_ms=by_kernel, wide_by_kernel_ms=wide_by_kernel,
+        time_split_source="torch.profiler, in a process of its own",
+        wide_threads=cab.wide_plan(Up).wide_threads, **out)
+    log("ctc_loss", S=S, T=T, U=U, V=V, port_ms=loss_ms,
+        library_ms=library_ms, loss=port_value, library_loss=lib_value,
+        loss_rel=loss_rel, grad_max_abs_diff=grad_err,
+        note="forward and backward from the logits: log-softmax, the "
+        "recursions and the gradient to the logits, on both sides")
+    return out
 
 
 # cycles of the spin that device_ms_by_kernel queues a profiled call
@@ -1569,8 +1717,7 @@ def train_counts():
             "bilstmp_xg_train_bwd": bilstmp_xg_train.bilstmp_xg_train_bwd,
             "lstmp_train_fwd": lstmp_train.lstmp_train_fwd,
             "lstmp_train_bwd": lstmp_train.lstmp_train_bwd,
-            "ctc_alpha": ctc_alpha_beta.ctc_alpha,
-            "ctc_beta": ctc_alpha_beta.ctc_beta}
+            "ctc_alpha_beta": ctc_alpha_beta.ctc_alpha_beta}
 
 
 def train_phase(model, feats, labels, workdir, switch=None):
@@ -1582,7 +1729,7 @@ def train_phase(model, feats, labels, workdir, switch=None):
 
     wrappers = train_counts()
     per_step_want = {n: TRAIN_RUNS[switch].get(n, 0) for n in wrappers}
-    per_step_want.update(ctc_alpha=1, ctc_beta=1)
+    per_step_want.update(ctc_alpha_beta=1)
     steps = []
     inner = CtcTrainer.step
 
@@ -1604,8 +1751,9 @@ def train_phase(model, feats, labels, workdir, switch=None):
         with switch_env(switch):
             for w in (*wrappers.values(), lstmp_forward):
                 w.launches = 0
-                if hasattr(w, "per_step"):
-                    w.per_step = 0
+                for counter in ("per_step", "wide"):
+                    if hasattr(w, counter):
+                        setattr(w, counter, 0)
             rc = cli_main(["aslp-nnet-train-ctc-streams", "--device=cuda",
                            "--momentum=0.9", f"--num-streams={TRAIN_STREAMS}",
                            feats, labels, model, out])
@@ -1613,6 +1761,8 @@ def train_phase(model, feats, labels, workdir, switch=None):
             # the persistent sweeps, never the per-step kernels
             per_step = {n: w.per_step for n, w in wrappers.items()
                         if hasattr(w, "per_step")}
+            # the CTC pair on its warp kernel, never the wide one
+            wide = wrappers["ctc_alpha_beta"].wide
     finally:
         CtcTrainer.step = inner
     for i, st in enumerate(steps):
@@ -1626,6 +1776,8 @@ def train_phase(model, feats, labels, workdir, switch=None):
                                f"{per_step_want} on {TRAIN_STREAMS}")
     if any(per_step.values()):
         raise RuntimeError(f"training took the per-step kernels: {per_step}")
+    if wide:
+        raise RuntimeError(f"the CTC pair took the wide kernel {wide} times")
     losses = [st["loss"] for st in steps]
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not fall: {losses}")
@@ -1643,7 +1795,7 @@ def train_phase(model, feats, labels, workdir, switch=None):
         raise RuntimeError("the written model equals the initial one")
     log("train", switch=switch, steps=len(steps), losses=losses,
         launches=launches, per_step_kernel_calls=per_step,
-        max_param_change=moved)
+        ctc_wide_kernel_calls=wide, max_param_change=moved)
     return launches
 
 
@@ -2367,10 +2519,15 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
                 "time_split_source": sp["source"]}
     xg = {(kind, r["mxu_bf16"]): r for kind in ("fwd", "bwd")
           for r in xg_results[kind] if (r["S"], r["T"]) == (S, T)}
-    ctc = CTC_SHAPE
-    ctc_note = ("F.ctc_loss forward and backward at CTC_SHAPE: the same "
-                "loss and gradient from the same recursions, one figure "
-                "for the alpha and beta pair")
+    ctc = train_results["ctc"]
+    ctc_extra = dict(
+        library_call="F.ctc_loss forward and backward from the logits at "
+        "CTC_SHAPE (log-softmax, recursions, gradient): the same loss and "
+        "gradient as the port's ctc_loss, whose time is loss_ms",
+        entry="ctc_alpha_beta (C entry ctc_alpha_beta_f32): one launch for "
+        "both recursions, the same figures in both rows",
+        **{k: ctc[k] for k in ("device_ms", "host_call_us", "wide_ms",
+                               "wide_device_ms", "loss_ms")})
     records = [
         kernel_record("lstmp_forward", "lstmp_forward.cu",
                       "lstm_pallas.py:43",
@@ -2394,16 +2551,14 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
                       train_results["bwd"], train_results["bwd"][-1],
                       bilstmp_bwd_bound(S, T, D, C, P),
                       **redesigned("bilstmp_train_bwd")),
-        kernel_record("ctc_alpha", "ctc_alpha_beta.cu", "ctc_pallas.py:44",
-                      launched("ctc_alpha"), train_results["ctc_alpha"],
-                      train_results["ctc_alpha"][-1],
-                      ctc_bound(ctc[0], ctc[1], ctc[2]),
-                      train_results["ctc_library_ms"], ctc_note),
-        kernel_record("ctc_beta", "ctc_alpha_beta.cu", "ctc_pallas.py:65",
-                      launched("ctc_beta"), train_results["ctc_beta"],
-                      train_results["ctc_beta"][-1],
-                      ctc_bound(ctc[0], ctc[1], ctc[2]),
-                      train_results["ctc_library_ms"], ctc_note),
+        kernel_record("ctc_alpha_beta/alpha", "ctc_alpha_beta.cu",
+                      "ctc_pallas.py:44", launched("ctc_alpha_beta"), [ctc],
+                      ctc, (ctc["bound_ms"], ctc["bound_by"]),
+                      ctc["library_ms"], **ctc_extra),
+        kernel_record("ctc_alpha_beta/beta", "ctc_alpha_beta.cu",
+                      "ctc_pallas.py:65", launched("ctc_alpha_beta"), [ctc],
+                      ctc, (ctc["bound_ms"], ctc["bound_by"]),
+                      ctc["library_ms"], **ctc_extra),
     ]
     for kind, line in (("fwd", 198), ("bwd", 234)):
         rows = lstm_results[kind]

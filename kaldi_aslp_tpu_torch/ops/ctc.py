@@ -6,9 +6,10 @@ EvalParallel, label expansion at :134-149).  Blank id 0 by default.
   - ``expand_labels`` and ``_transition_mask`` build the expanded label
     sequence l' (U' = 2U + 1) and the states a skip may enter;
   - ``ctc_alpha_beta`` gathers the emission scores and runs the two
-    recursions through ops/ctc_alpha_beta.py: the hand CUDA kernels on a
-    CUDA tensor, the plain loops over T (the equations of the JAX scan,
-    ops/ctc.py:63-159, ``_lse3`` included) on a CPU tensor;
+    recursions through ops/ctc_alpha_beta.py: on a CUDA tensor one launch
+    of the hand CUDA kernel for both (a warp per stream and recursion,
+    the state in registers), on a CPU tensor the plain loops over T (the
+    equations of the JAX scan, ops/ctc.py:63-159, ``_lse3`` included);
   - ``CtcLoss`` is the ``torch.autograd.Function`` counterpart of the JAX
     custom VJP: its backward is the occupancy formula
     dL/dlogit = softmax(logit) - gamma (ops/ctc.py:229-255), plain torch
@@ -18,11 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from kaldi_aslp_tpu_torch.ops.ctc_alpha_beta import (
-    NEG_INF,
-    ctc_alpha,
-    ctc_beta,
-)
+from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as recursions
+from kaldi_aslp_tpu_torch.ops.ctc_alpha_beta import NEG_INF
 
 
 def expand_labels(labels: torch.Tensor, blank: int = 0) -> torch.Tensor:
@@ -72,8 +70,8 @@ def ctc_alpha_beta(log_probs: torch.Tensor, labels: torch.Tensor,
         log_probs, labels, label_lengths, blank)
     in_lens = input_lengths.to(torch.int32)
     u_idx = torch.arange(lp_t.shape[2], device=log_probs.device)[None, :]
-    alphas = ctc_alpha(lp_t, skip_ok, in_lens, exp_lens)
-    betas = ctc_beta(lp_t, skip_ok, in_lens, exp_lens)
+    alphas, betas = recursions.ctc_alpha_beta(lp_t, skip_ok, in_lens,
+                                              exp_lens)
     last_t = (in_lens.long() - 1).clamp(0, T - 1)
     alpha_last = alphas[last_t, torch.arange(S, device=log_probs.device)]
     at_end = torch.where((u_idx == exp_lens[:, None] - 1)

@@ -29,6 +29,7 @@ from kaldi_aslp_tpu_torch.models.losses import (
     ctc_batch_loss,
     ctc_loss_spike_mask,
 )
+from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as recursions
 from kaldi_aslp_tpu_torch.ops.ctc import (
     NEG_INF,
     ctc_alpha_beta,
@@ -86,6 +87,34 @@ def test_alpha_beta_match_jax_pallas(case):
         _reachable(alphas.numpy()[:n, s], a_j[:n, s], f"alpha s={s}")
         _reachable(betas.numpy()[:n, s], b_j[:n, s], f"beta s={s}")
     np.testing.assert_allclose(nll.numpy(), np.asarray(nll_j), **TOL)
+
+
+@pytest.mark.parametrize("Up", [1, 2, 3, 33])
+def test_plain_recursions_match_jax_pallas_at_any_width(Up):
+    """The plain versions of the CUDA kernel at widths no wider than the
+    skip (U' = 1, 2), an even U' and a partial last group of 32, on direct
+    inputs: ragged expanded lengths down to 1, input lengths from 1 to T."""
+    S, T = 4, 9
+    rs = np.random.RandomState(Up)
+    exp_lens = rs.randint(1, Up + 1, S).astype(np.int32)
+    exp_lens[0], exp_lens[-1] = Up, 1
+    in_lens = rs.randint(1, T + 1, S).astype(np.int32)
+    in_lens[0] = T
+    valid = np.arange(Up)[None, :] < exp_lens[:, None]
+    lp = np.where(valid[None], rs.randn(T, S, Up) - 2.0,
+                  NEG_INF).astype(np.float32)
+    skip = ((rs.rand(S, Up) > 0.3) & valid).astype(np.float32)
+    a_j, b_j = ctc_alpha_beta_pallas(*(jnp.asarray(x) for x in
+                                       (lp, skip, in_lens, exp_lens)),
+                                     interpret=True)
+    alphas, betas = recursions.ctc_alpha_beta(
+        *(torch.from_numpy(x) for x in (lp, skip, in_lens, exp_lens)))
+    for s in range(S):
+        n = int(in_lens[s])
+        _reachable(alphas.numpy()[:n, s], np.asarray(a_j)[:n, s],
+                   f"alpha s={s}")
+        _reachable(betas.numpy()[:n, s], np.asarray(b_j)[:n, s],
+                   f"beta s={s}")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
