@@ -139,7 +139,24 @@ exits nonzero:
                 layer's gradients;
  13. bptt-step-split - one LSTM hybrid step at the reference's defaults
                 (S=100, T=20) split into forward, loss, backward and
-                update by CUDA events, with frames/s and peak memory.
+                update by CUDA events, with frames/s and peak memory;
+ 14. ctc-recipe - the phone-CTC recipe end to end on the card: the hard
+                corpus at the ladder's "small" size (RECIPE_CORPUS,
+                RECIPE_SIZES) synthesized on the host, its MFCC + deltas
+                + per-speaker CMVN on the card (the test set held
+                against the CPU), the bigram G from its ARPA text; the
+                recipe at the ladder's full-scale model (3 x BLstm,
+                C=320 a direction, 39 inputs, float32) and options, cut
+                to 2 iterations and the dense decoder (RECIPE_OPTS):
+                every loss evaluation (training step or CV batch) must
+                launch the CTC pair once and nothing else a hand kernel,
+                the second epoch's training loss must be below the
+                first's, decoding the test set again must give the same
+                WER, and final.ckpt must load with the best parameters;
+                one step at the corpus's longest batch split by CUDA
+                events with its kernel launches by torch.profiler; that
+                step and one utterance's posteriors on the card against
+                the CPU.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -285,6 +302,23 @@ MS_PER_STEP_KERNELS = {"bilstmp_train_fwd": 83.11,
 # section 6 records them (an H100 80GB HBM3 at 700 W): logged beside this
 # run's times, never in the kernel records
 MS_PER_STEP_LSTM = {"lstmp_train_fwd": 2.509, "lstmp_train_bwd": 4.406}
+# the CTC recipe (phase 14): the hard corpus at the ladder's "small" size
+# (kaldi_aslp_tpu/recipes/hard_ladder.py:82-87) and its BLSTM-CTC model at
+# full scale (:130-132) with the ladder's options (:298-303), cut to 2
+# iterations and the dense decoder (the beam decoder is not ported)
+RECIPE_CORPUS = dict(num_words=100, num_train_speakers=8,
+                     num_test_speakers=3, num_dev_speakers=3)
+RECIPE_SIZES = dict(num_train=60, num_test=20, num_dev=12, lm_pool_mult=8)
+RECIPE_OPTS = dict(model_type="blstm", hidden_dim=320, num_layers=3,
+                   learn_rate=0.06, auto_saddle=True, lfr_skip=3,
+                   num_streams=16, acoustic_scale=0.9, max_iters=2,
+                   decode_beam=0.0)
+# card vs CPU: MFCC + deltas + CMVN as the fbank tests hold them; a
+# training step's loss relative and gradients relative to each
+# parameter's largest |gradient| (float32, TF32 off); log posteriors
+RECIPE_FEAT_TOL = dict(rtol=1e-4, atol=1e-4)
+RECIPE_LOSS_RTOL, RECIPE_GRAD_RTOL, RECIPE_POST_ATOL = 1e-4, 1e-3, 1e-4
+RECIPE_SPLIT_REPS = 5
 
 
 def log(phase: str, **fields) -> None:
@@ -2406,6 +2440,329 @@ def bptt_step_split(model, dev):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+# -- phase 14: the CTC recipe --------------------------------------------------
+
+def recipe_corpus_phase():
+    """Build the hard corpus with its front end on the card; synthesize it
+    again (the same seeds), time each set's front end alone and hold the
+    test set's features against the port on the CPU."""
+    from kaldi_aslp_tpu_torch.feats.batch import compute_batched
+    from kaldi_aslp_tpu_torch.feats.mel import MelBanksOptions
+    from kaldi_aslp_tpu_torch.feats.mfcc import Mfcc, MfccOptions
+    from kaldi_aslp_tpu_torch.feats.window import FrameExtractionOptions
+    from kaldi_aslp_tpu_torch.recipes import hard_corpus as hc
+
+    opts = hc.HardCorpusOptions(**RECIPE_CORPUS)
+    t0 = time.perf_counter()
+    corpus = hc.build_corpus(opts, device="cuda", **RECIPE_SIZES)
+    build_s = time.perf_counter() - t0
+    syn = hc.synthesize_corpus(opts, **RECIPE_SIZES)
+    splits = ("train", "dev", "test")
+    extract_ms, audio_s = {}, {}
+    for split in splits:
+        waves = syn[f"{split}_waves"]
+        audio_s[split] = sum(len(w) for w in waves.values()) / hc.SAMP_FREQ
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hc.extract_mfcc_deltas_cmvn(waves, syn[f"{split}_utt2spk"],
+                                    device="cuda")
+        extract_ms[split] = 1e3 * (time.perf_counter() - t0) / len(waves)
+    waves = syn["test_waves"]
+    want = hc.extract_mfcc_deltas_cmvn(waves, syn["test_utt2spk"],
+                                       device="cpu")
+    feat_err = 0.0
+    for u, f in want.items():
+        got = corpus["test_feats"][u]
+        np.testing.assert_allclose(got, f, **RECIPE_FEAT_TOL)
+        feat_err = max(feat_err, float(np.abs(got - f).max()))
+    mfcc = Mfcc(FrameExtractionOptions(samp_freq=hc.SAMP_FREQ, dither=0.0),
+                MelBanksOptions(num_bins=23), MfccOptions())
+    mfcc_ms = cuda_ms(lambda: compute_batched(mfcc, waves), reps=5)
+    frames = [len(f) for split in splits
+              for f in corpus[f"{split}_feats"].values()]
+    log("corpus", utterances={s: len(corpus[f"{s}_feats"]) for s in splits},
+        audio_s=audio_s, frames=[min(frames), max(frames)],
+        feature_dim=next(iter(corpus["train_feats"].values())).shape[1],
+        phones=len(corpus["lang"].phones) - 1,
+        extract_ms_per_utt=extract_ms,
+        mfcc_ms_per_utt=mfcc_ms / len(waves), mfcc_utts_timed=len(waves),
+        feat_max_abs_err=feat_err, feat_tol=RECIPE_FEAT_TOL,
+        build_s=build_s)
+    return corpus
+
+
+def recipe_phase(corpus, workdir):
+    """The recipe end to end on the card: train, cross-validate, decode,
+    score, checkpoint; every loss evaluation is one CTC pair launch and
+    no other hand kernel runs."""
+    from kaldi_aslp_tpu_torch.decoder.viterbi import (
+        DecodeError,
+        PackedGraph,
+        ViterbiDecoder,
+    )
+    from kaldi_aslp_tpu_torch.fst import arpa_to_fst, ctc_lut
+    from kaldi_aslp_tpu_torch.ops.edit_distance import score_utterances
+    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
+    from kaldi_aslp_tpu_torch.recipes import CtcRecipe, CtcRecipeOptions
+    from kaldi_aslp_tpu_torch.train import load_checkpoint
+
+    lang = corpus["lang"]
+    t0 = time.perf_counter()
+    G = arpa_to_fst(corpus["arpa"], lang.words)
+    log("grammar", states=G.num_states, arcs=G.num_arcs,
+        seconds=time.perf_counter() - t0)
+    wrappers = train_counts()
+    others = (lstmp_forward, blstmp_forward)
+    for w in (*wrappers.values(), *others):
+        w.launches = 0
+    wrappers["ctc_alpha_beta"].wide = 0
+    rec = CtcRecipe(lang, CtcRecipeOptions(**RECIPE_OPTS))
+    work = os.path.join(workdir, "ctc_recipe")
+    t0 = time.perf_counter()
+    stats = rec.run(corpus["train_feats"], corpus["train_texts"],
+                    corpus["test_feats"], corpus["test_texts"], grammar=G,
+                    work_dir=work, dev_feats=corpus["dev_feats"],
+                    dev_texts=corpus["dev_texts"])
+    run_s = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    wide = wrappers["ctc_alpha_beta"].wide
+    inference = {w.__name__: w.launches for w in others}
+    for e in rec.epochs:
+        log("recipe_epoch", **e)
+    evaluations = sum(e["train_batches"] + e["cv_batches"]
+                      for e in rec.epochs)
+    if launches["ctc_alpha_beta"] != evaluations:
+        raise RuntimeError(f"{launches['ctc_alpha_beta']} CTC pair launches "
+                           f"for {evaluations} loss evaluations")
+    stray = {n: k for n, k in {**launches, **inference}.items()
+             if k and n != "ctc_alpha_beta"}
+    if stray:
+        raise RuntimeError(f"the recipe launched other kernels: {stray}")
+    losses = [e["train_loss"] for e in rec.epochs]
+    if not np.isfinite(losses).all() or not losses[1] < losses[0]:
+        raise RuntimeError(f"training loss did not fall: {losses}")
+    # decode the test set again, timed, from the recipe's own system
+    V = rec.num_outputs
+    dec = ViterbiDecoder(PackedGraph.from_fst(rec.tlg), ctc_lut(V))
+    post_s = dec_s = 0.0
+    hyps = {}
+    for u in sorted(corpus["test_feats"]):
+        t0 = time.perf_counter()
+        logp = rec.posteriors(corpus["test_feats"][u])
+        t1 = time.perf_counter()
+        try:
+            words, _, _ = dec.decode(rec.acoustic_scale
+                                     * (logp - rec.log_priors))
+        except DecodeError:
+            words = []
+        dec_s += time.perf_counter() - t1
+        post_s += t1 - t0
+        hyps[u] = [lang.words.sym(w) for w in words]
+    again = score_utterances(corpus["test_texts"], hyps)
+    if again.wer != stats.wer:
+        raise RuntimeError(f"decoding again gave WER {again.wer}, the "
+                           f"recipe {stats.wer}")
+    n = len(hyps)
+    log("recipe_decode", acoustic_scale=rec.acoustic_scale,
+        prior_scale=rec.prior_scale, dev_wer=rec.dev_wer,
+        greedy_per=rec.greedy_per, wer=stats.wer, report=stats.report(),
+        posteriors_ms_per_utt=1e3 * post_s / n,
+        decode_ms_per_utt=1e3 * dec_s / n, utts=n,
+        graph_states=rec.tlg.num_states, graph_arcs=rec.tlg.num_arcs,
+        run_s=run_s)
+    params, _, states, meta = load_checkpoint(os.path.join(work,
+                                                           "final.ckpt"))
+    if sorted(params) != sorted(rec.best_params) or any(
+            not torch.equal(params[k], rec.best_params[k].cpu())
+            for k in params):
+        raise RuntimeError("final.ckpt does not hold the best parameters")
+    if (not np.array_equal(states["log_priors"].numpy(), rec.log_priors)
+            or meta["wer"] != stats.wer):
+        raise RuntimeError(f"final.ckpt states or meta wrong: {meta}")
+    log("recipe", loss_evaluations=evaluations, launches=launches,
+        ctc_wide_kernel_calls=wide, inference_kernel_calls=inference,
+        checkpoint_keys=len(params), checkpoint_meta=meta)
+    return rec, launches, wide
+
+
+def recipe_ctc_check(rec, corpus):
+    """The CTC pair at each of the recipe's batches (its training and
+    cross-validation batches, on the trained net's emissions): one launch
+    a batch, on the kernel its plan names, against the plain recursions
+    on the same tensors."""
+    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+    from kaldi_aslp_tpu_torch.ops.ctc import ctc_emissions
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    pair = cab.ctc_alpha_beta
+    train, cv = rec.batches(corpus["train_feats"], corpus["train_texts"])
+    rec.net.eval()
+    rows = []
+    for batch in train + cv:
+        feats, labels, in_lens, lab_lens, mask = upload(
+            batch, torch.device("cuda"))
+        with torch.no_grad():
+            y, _ = rec.net(feats, mask=mask)
+            lp_t, skip_ok, _, _, exp_lens = ctc_emissions(
+                torch.log_softmax(y.float(), -1), labels, lab_lens)
+        args = (lp_t, skip_ok, in_lens.to(torch.int32), exp_lens)
+        plan = cab.plan_for(lp_t.shape[2])
+        before = (pair.launches, pair.wide)
+        got = pair(*args)
+        want = cab.ctc_alpha_beta_reference(*args)
+        torch.cuda.synchronize()
+        ran = (pair.launches - before[0], pair.wide - before[1])
+        if ran != (1, int(plan.wide)):
+            raise RuntimeError(f"U' = {lp_t.shape[2]}: (launches, wide) "
+                               f"{ran}, plan {plan}")
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **CTC_TOL)
+        rows.append({"S": lp_t.shape[1], "T": lp_t.shape[0],
+                     "ctc_states": lp_t.shape[2],
+                     "states_per_lane": plan.states_per_lane,
+                     "wide": plan.wide,
+                     "max_abs_err": max(finite_err(g, w)
+                                        for g, w in zip(got, want))})
+    log("recipe_ctc_pair", batches=rows, tol=CTC_TOL)
+    return {"batches": len(rows),
+            "ctc_states": sorted({r["ctc_states"] for r in rows}),
+            "states_per_lane": sorted({r["states_per_lane"] for r in rows}),
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def recipe_batch(rec, corpus):
+    """The corpus's longest training batch as the recipe batches it."""
+    from kaldi_aslp_tpu_torch.data.sequence import (
+        CtcBatcher,
+        CtcBatcherOptions,
+    )
+    o = rec.opts
+    src = ((u, f, rec.phone_labels(corpus["train_texts"][u]))
+           for u, f in sorted(corpus["train_feats"].items()))
+    batches = list(CtcBatcher(src, CtcBatcherOptions(
+        num_streams=o.num_streams, skip_width=o.lfr_skip,
+        bucket_time=o.bucket_time, bucket_labels=o.bucket_labels)))
+    return max(batches, key=lambda b: b.feats.shape[1])
+
+
+def recipe_step_split(rec, batch):
+    """One training step of the recipe's net at its longest batch, split
+    by CUDA events, and its kernel launches by torch.profiler."""
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.ops.ctc_alpha_beta import plan_for
+    from kaldi_aslp_tpu_torch.train import (
+        CtcTrainer,
+        NnetTrainOptions,
+        init_velocity,
+    )
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    net = rec._build_net(batch.feats.shape[2], rec.num_outputs).cuda()
+    net.load_state_dict(rec.best_params)
+    trainer = CtcTrainer(net, NnetTrainOptions(momentum=0.9))
+    velocity = init_velocity(net)
+    feats, labels, in_lens, lab_lens, mask = upload(batch,
+                                                    torch.device("cuda"))
+    lr = RECIPE_OPTS["learn_rate"]
+    trainer.step(velocity, (feats, labels, in_lens, lab_lens, mask), lr)
+    torch.cuda.synchronize()
+    splits = []
+    for _ in range(RECIPE_SPLIT_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for p in net.parameters():
+            p.grad = None
+        t0 = time.perf_counter()
+        ev[0].record()
+        y, _ = net(feats, mask=mask)
+        ev[1].record()
+        loss, _ = ctc_batch_loss(y, labels, in_lens, lab_lens)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        trainer._update(velocity, lr)
+        ev[4].record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+                      + [1e3 * host_s])
+    med = np.median(np.asarray(splits), axis=0)
+    step_ms = float(med[:4].sum())
+    counts = {}
+    by_kernel = device_ms_by_kernel(
+        lambda: trainer.step(velocity, (feats, labels, in_lens, lab_lens,
+                                        mask), lr), counts)
+    kernels = {k: c for k, c in counts.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    device_ms = sum(v for k, v in by_kernel.items() if k in kernels)
+    S, T, D = batch.feats.shape
+    Up = 2 * batch.labels.shape[1] + 1
+    log("recipe_step_split", S=S, T=T, D=D, C=RECIPE_OPTS["hidden_dim"],
+        layers=RECIPE_OPTS["num_layers"], U=batch.labels.shape[1],
+        ctc_states=Up, ctc_plan=vars(plan_for(Up)),
+        forward_ms=float(med[0]), loss_ms=float(med[1]),
+        backward_ms=float(med[2]), update_ms=float(med[3]),
+        step_ms=step_ms, host_step_ms=float(med[4]),
+        audio_s_per_s=float(batch.input_lengths.sum()) * 0.01
+        * RECIPE_OPTS["lfr_skip"] / (step_ms / 1e3),
+        kernel_launches_per_step=sum(kernels.values()),
+        kernels_by_name=len(kernels), device_busy_ms=device_ms,
+        device_busy_share=device_ms / step_ms,
+        top_kernels=dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6]),
+        reps=RECIPE_SPLIT_REPS)
+
+
+def recipe_cross_check(rec, batch, corpus):
+    """One step of the recipe's full-width net on the card and on the CPU
+    from the same parameters; one utterance's posteriors."""
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        net = rec._build_net(batch.feats.shape[2], rec.num_outputs).to(dev)
+        net.load_state_dict(rec.best_params)
+        net.train()
+        feats, labels, in_lens, lab_lens, mask = upload(batch, dev)
+        y, _ = net(feats, mask=mask)
+        loss, _ = ctc_batch_loss(y, labels, in_lens, lab_lens)
+        loss.backward()
+        u = sorted(corpus["test_feats"])[0]
+        x = torch.from_numpy(np.ascontiguousarray(
+            corpus["test_feats"][u][::RECIPE_OPTS["lfr_skip"]]))[None]
+        net.eval()
+        with torch.no_grad():
+            post = torch.log_softmax(net(x.to(dev))[0][0], dim=-1).cpu()
+        out[device] = (float(loss.detach()), {
+            n: p.grad.cpu() for n, p in net.named_parameters()}, post)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = {n: rel_err(g, out["cpu"][1][n])
+                for n, g in out["cuda"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    post_err = float((out["cuda"][2] - out["cpu"][2]).abs().max())
+    log("recipe_check", S=batch.feats.shape[0], T=batch.feats.shape[1],
+        loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0], loss_rel=loss_rel,
+        worst_grad=worst, worst_grad_rel=grad_rel[worst],
+        posteriors_frames=out["cpu"][2].shape[0],
+        posteriors_max_abs_err=post_err,
+        tol={"loss": RECIPE_LOSS_RTOL, "grad": RECIPE_GRAD_RTOL,
+             "posteriors": RECIPE_POST_ATOL})
+    if (loss_rel > RECIPE_LOSS_RTOL or grad_rel[worst] > RECIPE_GRAD_RTOL
+            or post_err > RECIPE_POST_ATOL):
+        raise RuntimeError(f"recipe card vs CPU: loss {loss_rel}, {worst} "
+                           f"{grad_rel[worst]}, posteriors {post_err}")
+
+
+def ctc_recipe_phase(workdir):
+    corpus = recipe_corpus_phase()
+    rec, launches, wide = recipe_phase(corpus, workdir)
+    ctc_check = recipe_ctc_check(rec, corpus)
+    batch = recipe_batch(rec, corpus)
+    recipe_step_split(rec, batch)
+    recipe_cross_check(rec, batch, corpus)
+    return launches, wide, ctc_check
+
+
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
@@ -2487,8 +2844,11 @@ def main() -> int:
         bptt_launches = bptt_train_phase(model, feats, targets, workdir)
         bptt_cross_check(model, feats, targets)
         bptt_step_split(model, dev)
+        runs["ctc_recipe"], recipe_wide, recipe_ctc = ctc_recipe_phase(
+            workdir)
     records = kernel_records(launches, runs, bptt_launches, kernel_results,
-                             train_results, xg_results, lstm_results)
+                             train_results, xg_results, lstm_results,
+                             recipe_wide, recipe_ctc)
     log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
@@ -2499,7 +2859,8 @@ def main() -> int:
 
 
 def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
-                   train_results, xg_results, lstm_results):
+                   train_results, xg_results, lstm_results, recipe_wide,
+                   recipe_ctc):
     """The ten kernels' JSON entries from the phases' results."""
     def launched(name):
         return {run: n[name] for run, n in runs.items() if n[name]}
@@ -2526,6 +2887,8 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
         "gradient as the port's ctc_loss, whose time is loss_ms",
         entry="ctc_alpha_beta (C entry ctc_alpha_beta_f32): one launch for "
         "both recursions, the same figures in both rows",
+        ctc_recipe_wide_kernel_calls=recipe_wide,
+        ctc_recipe_shapes=recipe_ctc,
         **{k: ctc[k] for k in ("device_ms", "host_call_us", "wide_ms",
                                "wide_device_ms", "loss_ms")})
     records = [
@@ -2552,11 +2915,13 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
                       bilstmp_bwd_bound(S, T, D, C, P),
                       **redesigned("bilstmp_train_bwd")),
         kernel_record("ctc_alpha_beta/alpha", "ctc_alpha_beta.cu",
-                      "ctc_pallas.py:44", launched("ctc_alpha_beta"), [ctc],
+                      "ctc_pallas.py:44", launched("ctc_alpha_beta"),
+                      [ctc, recipe_ctc],
                       ctc, (ctc["bound_ms"], ctc["bound_by"]),
                       ctc["library_ms"], **ctc_extra),
         kernel_record("ctc_alpha_beta/beta", "ctc_alpha_beta.cu",
-                      "ctc_pallas.py:65", launched("ctc_alpha_beta"), [ctc],
+                      "ctc_pallas.py:65", launched("ctc_alpha_beta"),
+                      [ctc, recipe_ctc],
                       ctc, (ctc["bound_ms"], ctc["bound_by"]),
                       ctc["library_ms"], **ctc_extra),
     ]

@@ -5,9 +5,10 @@ is held against.  Plain tensor code here is PyTorch; every kernel the
 JAX package wrote in Pallas for the TPU becomes a kernel written by hand
 for Hopper, with its CUDA sources in ``csrc/``.  The module names mirror
 the JAX package's (``models/``, ``ops/``, ``feats/``, ``decoder/``,
-``online/``, ``cli/``, ``utils/``) so each counterpart is easy to find.
+``online/``, ``train/``, ``data/``, ``fst/``, ``io/``, ``recipes/``,
+``cli/``, ``utils/``) so each counterpart is easy to find.
 
-The port never imports ``jax``.  From ``kaldi_aslp_tpu`` it shares only
-the numpy-only ``fst`` and ``hmm`` packages (graph building)."""
+The port never imports ``jax``, nor any module of ``kaldi_aslp_tpu``,
+not even a numpy-only one: it keeps its own copy of what it needs."""
 
 __version__ = "0.1.0"

@@ -22,7 +22,7 @@ class OnlineViterbiDecoder(ViterbiDecoder):
     """advance_decoding(chunk) / partial / finalize / reset."""
 
     def __init__(self, graph, tid_to_pdf, acoustic_scale=1.0,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(graph, tid_to_pdf, acoustic_scale, device=device)
         self.reset()
 

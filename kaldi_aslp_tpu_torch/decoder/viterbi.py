@@ -25,8 +25,15 @@ import numpy as np
 import torch
 
 from kaldi_aslp_tpu_torch.fst.fst import Fst
+from kaldi_aslp_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1e30
+
+
+class DecodeError(RuntimeError):
+    """The graph holds no complete path for these scores (the only
+    failure a caller may score as an empty hypothesis; a fault of the
+    card stays a plain RuntimeError)."""
 
 
 @dataclass
@@ -172,7 +179,7 @@ class ViterbiDecoder:
     def __init__(self, graph: PackedGraph, tid_to_pdf: np.ndarray,
                  acoustic_scale: float = 1.0,
                  word_ins_penalty: float = 0.0,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         if word_ins_penalty:
             # extra cost on every word-emitting arc (reference:
             # --word-ins-penalty in the scoring sweep)
@@ -184,7 +191,7 @@ class ViterbiDecoder:
         self.graph = graph
         self.tid_to_pdf = np.asarray(tid_to_pdf, np.int64)
         self.acoustic_scale = float(acoustic_scale)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._em, self._ep = _split(graph)
         self._arcs = _DeviceArcs(self._em, self._ep, self.tid_to_pdf,
                                  self.device)
@@ -226,7 +233,7 @@ class ViterbiDecoder:
         total = final_scores - g.final
         end_state = int(np.argmax(total))
         if not np.isfinite(total[end_state]) or total[end_state] <= NEG_INF:
-            raise RuntimeError("no complete path found (empty decode)")
+            raise DecodeError("no complete path found (empty decode)")
         ali = np.zeros(T, np.int32)
         words_rev: List[int] = []
         s = end_state
@@ -234,7 +241,7 @@ class ViterbiDecoder:
         while t >= 0:
             a = int(bps[t, s])
             if a < 0:
-                raise RuntimeError(f"broken backpointer at t={t} s={s}")
+                raise DecodeError(f"broken backpointer at t={t} s={s}")
             if g.olabel[a] > 0:
                 words_rev.append(int(g.olabel[a]))
             if g.ilabel[a] > 0:

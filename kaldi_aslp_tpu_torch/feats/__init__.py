@@ -1,1 +1,2 @@
-"""Feature front end (port of kaldi_aslp_tpu/feats/): fbank only so far."""
+"""Feature front end (port of kaldi_aslp_tpu/feats/): fbank, MFCC, deltas,
+CMVN and the bucketed batch extractor."""

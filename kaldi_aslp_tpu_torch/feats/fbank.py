@@ -2,14 +2,15 @@
 
 Port of kaldi_aslp_tpu/feats/fbank.py: one strided-frame gather, the
 window chain, one ``torch.fft.rfft`` and one matmul against the
-precomputed mel matrix, on the device the extractor was built for.  The
-JAX version pads the waveform to a 1 s bucket for XLA's compile cache;
-the values do not depend on it, and the port does not pad."""
+precomputed mel matrix, on the device the extractor was built for.
+:func:`mel_energies` is that chain up to the mel product, shared with
+feats/mfcc.py; :func:`extract_one` runs one waveform through a batched
+``compute`` as the JAX extractors do (see there for padding)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,10 +20,73 @@ from kaldi_aslp_tpu_torch.feats.window import (
     FrameExtractionOptions,
     compute_power_spectrum,
     extract_frames,
+    num_frames,
     process_window,
     window_function,
 )
 from kaldi_aslp_tpu_torch.utils.config import Config
+from kaldi_aslp_tpu_torch.utils.device import resolve_device
+
+
+def as_waveform(waveform, device: torch.device) -> torch.Tensor:
+    """[num_samples] array or tensor -> float32 tensor on ``device``."""
+    if isinstance(waveform, torch.Tensor):
+        return waveform.to(device, torch.float32)
+    return torch.from_numpy(np.array(waveform, np.float32)).to(device)
+
+
+def extract_one(compute: Callable[[torch.Tensor], torch.Tensor],
+                waveform: torch.Tensor,
+                frame_opts: FrameExtractionOptions) -> torch.Tensor:
+    """[num_samples] -> [num_frames, dim] through a batched ``compute``.
+
+    With snip_edges=False the last frames reach past the end of the
+    waveform and reflect what lies there.  The JAX extractors zero-pad
+    every waveform to whole seconds first (a bucket for XLA's compile
+    cache), so their last frames reflect zeros; the same padding here
+    gives the JAX package's values and those of feats/batch.py's
+    ``compute_batched``.  With snip_edges=True no frame reaches past the
+    end, and nothing is padded."""
+    if frame_opts.snip_edges:
+        return compute(waveform)
+    n = waveform.shape[-1]
+    bucket = int(frame_opts.samp_freq)  # 1 s
+    padded = -(-max(n, 1) // bucket) * bucket
+    out = compute(torch.nn.functional.pad(waveform, (0, padded - n)))
+    return out[:num_frames(n, frame_opts)]
+
+
+def mel_energies(waveform: torch.Tensor, frame_opts: FrameExtractionOptions,
+                 mel_opts: MelBanksOptions, window: torch.Tensor,
+                 mel: torch.Tensor, raw_energy: bool, use_power: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., num_samples] -> (mel energies [..., num_frames, num_bins],
+    log-energy [..., num_frames]): framing, the window chain, the power
+    (or magnitude) spectrum and the mel product."""
+    frames = extract_frames(waveform, frame_opts)
+    frames, log_energy = process_window(frames, frame_opts, window,
+                                        raw_energy=raw_energy)
+    power = compute_power_spectrum(frames, frame_opts)
+    if not use_power:
+        power = torch.sqrt(power)
+    # reference MelBanks covers bins [0, N/2); drop the nyquist bin
+    energies = torch.matmul(power[..., :-1], mel)
+    if mel_opts.htk_mode:
+        # HTK-like energy floor (reference: mel-computations.cc
+        # MelBanks::Compute "if (htk_mode_ && energy < 1.0)")
+        energies = torch.clamp(energies, min=1.0)
+    return energies, log_energy
+
+
+def floored_log(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.clamp(x, min=torch.finfo(torch.float32).tiny))
+
+
+def floored_energy(log_energy: torch.Tensor,
+                   energy_floor: float) -> torch.Tensor:
+    if energy_floor > 0.0:
+        return torch.clamp(log_energy, min=float(np.log(energy_floor)))
+    return log_energy
 
 
 @dataclasses.dataclass
@@ -44,12 +108,12 @@ class Fbank:
         mel_opts: Optional[MelBanksOptions] = None,
         fbank_opts: Optional[FbankOptions] = None,
         vtln_warp: float = 1.0,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         self.frame_opts = frame_opts or FrameExtractionOptions()
         self.mel_opts = mel_opts or MelBanksOptions()
         self.opts = fbank_opts or FbankOptions()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._mel = torch.from_numpy(np.asarray(
             mel_banks_matrix(self.mel_opts, self.frame_opts, vtln_warp),
             np.float32)).to(self.device)
@@ -63,33 +127,20 @@ class Fbank:
     def __call__(self, waveform) -> torch.Tensor:
         """[num_samples] (array or tensor) -> [num_frames, dim] on the
         extractor's device."""
-        if isinstance(waveform, torch.Tensor):
-            wav = waveform.to(self.device, torch.float32)
-        else:
-            wav = torch.from_numpy(np.array(waveform, np.float32)).to(
-                self.device)
-        frames = extract_frames(wav, self.frame_opts)
-        frames, log_energy = process_window(
-            frames, self.frame_opts, self._window,
-            raw_energy=self.opts.raw_energy)
-        power = compute_power_spectrum(frames, self.frame_opts)
-        if not self.opts.use_power:
-            power = torch.sqrt(power)
-        # reference MelBanks covers bins [0, N/2); drop the nyquist bin
-        mel_energies = torch.matmul(power[:, :-1], self._mel)
-        if self.mel_opts.htk_mode:
-            # HTK-like energy floor (reference: mel-computations.cc
-            # MelBanks::Compute "if (htk_mode_ && energy < 1.0)")
-            mel_energies = torch.clamp(mel_energies, min=1.0)
+        return extract_one(self.compute, as_waveform(waveform, self.device),
+                           self.frame_opts)
+
+    def compute(self, waveform: torch.Tensor) -> torch.Tensor:
+        """[..., num_samples] float32 on the extractor's device ->
+        [..., num_frames, dim]."""
+        feats, log_energy = mel_energies(
+            waveform, self.frame_opts, self.mel_opts, self._window,
+            self._mel, self.opts.raw_energy, self.opts.use_power)
         if self.opts.use_log_fbank:
-            mel_energies = torch.log(torch.clamp(
-                mel_energies, min=torch.finfo(torch.float32).tiny))
+            feats = floored_log(feats)
         if self.opts.use_energy:
-            if self.opts.energy_floor > 0.0:
-                log_energy = torch.clamp(
-                    log_energy, min=float(np.log(self.opts.energy_floor)))
-            col = log_energy[:, None]
+            col = floored_energy(log_energy, self.opts.energy_floor)[..., None]
             if self.opts.htk_compat:
-                return torch.cat([mel_energies, col], dim=-1)
-            return torch.cat([col, mel_energies], dim=-1)
-        return mel_energies
+                return torch.cat([feats, col], dim=-1)
+            return torch.cat([col, feats], dim=-1)
+        return feats

@@ -1,0 +1,101 @@
+"""Post-processing feature transforms: deltas and CMVN.
+
+Port of the parts of kaldi_aslp_tpu/feats/functions.py the hard corpus
+needs (``DeltaFeaturesOptions``, ``delta_scales``, ``add_deltas``,
+``acc_cmvn_stats``, ``apply_cmvn``; reference: src/feat/
+feature-functions.{h,cc} DeltaFeatures, src/transform/cmvn.{h,cc}).
+Deltas are gathers and weighted sums over a fixed context on the
+features' device; CMVN stats keep the reference's 2 x (dim+1)
+accumulator layout in float64, on the features' device."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from kaldi_aslp_tpu_torch.utils.config import Config
+
+
+@dataclasses.dataclass
+class DeltaFeaturesOptions(Config):
+    order: int = 2
+    window: int = 2  # context half-width per order
+
+
+def delta_scales(opts: DeltaFeaturesOptions) -> List[np.ndarray]:
+    """Per-order regression coefficient vectors (reference:
+    feature-functions.cc DeltaFeatures::DeltaFeatures — iterated
+    autocorrelation-normalized linear slopes)."""
+    scales = [np.array([1.0], dtype=np.float64)]
+    for _ in range(opts.order):
+        prev = scales[-1]
+        window = opts.window
+        if window == 0:
+            raise ValueError("delta window must be > 0")
+        prev_offset = (len(prev) - 1) // 2
+        cur_offset = prev_offset + window
+        cur = np.zeros(len(prev) + 2 * window, dtype=np.float64)
+        normalizer = 0.0
+        for j in range(-window, window + 1):
+            normalizer += j * j
+            for k in range(-prev_offset, prev_offset + 1):
+                cur[j + k + cur_offset] += j * prev[k + prev_offset]
+        cur /= normalizer
+        scales.append(cur)
+    return [s.astype(np.float32) for s in scales]
+
+
+def add_deltas(feats: torch.Tensor,
+               opts: Optional[DeltaFeaturesOptions] = None) -> torch.Tensor:
+    """[T, D] -> [T, D * (order + 1)] with edge-replicated context, the
+    terms summed in the order of the JAX and numpy versions."""
+    opts = opts or DeltaFeaturesOptions()
+    T = feats.shape[0]
+    frames = torch.arange(T, device=feats.device)
+    outputs = []
+    for scale in delta_scales(opts):
+        offset = (len(scale) - 1) // 2
+        acc = torch.zeros_like(feats)
+        for j in range(-offset, offset + 1):
+            w = float(scale[j + offset])
+            if w == 0.0:
+                continue
+            acc = acc + w * feats[torch.clamp(frames + j, 0, T - 1)]
+        outputs.append(acc)
+    return torch.cat(outputs, dim=-1)
+
+
+def acc_cmvn_stats(feats: Union[torch.Tensor, np.ndarray],
+                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Accumulate ``feats`` [T, D] into the Kaldi 2 x (D+1) float64 stats
+    matrix on the features' device: row 0 [sum_x..., count], row 1
+    [sum_x^2..., 0].  As in the JAX package, each utterance's sums are
+    taken in the features' own precision before they are added."""
+    feats = torch.as_tensor(feats)
+    dim = feats.shape[1]
+    if stats is None:
+        stats = torch.zeros((2, dim + 1), dtype=torch.float64,
+                            device=feats.device)
+    stats[0, :dim] += feats.sum(dim=0).double()
+    stats[0, dim] += feats.shape[0]
+    stats[1, :dim] += (feats * feats).sum(dim=0).double()
+    return stats
+
+
+def apply_cmvn(feats: torch.Tensor, stats: torch.Tensor,
+               norm_vars: bool = False) -> torch.Tensor:
+    """(reference: transform/cmvn.cc ApplyCmvn)."""
+    dim = stats.shape[1] - 1
+    count = float(stats[0, dim])
+    if count < 1.0:
+        raise ValueError("no frames in CMVN stats")
+    mean = stats[0, :dim] / count
+    out = feats - mean.to(feats.dtype)
+    if norm_vars:
+        var = stats[1, :dim] / count - mean * mean
+        out = out * (1.0 / torch.sqrt(torch.clamp(var, min=1e-20))
+                     ).to(feats.dtype)
+    return out

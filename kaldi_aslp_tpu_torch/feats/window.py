@@ -80,15 +80,17 @@ def window_function(opts: FrameExtractionOptions) -> np.ndarray:
 
 def extract_frames(waveform: torch.Tensor,
                    opts: FrameExtractionOptions) -> torch.Tensor:
-    """[num_samples] -> [num_frames, window_size] strided frame matrix."""
+    """[..., num_samples] -> [..., num_frames, window_size] strided frame
+    matrix (a batch of equal-length waveforms frames row by row)."""
     n = num_frames(waveform.shape[-1], opts)
     shift, size = opts.window_shift, opts.window_size
     if n == 0:
-        return waveform.new_zeros((0, size))
+        return waveform.new_zeros(waveform.shape[:-1] + (0, size))
     dev = waveform.device
     if opts.snip_edges:
         starts = torch.arange(n, device=dev) * shift
-        return waveform[starts[:, None] + torch.arange(size, device=dev)]
+        return waveform[..., starts[:, None]
+                        + torch.arange(size, device=dev)]
     # reflect-pad so each frame is centered on its shift window
     # (reference: feature-window.cc ExtractWindow, snip_edges=false)
     starts = torch.arange(n, device=dev) * shift + shift // 2 - size // 2
@@ -96,7 +98,7 @@ def extract_frames(waveform: torch.Tensor,
     num_samples = waveform.shape[-1]
     idx = torch.where(idx < 0, -idx - 1, idx)
     idx = torch.where(idx >= num_samples, 2 * num_samples - idx - 1, idx)
-    return waveform[idx]
+    return waveform[..., idx]
 
 
 def process_window(frames: torch.Tensor, opts: FrameExtractionOptions,
@@ -125,7 +127,7 @@ def process_window(frames: torch.Tensor, opts: FrameExtractionOptions,
 def compute_power_spectrum(frames: torch.Tensor,
                            opts: FrameExtractionOptions) -> torch.Tensor:
     """Zero-pad to padded_window_size, rfft, |.|^2:
-    [num_frames, window_size] -> [num_frames, padded/2+1]
+    [..., num_frames, window_size] -> [..., num_frames, padded/2+1]
     (reference: srfft + ComputePowerSpectrum, feature-functions.cc)."""
     spec = torch.fft.rfft(frames, n=opts.padded_window_size, dim=-1)
     return (spec.real ** 2 + spec.imag ** 2).to(torch.float32)

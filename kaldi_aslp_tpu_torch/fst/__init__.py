@@ -11,11 +11,14 @@ from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst, SymbolTable
 from kaldi_aslp_tpu_torch.fst.lang import (
     Lang,
     Lexicon,
+    arpa_to_fst,
     make_lexicon_fst,
     make_unigram_grammar,
+    parse_arpa,
 )
 
 __all__ = ["EPS", "Arc", "Fst", "SymbolTable", "Lang", "Lexicon",
-           "make_lexicon_fst", "make_unigram_grammar", "determinize",
+           "make_lexicon_fst", "make_unigram_grammar", "parse_arpa",
+           "arpa_to_fst", "determinize",
            "minimize_encoded", "ctc_lut", "expand_ctc",
            "make_ctc_decode_graph"]

@@ -12,7 +12,9 @@ from kaldi_aslp_tpu_torch.models.component import (
 )
 from kaldi_aslp_tpu_torch.models.nnet import Nnet
 from kaldi_aslp_tpu_torch.models.recurrent import (
+    BLstm,
     BLstmProjectedStreams,
+    Lstm,
     LstmProjectedStreams,
 )
 from kaldi_aslp_tpu_torch.models.simple import AffineTransform

@@ -89,10 +89,14 @@ class Nnet(nn.Module):
             comp.reset_parameters(generator)
 
     def init_state(self, num_streams: int,
-                   device: Union[str, torch.device] = "cpu"
+                   device: Optional[Union[str, torch.device]] = None
                    ) -> Dict[str, Any]:
         """Zero carried state of every recurrent node, keyed by node id
-        (kaldi_aslp_tpu/models/nnet.py:108)."""
+        (kaldi_aslp_tpu/models/nnet.py:108), on ``device``, by default
+        the device of the net's parameters (a net without parameters has
+        no recurrent node, so no state to place)."""
+        if device is None:
+            device = next((p.device for p in self.parameters()), "cpu")
         out = {}
         for i, comp in enumerate(self.nodes):
             s = comp.init_state(num_streams, torch.device(device))

@@ -35,7 +35,7 @@ class OnlineFeatureOptions(Config):
 
 class OnlineFeaturePipeline:
     def __init__(self, opts: Optional[OnlineFeatureOptions] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         self.opts = opts or OnlineFeatureOptions()
         if self.opts.feature_type != "fbank":
             raise NotImplementedError(

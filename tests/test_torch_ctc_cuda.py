@@ -93,10 +93,12 @@ def test_kernels_match_plain_versions(S, T, V, U):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Up", [1, 3, 31, 32, 33, 81, 255, 256, 257])
+@pytest.mark.parametrize("Up", [1, 3, 31, 32, 33, 81, 129, 161, 255, 256,
+                                257])
 def test_every_width_matches_plain_versions(Up):
-    """One to eight states a lane, partial last groups, the largest U' of
-    the register path (256) and one past it (the wide kernel)."""
+    """One to eight states a lane, partial last groups (129 and 161 are
+    five and six states a lane, the CTC recipe's widths), the largest U'
+    of the register path (256) and one past it (the wide kernel)."""
     dev = _card()
     _hold_one_launch(_direct_args(5, 37, Up, Up, dev),
                      wide=Up > 32 * cab.REG_MAX_K)

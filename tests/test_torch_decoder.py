@@ -17,7 +17,11 @@ from kaldi_aslp_tpu.decoder.online import (
 from kaldi_aslp_tpu.fst import Lang, Lexicon, make_unigram_grammar
 from kaldi_aslp_tpu.fst.ctc_graph import ctc_lut, make_ctc_decode_graph
 from kaldi_aslp_tpu_torch.decoder.online import OnlineViterbiDecoder
-from kaldi_aslp_tpu_torch.decoder.viterbi import PackedGraph, ViterbiDecoder
+from kaldi_aslp_tpu_torch.decoder.viterbi import (
+    DecodeError,
+    PackedGraph,
+    ViterbiDecoder,
+)
 from kaldi_aslp_tpu_torch.online.endpoint import (
     OnlineEndpointConfig,
     endpoint_detected,
@@ -121,10 +125,24 @@ def test_word_insertion_penalty_matches_jax():
         want = JaxViterbiDecoder(JaxPackedGraph.from_fst(tlg), lut,
                                  word_ins_penalty=penalty).decode(ll)
         got = ViterbiDecoder(PackedGraph.from_fst(tlg), lut,
-                             word_ins_penalty=penalty).decode(ll)
+                             word_ins_penalty=penalty,
+                             device="cpu").decode(ll)
         assert got[0] == want[0]
         np.testing.assert_array_equal(got[1], want[1])
         assert got[2] == pytest.approx(want[2], rel=1e-5)
+
+
+def test_no_complete_path_is_a_decode_error():
+    """Scores that leave no path through the graph: JAX raises a
+    RuntimeError, the port its subclass DecodeError, the one failure a
+    recipe may score as an empty hypothesis."""
+    lang, tlg, lut = _ctc_setup()
+    ll = np.full((6, len(lang.phones)), -np.inf, np.float32)
+    with pytest.raises(RuntimeError, match="no complete path"):
+        JaxViterbiDecoder(JaxPackedGraph.from_fst(tlg), lut).decode(ll)
+    with pytest.raises(DecodeError, match="no complete path"):
+        ViterbiDecoder(PackedGraph.from_fst(tlg), lut,
+                       device="cpu").decode(ll)
 
 
 def test_packed_graph_matches_jax():
