@@ -146,17 +146,28 @@ exits nonzero:
                 + per-speaker CMVN on the card (the test set held
                 against the CPU), the bigram G from its ARPA text; the
                 recipe at the ladder's full-scale model (3 x BLstm,
-                C=320 a direction, 39 inputs, float32) and options, cut
-                to 2 iterations and the dense decoder (RECIPE_OPTS):
-                every loss evaluation (training step or CV batch) must
-                launch the CTC pair once and nothing else a hand kernel,
-                the second epoch's training loss must be below the
-                first's, decoding the test set again must give the same
-                WER, and final.ckpt must load with the best parameters;
-                one step at the corpus's longest batch split by CUDA
-                events with its kernel launches by torch.profiler; that
-                step and one utterance's posteriors on the card against
-                the CPU.
+                C=320 a direction, 39 inputs, float32) and options, the
+                beam decoder at beam 32 and 2048 tokens included, cut to
+                2 iterations (RECIPE_OPTS): every loss evaluation
+                (training step or CV batch) must launch the CTC pair once
+                and nothing else a hand kernel, the second epoch's
+                training loss must be below the first's, decoding the
+                test set again must give the same WER, and final.ckpt
+                must load with the best parameters; one step at the
+                corpus's longest batch split by CUDA events with its
+                kernel launches by torch.profiler; that step and one
+                utterance's posteriors on the card against the CPU;
+ 15. beam     - the recipe's dev and test sets decoded by the beam
+                decoder at the ladder's settings (beam 32, K=2048) on the
+                card, each utterance held to the same decode on the CPU
+                (the same words and alignment, the score within 1e-3
+                relative) and timed; the test set at a wide beam with K
+                past the graph's states held to the dense Viterbi's words
+                on the card, both timed; one utterance's kernel launches
+                a frame and device time by torch.profiler; no hand kernel
+                may launch;
+ 16. budget-sweep - the port's nn_budget_sweep on the same recipe (dev
+                WER at K = 2048, 1024, 512, 256), each K timed.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -304,15 +315,22 @@ MS_PER_STEP_KERNELS = {"bilstmp_train_fwd": 83.11,
 MS_PER_STEP_LSTM = {"lstmp_train_fwd": 2.509, "lstmp_train_bwd": 4.406}
 # the CTC recipe (phase 14): the hard corpus at the ladder's "small" size
 # (kaldi_aslp_tpu/recipes/hard_ladder.py:82-87) and its BLSTM-CTC model at
-# full scale (:130-132) with the ladder's options (:298-303), cut to 2
-# iterations and the dense decoder (the beam decoder is not ported)
+# full scale (:130-132) with the ladder's options (:298-303, the beam
+# decoder at beam 32 and the recipe's 2048 tokens), cut to 2 iterations
 RECIPE_CORPUS = dict(num_words=100, num_train_speakers=8,
                      num_test_speakers=3, num_dev_speakers=3)
 RECIPE_SIZES = dict(num_train=60, num_test=20, num_dev=12, lm_pool_mult=8)
 RECIPE_OPTS = dict(model_type="blstm", hidden_dim=320, num_layers=3,
                    learn_rate=0.06, auto_saddle=True, lfr_skip=3,
                    num_streams=16, acoustic_scale=0.9, max_iters=2,
-                   decode_beam=0.0)
+                   decode_beam=32.0, decode_max_active=2048)
+# the beam phases (15, 16): the card's decode against the CPU's, the score
+# relative (float32 adds in the same order on both sides); the wide beam
+# that holds the beam decoder to the dense Viterbi; the sweep's budgets
+# (kaldi_aslp_tpu/recipes/decode_budget_sweep.py:97)
+BEAM_SCORE_RTOL = 1e-3
+WIDE_BEAM = 1e9
+BUDGETS = (2048, 1024, 512, 256)
 # card vs CPU: MFCC + deltas + CMVN as the fbank tests hold them; a
 # training step's loss relative and gradients relative to each
 # parameter's largest |gradient| (float32, TF32 off); log posteriors
@@ -2495,11 +2513,8 @@ def recipe_phase(corpus, workdir):
     """The recipe end to end on the card: train, cross-validate, decode,
     score, checkpoint; every loss evaluation is one CTC pair launch and
     no other hand kernel runs."""
-    from kaldi_aslp_tpu_torch.decoder.viterbi import (
-        DecodeError,
-        PackedGraph,
-        ViterbiDecoder,
-    )
+    from kaldi_aslp_tpu_torch.decoder.beam import BeamSearchDecoder, CsrGraph
+    from kaldi_aslp_tpu_torch.decoder.viterbi import DecodeError, PackedGraph
     from kaldi_aslp_tpu_torch.fst import arpa_to_fst, ctc_lut
     from kaldi_aslp_tpu_torch.ops.edit_distance import score_utterances
     from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
@@ -2541,9 +2556,13 @@ def recipe_phase(corpus, workdir):
     losses = [e["train_loss"] for e in rec.epochs]
     if not np.isfinite(losses).all() or not losses[1] < losses[0]:
         raise RuntimeError(f"training loss did not fall: {losses}")
-    # decode the test set again, timed, from the recipe's own system
+    # decode the test set again, timed, from the recipe's own system with
+    # the recipe's decoder settings
     V = rec.num_outputs
-    dec = ViterbiDecoder(PackedGraph.from_fst(rec.tlg), ctc_lut(V))
+    dec = BeamSearchDecoder(
+        CsrGraph.from_packed(PackedGraph.from_fst(rec.tlg)), ctc_lut(V),
+        beam=RECIPE_OPTS["decode_beam"],
+        max_active=RECIPE_OPTS["decode_max_active"])
     post_s = dec_s = 0.0
     hyps = {}
     for u in sorted(corpus["test_feats"]):
@@ -2760,7 +2779,144 @@ def ctc_recipe_phase(workdir):
     batch = recipe_batch(rec, corpus)
     recipe_step_split(rec, batch)
     recipe_cross_check(rec, batch, corpus)
-    return launches, wide, ctc_check
+    return launches, wide, ctc_check, rec, corpus
+
+
+def hand_kernel_wrappers():
+    """Every hand kernel's wrapper, by name."""
+    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
+    return {**train_counts(), "lstmp_forward": lstmp_forward,
+            "blstmp_forward": blstmp_forward}
+
+
+def timed_decode(dec, loglikes):
+    """(words, alignment, score) of one decode, or None where the graph
+    holds no path, and its wall ms to the result on the host."""
+    from kaldi_aslp_tpu_torch.decoder.viterbi import DecodeError
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = dec.decode(loglikes)
+    except DecodeError:
+        out = None
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def beam_phase(rec, corpus):
+    """The recipe's dev and test sets through the beam decoder at the
+    ladder's settings on the card, each held to the CPU's decode; the
+    test set at a wide beam held to the dense Viterbi; one utterance's
+    launches a frame by torch.profiler."""
+    from kaldi_aslp_tpu_torch.decoder.beam import BeamSearchDecoder, CsrGraph
+    from kaldi_aslp_tpu_torch.decoder.viterbi import (
+        PackedGraph,
+        ViterbiDecoder,
+    )
+    from kaldi_aslp_tpu_torch.fst import ctc_lut
+
+    packed = PackedGraph.from_fst(rec.tlg)
+    csr = CsrGraph.from_packed(packed)
+    lut = ctc_lut(rec.num_outputs)
+    settings = dict(beam=RECIPE_OPTS["decode_beam"],
+                    max_active=RECIPE_OPTS["decode_max_active"])
+    card = BeamSearchDecoder(csr, lut, **settings)
+    cpu = BeamSearchDecoder(csr, lut, device="cpu", **settings)
+    loglikes = {}
+    for split in ("dev", "test"):
+        for u in sorted(corpus[f"{split}_feats"]):
+            logp = rec.posteriors(corpus[f"{split}_feats"][u])
+            loglikes[split, u] = (rec.acoustic_scale
+                                  * (logp - rec.log_priors))
+    wrappers = hand_kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    card_ms, cpu_ms, frames, worst, failed = [], [], 0, 0.0, 0
+    for key, m in loglikes.items():
+        got, ms = timed_decode(card, m)
+        want, ms_cpu = timed_decode(cpu, m)
+        card_ms.append(ms)
+        cpu_ms.append(ms_cpu)
+        frames += len(m)
+        if (got is None) != (want is None):
+            raise RuntimeError(f"{key}: card decode {got}, CPU {want}")
+        if got is None:
+            failed += 1
+            continue
+        rel = abs(got[2] - want[2]) / abs(want[2])
+        worst = max(worst, rel)
+        if (got[0] != want[0] or not np.array_equal(got[1], want[1])
+                or rel > BEAM_SCORE_RTOL):
+            raise RuntimeError(f"{key}: card {got[0]} {got[2]}, CPU "
+                               f"{want[0]} {want[2]}")
+    stray = {n: w.launches for n, w in wrappers.items() if w.launches}
+    if stray:
+        raise RuntimeError(f"the beam decoder launched hand kernels: {stray}")
+    # wide: every state fits the frontier and every arc the budgets, so
+    # nothing is pruned and the best path is the dense Viterbi's
+    K_wide = 1 << (packed.num_states - 1).bit_length()
+    wide = BeamSearchDecoder(csr, lut, beam=WIDE_BEAM, max_active=K_wide)
+    dense = ViterbiDecoder(packed, lut)
+    wide_ms, dense_ms = [], []
+    for key, m in loglikes.items():
+        if key[0] != "test":
+            continue
+        got, ms = timed_decode(wide, m)
+        want, ms_dense = timed_decode(dense, m)
+        wide_ms.append(ms)
+        dense_ms.append(ms_dense)
+        if got is None or want is None or got[0] != want[0] or abs(
+                got[2] - want[2]) > BEAM_SCORE_RTOL * abs(want[2]):
+            raise RuntimeError(f"{key}: wide beam {got}, dense {want}")
+    # one utterance, the longest test one: launches a frame, device time
+    key = max((k for k in loglikes if k[0] == "test"),
+              key=lambda k: len(loglikes[k]))
+    counts = {}
+    by_kernel = device_ms_by_kernel(lambda: card.decode(loglikes[key]),
+                                    counts)
+    kernels = {k: c for k, c in counts.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    _, one_ms = timed_decode(card, loglikes[key])
+    T = len(loglikes[key])
+    device_ms = sum(v for k, v in by_kernel.items() if k in kernels)
+    n = len(card_ms)
+    log("beam", utts=n, frames=frames, decode_failures=failed,
+        K=card.K, A=card.A, A_em=card.A_em, eps_rounds=card.eps_rounds,
+        beam=card.beam, graph_states=packed.num_states,
+        graph_arcs=len(packed.src),
+        card_ms_per_utt=float(np.mean(card_ms)),
+        card_ms_per_frame=float(np.sum(card_ms)) / frames,
+        cpu_ms_per_utt=float(np.mean(cpu_ms)),
+        worst_score_rel=worst, score_rtol=BEAM_SCORE_RTOL,
+        wide={"K": K_wide, "A": wide.A, "A_em": wide.A_em,
+              "utts": len(wide_ms), "beam_ms_per_utt": float(
+                  np.mean(wide_ms)),
+              "dense_ms_per_utt": float(np.mean(dense_ms))},
+        profiled={"T": T, "ms": one_ms,
+                  "kernel_launches": sum(kernels.values()),
+                  "launches_per_frame": sum(kernels.values()) / T,
+                  "device_busy_ms": device_ms,
+                  "device_busy_share": device_ms / one_ms,
+                  "top_kernels": dict(sorted(
+                      kernels.items(), key=lambda kv: -kv[1])[:6])})
+
+
+def budget_sweep_phase(rec, corpus):
+    """The port's nn_budget_sweep on the trained recipe, each K timed."""
+    from kaldi_aslp_tpu_torch.recipes.decode_budget_sweep import (
+        nn_budget_sweep,
+    )
+    wer, seconds = {}, {}
+    for K in BUDGETS:
+        t0 = time.perf_counter()
+        wer.update(nn_budget_sweep(rec, corpus["dev_feats"],
+                                   corpus["dev_texts"], budgets=[K]))
+        seconds[K] = time.perf_counter() - t0
+    if sorted(wer) != sorted(BUDGETS) or not all(
+            np.isfinite(v) for v in wer.values()):
+        raise RuntimeError(f"budget sweep gave {wer}")
+    log("budget_sweep", dev_wer=wer, seconds=seconds,
+        total_s=sum(seconds.values()), dev_utts=len(corpus["dev_feats"]),
+        acoustic_scale=rec.acoustic_scale, recipe_dev_wer=rec.dev_wer)
 
 
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
@@ -2844,8 +3000,10 @@ def main() -> int:
         bptt_launches = bptt_train_phase(model, feats, targets, workdir)
         bptt_cross_check(model, feats, targets)
         bptt_step_split(model, dev)
-        runs["ctc_recipe"], recipe_wide, recipe_ctc = ctc_recipe_phase(
-            workdir)
+        (runs["ctc_recipe"], recipe_wide, recipe_ctc, rec,
+         corpus) = ctc_recipe_phase(workdir)
+        beam_phase(rec, corpus)
+        budget_sweep_phase(rec, corpus)
     records = kernel_records(launches, runs, bptt_launches, kernel_results,
                              train_results, xg_results, lstm_results,
                              recipe_wide, recipe_ctc)

@@ -1,2 +1,3 @@
 """Decoding (port of kaldi_aslp_tpu/decoder/): the acoustic-score
-bridge and the exact dense Viterbi, whole-utterance and online."""
+bridge, the exact dense Viterbi (whole-utterance and online) and the
+beam decoder's best-path decode."""

@@ -35,9 +35,10 @@ def as_waveform(waveform, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(waveform, np.float32)).to(device)
 
 
-def extract_one(compute: Callable[[torch.Tensor], torch.Tensor],
+def extract_one(compute: Callable[..., torch.Tensor],
                 waveform: torch.Tensor,
-                frame_opts: FrameExtractionOptions) -> torch.Tensor:
+                frame_opts: FrameExtractionOptions,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """[num_samples] -> [num_frames, dim] through a batched ``compute``.
 
     With snip_edges=False the last frames reach past the end of the
@@ -48,24 +49,28 @@ def extract_one(compute: Callable[[torch.Tensor], torch.Tensor],
     ``compute_batched``.  With snip_edges=True no frame reaches past the
     end, and nothing is padded."""
     if frame_opts.snip_edges:
-        return compute(waveform)
+        return compute(waveform, generator)
     n = waveform.shape[-1]
     bucket = int(frame_opts.samp_freq)  # 1 s
     padded = -(-max(n, 1) // bucket) * bucket
-    out = compute(torch.nn.functional.pad(waveform, (0, padded - n)))
+    out = compute(torch.nn.functional.pad(waveform, (0, padded - n)),
+                  generator)
     return out[:num_frames(n, frame_opts)]
 
 
 def mel_energies(waveform: torch.Tensor, frame_opts: FrameExtractionOptions,
                  mel_opts: MelBanksOptions, window: torch.Tensor,
-                 mel: torch.Tensor, raw_energy: bool, use_power: bool = True
+                 mel: torch.Tensor, raw_energy: bool, use_power: bool = True,
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., num_samples] -> (mel energies [..., num_frames, num_bins],
-    log-energy [..., num_frames]): framing, the window chain, the power
-    (or magnitude) spectrum and the mel product."""
+    log-energy [..., num_frames]): framing, the window chain (dithered
+    from ``generator`` when one is given), the power (or magnitude)
+    spectrum and the mel product."""
     frames = extract_frames(waveform, frame_opts)
     frames, log_energy = process_window(frames, frame_opts, window,
-                                        raw_energy=raw_energy)
+                                        raw_energy=raw_energy,
+                                        generator=generator)
     power = compute_power_spectrum(frames, frame_opts)
     if not use_power:
         power = torch.sqrt(power)
@@ -124,18 +129,24 @@ class Fbank:
     def dim(self) -> int:
         return self.mel_opts.num_bins + (1 if self.opts.use_energy else 0)
 
-    def __call__(self, waveform) -> torch.Tensor:
+    def __call__(self, waveform,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
         """[num_samples] (array or tensor) -> [num_frames, dim] on the
-        extractor's device."""
+        extractor's device; dithered only when ``generator`` is given."""
         return extract_one(self.compute, as_waveform(waveform, self.device),
-                           self.frame_opts)
+                           self.frame_opts, generator)
 
-    def compute(self, waveform: torch.Tensor) -> torch.Tensor:
+    def compute(self, waveform: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """[..., num_samples] float32 on the extractor's device ->
-        [..., num_frames, dim]."""
+        [..., num_frames, dim]; each waveform of the batch draws its
+        dither from ``generator`` in turn."""
         feats, log_energy = mel_energies(
             waveform, self.frame_opts, self.mel_opts, self._window,
-            self._mel, self.opts.raw_energy, self.opts.use_power)
+            self._mel, self.opts.raw_energy, self.opts.use_power,
+            generator)
         if self.opts.use_log_fbank:
             feats = floored_log(feats)
         if self.opts.use_energy:

@@ -6,8 +6,8 @@ liftering, on the device the extractor was built for.  ``compute``
 takes a batch of equal-length waveforms [..., samples] (feats/batch.py
 stacks a corpus that way); ``__call__`` takes one waveform, padded as
 the JAX extractor pads it where that changes a value (fbank.py's
-:func:`extract_one`).  Dither is not ported (feats/window.py:
-process_window raises)."""
+:func:`extract_one`).  Both dither only when given a ``generator``
+(feats/window.py: process_window)."""
 
 from __future__ import annotations
 
@@ -96,18 +96,23 @@ class Mfcc:
     def dim(self) -> int:
         return self.opts.num_ceps
 
-    def __call__(self, waveform) -> torch.Tensor:
+    def __call__(self, waveform,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
         """[num_samples] (array or tensor) -> [num_frames, dim] on the
-        extractor's device."""
+        extractor's device; dithered only when ``generator`` is given."""
         return extract_one(self.compute, as_waveform(waveform, self.device),
-                           self.frame_opts)
+                           self.frame_opts, generator)
 
-    def compute(self, waveform: torch.Tensor) -> torch.Tensor:
+    def compute(self, waveform: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """[..., num_samples] float32 on the extractor's device ->
-        [..., num_frames, dim]."""
+        [..., num_frames, dim]; each waveform of the batch draws its
+        dither from ``generator`` in turn."""
         energies, log_energy = mel_energies(
             waveform, self.frame_opts, self.mel_opts, self._window,
-            self._mel, self.opts.raw_energy)
+            self._mel, self.opts.raw_energy, generator=generator)
         feats = torch.matmul(floored_log(energies), self._dct)
         if self._lifter is not None:
             feats = feats * self._lifter

@@ -5,14 +5,17 @@ src/feat/feature-functions.h:73-132, feature-window.cc).  All frames of a
 waveform are one [num_frames, frame_length] tensor and every step is a
 batched tensor op.  Option defaults mirror the reference exactly.
 
-Dither is not ported: the online pipeline runs with ``dither=0.0``
-(kaldi_aslp_tpu/online/feature_pipeline.py:45), and ``process_window``
-raises if asked for it."""
+Dither follows the JAX package's contract (its ``key`` is a
+``torch.Generator`` here): frames are dithered only when a generator is
+passed, whatever ``opts.dither`` says.  The draws come from torch's
+generator, not JAX's PRNG, so dithered values agree with JAX's in
+distribution, not bit for bit."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -101,15 +104,30 @@ def extract_frames(waveform: torch.Tensor,
     return waveform[..., idx]
 
 
+def dither_noise(shape, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Standard normal float32 draws of ``shape`` from ``generator``, on
+    ``device``.  The leading axes are drawn one slice at a time in order,
+    so each waveform of a batch takes its own draw in turn (the role of
+    the JAX package's ``fold_in`` per utterance)."""
+    shape = tuple(shape)
+    rows = [torch.randn(shape[-2:], generator=generator,
+                        device=generator.device, dtype=torch.float32)
+            for _ in range(math.prod(shape[:-2]))]
+    return torch.stack(rows).reshape(shape).to(device)
+
+
 def process_window(frames: torch.Tensor, opts: FrameExtractionOptions,
-                   window: torch.Tensor, raw_energy: bool = True):
-    """DC removal -> (raw log-energy) -> preemphasis -> window.
+                   window: torch.Tensor, raw_energy: bool = True,
+                   generator: Optional[torch.Generator] = None):
+    """Dither -> DC removal -> (raw log-energy) -> preemphasis -> window.
 
     Returns (processed_frames, log_energy), in the reference's order
-    (feature-window.cc ProcessWindow)."""
-    if opts.dither != 0.0:
-        raise NotImplementedError(
-            "dither is not ported yet; use dither=0.0")
+    (feature-window.cc ProcessWindow).  Frames are dithered only when a
+    ``generator`` is given (kaldi_aslp_tpu/feats/window.py:124-127)."""
+    if opts.dither != 0.0 and generator is not None:
+        frames = frames + opts.dither * dither_noise(
+            frames.shape, generator, frames.device)
     if opts.remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     tiny = torch.finfo(torch.float32).tiny

@@ -24,10 +24,12 @@ What differs from the JAX recipe, and why:
   - the dev selection of (acoustic_scale, prior_scale) stays on the
     recipe (``self.acoustic_scale``, ``self.prior_scale``); the JAX
     recipe writes it into the caller's options (recipes/ctc.py:297-298);
-  - options the port does not have raise: a ``transport`` other than
-    "f32" (data/transport.py and the epoch cache are not ported, by
-    design) and ``decode_beam > 0`` (the beam decoder, ROADMAP queue 1
-    item 4)."""
+  - a ``transport`` other than "f32" raises (data/transport.py and the
+    epoch cache are not ported, by design).
+
+``decode_beam > 0`` decodes with the beam-pruned decoder
+(decoder/beam.py) at ``decode_max_active`` tokens, as the JAX recipe
+does; the default 0 keeps the exact dense Viterbi."""
 
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from kaldi_aslp_tpu_torch.data.sequence import CtcBatcher, CtcBatcherOptions
+from kaldi_aslp_tpu_torch.decoder.beam import BeamSearchDecoder, CsrGraph
 from kaldi_aslp_tpu_torch.decoder.viterbi import (
     DecodeError,
     PackedGraph,
@@ -101,8 +104,11 @@ class CtcRecipeOptions(Config):
     prior_scale: float = 1.0
     # feature bytes over the host->device link: only "f32" is ported
     transport: str = "f32"
-    # > 0: the beam-pruned decoder, not ported yet (raises)
+    # > 0: decode with the beam-pruned decoder at this beam instead of
+    # the exact dense DP (mandatory when the TLG outgrows the dense
+    # [T, S] table)
     decode_beam: float = 0.0
+    decode_max_active: int = 2048
     # low frame rate: take every k-th frame in training AND decode
     # (reference: the --skip-width of aslp-nnet-train-ctc-streams)
     lfr_skip: int = 1
@@ -125,11 +131,6 @@ class CtcRecipe:
                 f"transport={self.opts.transport!r}: only 'f32' is ported "
                 "(data/transport.py and the epoch cache are not ported, "
                 "by design)")
-        if self.opts.decode_beam > 0:
-            raise NotImplementedError(
-                "decode_beam > 0: the beam decoder is not ported yet "
-                "(ROADMAP queue 1 item 4); use decode_beam=0 for the "
-                "exact dense Viterbi")
         self.device = resolve_device(device)
         # CTC inventory: blank=0, outputs 1..N = phone ids
         self.num_outputs = len(lang.phones) + 1
@@ -262,8 +263,14 @@ class CtcRecipe:
         tlg = make_ctc_decode_graph(self.lang, grammar)
         # acoustic_scale lives outside the decoder (the loglike matrix is
         # scaled instead), so one decoder serves the whole dev sweep
-        dec = ViterbiDecoder(PackedGraph.from_fst(tlg), ctc_lut(V),
-                             acoustic_scale=1.0, device=self.device)
+        if opts.decode_beam > 0:
+            dec = BeamSearchDecoder(
+                CsrGraph.from_packed(PackedGraph.from_fst(tlg)),
+                ctc_lut(V), acoustic_scale=1.0, beam=opts.decode_beam,
+                max_active=opts.decode_max_active, device=self.device)
+        else:
+            dec = ViterbiDecoder(PackedGraph.from_fst(tlg), ctc_lut(V),
+                                 acoustic_scale=1.0, device=self.device)
 
         @torch.no_grad()
         def posteriors(feats: np.ndarray) -> np.ndarray:

@@ -6,7 +6,7 @@ test hypotheses); the port's copies of tests/test_recipes.py::
 test_ctc_recipe and tests/test_saddle.py::
 test_ctc_recipe_crosses_saddle_with_auto_policy with the JAX tests' own
 thresholds; its ``final.ckpt`` loaded by JAX; the caller's options left
-alone; the unported options refused; a run with ``jax`` blocked; and the
+alone; the unported transports refused; a run with ``jax`` blocked; and the
 CTC trainer CLI on the recipe's cells.
 
 The CV-loss tolerance is 1e-3 relative: three epochs of momentum SGD
@@ -34,6 +34,7 @@ from kaldi_aslp_tpu.train.checkpoint import (
 )
 from kaldi_aslp_tpu.train.newbob import NewbobScheduler as JaxNewbob
 from kaldi_aslp_tpu_torch.cli.__main__ import main as cli_main
+from kaldi_aslp_tpu_torch.decoder.beam import BeamSearchDecoder
 from kaldi_aslp_tpu_torch.decoder.viterbi import DecodeError, ViterbiDecoder
 from kaldi_aslp_tpu_torch.fst import Lang, Lexicon
 from kaldi_aslp_tpu_torch.io import int_vector_writer, matrix_writer
@@ -150,14 +151,17 @@ def _recording(monkeypatch, module):
     return calls
 
 
+@pytest.mark.parametrize("decode_beam", [0.0, 32.0])
 @pytest.mark.parametrize("model_type,hidden", [("lstm", 32), ("blstm", 8)])
 def test_recipe_matches_jax_for_three_iterations(tmp_path, monkeypatch,
-                                                 model_type, hidden):
+                                                 model_type, hidden,
+                                                 decode_beam):
     """The same decisions, CV losses and test hypotheses as the JAX
-    recipe, both starting from the JAX recipe's initial parameters."""
+    recipe, both starting from the JAX recipe's initial parameters; at
+    ``decode_beam=32`` both decode with their beam decoders."""
     (tr_f, tr_t), (te_f, te_t) = _toy(seed=5)
     opts = dict(TOY_OPTS, model_type=model_type, hidden_dim=hidden,
-                max_iters=3)
+                max_iters=3, decode_beam=decode_beam)
 
     jax_reports = []
     inner = JaxNewbob.report
@@ -176,6 +180,14 @@ def test_recipe_matches_jax_for_three_iterations(tmp_path, monkeypatch,
         jax.random.PRNGKey(777))
 
     port_scored = _recording(monkeypatch, port_ctc)
+    decoder = BeamSearchDecoder if decode_beam else ViterbiDecoder
+    decoded = []
+    inner_decode = decoder.decode
+
+    def decode(self, loglikes):
+        decoded.append(len(loglikes))
+        return inner_decode(self, loglikes)
+    monkeypatch.setattr(decoder, "decode", decode)
     rec = CtcRecipe(Lang.build(Lexicon.from_text(LEXICON)),
                     CtcRecipeOptions(**opts), device="cpu")
     rec._init_params = lambda net: net.load_state_dict(
@@ -192,6 +204,7 @@ def test_recipe_matches_jax_for_three_iterations(tmp_path, monkeypatch,
         assert refs == refs_j and hyps == hyps_j
     assert dataclasses.asdict(stats) == dataclasses.asdict(jstats)
     assert rec.greedy_per == jrec.greedy_per
+    assert len(decoded) == len(te_f)
     np.testing.assert_allclose(rec.log_priors, jrec.log_priors, rtol=1e-3,
                                atol=1e-4)
 
@@ -220,11 +233,6 @@ def test_unported_options_raise():
     lang = Lang.build(Lexicon.from_text(LEXICON))
     with pytest.raises(ValueError, match="transport"):
         CtcRecipe(lang, CtcRecipeOptions(transport="bf16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        CtcRecipe(lang, CtcRecipeOptions(decode_beam=32.0), device="cpu")
-    # the beam decoder's max-active knob waits for the beam decoder
-    with pytest.raises(TypeError, match="decode_max_active"):
-        CtcRecipeOptions(decode_max_active=2048)
 
 
 def test_only_a_decode_without_a_path_scores_as_deletions(tmp_path,

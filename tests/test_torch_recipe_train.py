@@ -43,6 +43,7 @@ from kaldi_aslp_tpu.train.saddle import (
     SaddleDetector as JaxSaddleDetector,
     SaddleOptions as JaxSaddleOptions,
 )
+from kaldi_aslp_tpu_torch.decoder.beam import BeamSearchDecoder
 from kaldi_aslp_tpu_torch.decoder.online import OnlineViterbiDecoder
 from kaldi_aslp_tpu_torch.decoder.viterbi import PackedGraph, ViterbiDecoder
 from kaldi_aslp_tpu_torch.feats.fbank import Fbank
@@ -306,6 +307,7 @@ def _tiny_graph():
 
 
 CONSTRUCTORS = {
+    "BeamSearchDecoder": lambda: BeamSearchDecoder(*_tiny_graph()),
     "ViterbiDecoder": lambda: ViterbiDecoder(*_tiny_graph()),
     "OnlineViterbiDecoder": lambda: OnlineViterbiDecoder(*_tiny_graph()),
     "Fbank": lambda: Fbank(),
