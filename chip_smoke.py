@@ -167,7 +167,27 @@ exits nonzero:
                 a frame and device time by torch.profiler; no hand kernel
                 may launch;
  16. budget-sweep - the port's nn_budget_sweep on the same recipe (dev
-                WER at K = 2048, 1024, 512, 256), each K timed.
+                WER at K = 2048, 1024, 512, 256), each K timed;
+ 17. latgen   - Kaldi's offline chain on the flagship through the port's
+                CLI, in process: 40-dim fbank of the 4 serving utterances,
+                aslp-nnet-forward on the card (3 blstmp_forward launches an
+                utterance, none per-step; the loglikes within 1e-3 of the
+                CPU's), latgen-faster-mapped at its defaults (K = 7000,
+                beam 16, lattice beam 8) on each utterance's first
+                LATGEN_FRAMES frames, timed by part (frame loop, record
+                prune, host build), its lattices equal to the CPU's to the
+                bit, one decode's launches a frame and device busy share
+                by torch.profiler; lattice-copy to text, lattice-scale,
+                lattice-best-path (equal to latgen's words) and compute-wer
+                against the dense Viterbi's words; lattice-determinize on
+                the first DET_FRAMES frames, timed;
+ 18. lattice-score - decode_wer_dev_test on the beam phase's dev and test
+                sets at the ladder's decode settings (beam 32, K = 2048,
+                lattice beam 8, LMWT 4..15) on the card: the same lattices
+                and WER at every LMWT as the CPU's, every lattice holding
+                the decoder's best path, one decode's launches a frame.
+                Both lattice phases run their CPU side in a child process
+                beside the card's (lattice_cpu_child).
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -180,6 +200,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -331,6 +352,20 @@ RECIPE_OPTS = dict(model_type="blstm", hidden_dim=320, num_layers=3,
 BEAM_SCORE_RTOL = 1e-3
 WIDE_BEAM = 1e9
 BUDGETS = (2048, 1024, 512, 256)
+# the lattice phases (17, 18): the flagship chain's utterances (the serving
+# phase's synthesized audio, forwarded whole), the frames of each that
+# latgen-faster-mapped and the lattice tools take (random weights give
+# nearly flat posteriors: about 7,000 lattice arcs a frame at the tool's
+# defaults, and the host build, text copy and CPU check cost about 0.3 s
+# a frame on the CPU), and the frames lattice-determinize takes (the
+# subset construction's states grow exponentially with the frames: 8,531
+# at 8 frames on a random-posterior lattice); the recipe's lattice beam
+# and LMWT sweep
+LATGEN_UTTS = 4
+LATGEN_FRAMES = 32
+DET_FRAMES = 6
+LATTICE_BEAM = 8.0
+LMWT_RANGE = range(4, 16)
 # card vs CPU: MFCC + deltas + CMVN as the fbank tests hold them; a
 # training step's loss relative and gradients relative to each
 # parameter's largest |gradient| (float32, TF32 off); log posteriors
@@ -2919,6 +2954,496 @@ def budget_sweep_phase(rec, corpus):
         acoustic_scale=rec.acoustic_scale, recipe_dev_wer=rec.dev_wer)
 
 
+def timed_methods(cls, names):
+    """Wrap the methods ``names`` of ``cls`` so each call's wall ms (after
+    a card sync on both sides) is appended to ``times[name]``; returns
+    (times, undo)."""
+    times = {n: [] for n in names}
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+    return times, undo
+
+
+def lattice_arcs(lat):
+    """A lattice's arc set with its costs, for exact comparison."""
+    return sorted((a.t, a.src, a.dst, a.tid, a.words, a.graph_cost,
+                   a.acoustic_cost) for a in lat.arcs)
+
+
+def decode_summary(words, ali, score, lat):
+    """One lattice decode as JSON values: words, alignment, the score's
+    bits, the lattice's arc count and a digest of its arcs and finals
+    with their costs (equal digests: equal lattices to the bit)."""
+    digest = hashlib.sha256(repr((lattice_arcs(lat), sorted(
+        lat.final_costs.items()))).encode()).hexdigest()
+    return {"words": list(words), "ali": np.asarray(ali).tolist(),
+            "score": float(score).hex(), "arcs": len(lat.arcs),
+            "lattice": digest}
+
+
+def read_ints(path):
+    """{key: [ints]} of a text int-vector ark."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            key, *vals = line.split()
+            out[key] = [int(v) for v in vals]
+    return out
+
+
+def save_packed(path, g):
+    np.savez(path, src=g.src, dst=g.dst, ilabel=g.ilabel, olabel=g.olabel,
+             weight=g.weight, final=g.final,
+             meta=np.asarray([g.start, g.num_states, g.eps_diameter]))
+
+
+def load_packed(path):
+    from kaldi_aslp_tpu_torch.decoder import PackedGraph
+
+    z = np.load(path)
+    start, num_states, eps_diameter = (int(v) for v in z["meta"])
+    return PackedGraph(src=z["src"], dst=z["dst"], ilabel=z["ilabel"],
+                       olabel=z["olabel"], weight=z["weight"],
+                       final=z["final"], start=start,
+                       num_states=num_states, eps_diameter=eps_diameter)
+
+
+def scored_lattices(device, packed, lut, sets, kw):
+    """decode_wer_dev_test on ``device`` with each decode's lattice and
+    best path, and each LMWT sweep's WERs, kept in call order."""
+    from kaldi_aslp_tpu_torch.decoder import BeamSearchDecoder
+    from kaldi_aslp_tpu_torch.recipes import score_util
+
+    lats, sweeps = [], []
+    cls = BeamSearchDecoder
+    decode_lattice, sweep = cls.decode_lattice, score_util._sweep_with_failures
+
+    def keep(self, *a, **k):
+        out = decode_lattice(self, *a, **k)
+        lats.append(out)
+        return out
+
+    def keep_sweep(*a):
+        out = sweep(*a)
+        sweeps.append({str(k): v.wer for k, v in out.items()})
+        return out
+    cls.decode_lattice, score_util._sweep_with_failures = keep, keep_sweep
+    try:
+        t0 = time.perf_counter()
+        test_wer, dev_wer, lmwt = score_util.decode_wer_dev_test(
+            packed, lut, *sets["dev"], *sets["test"], device=device, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        cls.decode_lattice, score_util._sweep_with_failures = decode_lattice, \
+            sweep
+    return {"test_wer": test_wer, "dev_wer": dev_wer, "lmwt": lmwt,
+            "seconds": seconds, "sweeps": sweeps, "results": lats,
+            "decodes": [decode_summary(*r) for r in lats]}
+
+
+def lattice_cpu_child(job):
+    """In a process of its own, beside the card's run: the CPU side of
+    the lattice phases from the job file's inputs, printed as one JSON
+    line.  ``latgen``: the CPU's forward of the utterances (saved beside
+    the job) and its lattice decode of the card's cut loglikes; ``score``:
+    decode_wer_dev_test on the CPU."""
+    from kaldi_aslp_tpu_torch.decoder import (
+        BeamSearchDecoder,
+        CsrGraph,
+        nnet_forward,
+    )
+    from kaldi_aslp_tpu_torch.io import sequential_matrix_reader
+    from kaldi_aslp_tpu_torch.models import Nnet
+
+    torch.set_num_threads(4)
+    with open(job) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    if spec["kind"] == "latgen":
+        net, _ = Nnet.load(spec["model"], "cpu")
+        feats = dict(sequential_matrix_reader(f"ark:{spec['feats']}"))
+        np.savez(spec["forward_out"],
+                 **{k: nnet_forward(net, x) for k, x in feats.items()})
+        dec = BeamSearchDecoder(
+            CsrGraph.from_packed(load_packed(spec["graph"])),
+            np.loadtxt(spec["tid2pdf"], dtype=np.int64), device="cpu",
+            **spec["decoder"])
+        out = {"decodes": [decode_summary(*dec.decode_lattice(
+            x, lattice_beam=spec["lattice_beam"])) for _, x in
+            sequential_matrix_reader(f"ark:{spec['loglikes']}")],
+            "last_record_drops": dec.last_record_drops}
+    else:
+        z = np.load(spec["loglikes"])
+        sets = {}
+        for split in ("dev", "test"):
+            ll = {k.split("/", 1)[1]: z[k] for k in z.files
+                  if k.startswith(split + "/")}
+            sets[split] = (ll, spec["refs"][split])
+        out = scored_lattices("cpu", load_packed(spec["graph"]),
+                              np.asarray(spec["lut"]), sets, spec["kw"])
+        del out["results"]
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def start_cpu_child(workdir, spec):
+    """The CPU side of a lattice phase in a child process (joined by
+    ``cpu_child_result``)."""
+    job = os.path.join(workdir, f"cpu_{spec['kind']}.json")
+    with open(job, "w") as f:
+        json.dump(spec, f)
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.lattice_cpu_child({job!r})"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def cpu_child_result(child):
+    out, err = child.communicate(timeout=600)
+    if child.returncode != 0:
+        raise RuntimeError(f"the CPU process failed: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def latgen_phase(paths, workdir):
+    """Kaldi's offline chain on the flagship through the port's CLI, in
+    process: aslp-nnet-forward on the card, latgen-faster-mapped at its
+    defaults, lattice-copy to text, lattice-scale, lattice-best-path and
+    compute-wer against the dense Viterbi's words; lattice-determinize on
+    each utterance's first DET_FRAMES frames.  The CPU's forward and
+    lattices, from a child process running beside the card's, must equal
+    the card's.  Returns the forward's blstmp_forward launches."""
+    from kaldi_aslp_tpu_torch.decoder import (
+        BeamSearchDecoder,
+        PackedGraph,
+        ViterbiDecoder,
+        nnet_forward,
+    )
+    from kaldi_aslp_tpu_torch.feats.fbank import Fbank
+    from kaldi_aslp_tpu_torch.feats.mel import MelBanksOptions
+    from kaldi_aslp_tpu_torch.feats.window import FrameExtractionOptions
+    from kaldi_aslp_tpu_torch.fst.fst import Fst
+    from kaldi_aslp_tpu_torch.io import (
+        matrix_writer,
+        sequential_lattice_reader,
+        sequential_matrix_reader,
+    )
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
+
+    model, tid2pdf, tlg, _words = paths
+    work = os.path.join(workdir, "latgen")
+    os.makedirs(work)
+
+    def at(name):
+        return os.path.join(work, name)
+
+    fbank = Fbank(FrameExtractionOptions(dither=0.0),
+                  MelBanksOptions(num_bins=FEAT_DIM))
+    feats = {}
+    for i in range(LATGEN_UTTS):
+        pcm = np.frombuffer(synth_pcm(i, 3.0 + 0.25 * i), "<i2")
+        feats[f"utt{i}"] = fbank(pcm.astype(np.float32)).cpu().numpy()
+    with matrix_writer(f"ark:{at('feats.ark')}") as w:
+        for k, v in feats.items():
+            w[k] = v
+    frames = sum(len(v) for v in feats.values())
+
+    # aslp-nnet-forward on the card: 3 BLSTMP launches an utterance
+    for wrapper in (blstmp_forward, lstmp_forward):
+        wrapper.launches = wrapper.per_step = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, _ = run_cli(["aslp-nnet-forward", model, f"ark:{at('feats.ark')}",
+                     f"ark:{at('ll.ark')}"])
+    torch.cuda.synchronize()
+    forward_cli_s = time.perf_counter() - t0
+    launches = blstmp_forward.launches
+    if rc != 0 or launches != LAYERS * LATGEN_UTTS or blstmp_forward.per_step \
+            or lstmp_forward.launches:
+        raise RuntimeError(
+            f"aslp-nnet-forward exited {rc} with {launches} two-direction "
+            f"launches ({blstmp_forward.per_step} per-step, "
+            f"{lstmp_forward.launches} one-direction) for {LATGEN_UTTS} "
+            "utterances")
+    ll_full = dict(sequential_matrix_reader(f"ark:{at('ll.ark')}"))
+    # latgen and the lattice tools on each utterance's first LATGEN_FRAMES
+    ll = {k: x[:LATGEN_FRAMES] for k, x in ll_full.items()}
+    with matrix_writer(f"ark:{at('ll_cut.ark')}") as w:
+        for k, x in ll.items():
+            w[k] = x
+    with open(tlg) as f:
+        packed = PackedGraph.from_fst(Fst.from_text(f.read()))
+    save_packed(at("graph.npz"), packed)
+    child = start_cpu_child(work, {
+        "kind": "latgen", "model": model, "feats": at("feats.ark"),
+        "forward_out": at("cpu_forward.npz"), "graph": at("graph.npz"),
+        "tid2pdf": tid2pdf, "loglikes": at("ll_cut.ark"),
+        "decoder": {"acoustic_scale": 0.1, "beam": 16.0,
+                    "max_active": 7000}, "lattice_beam": 8.0})
+    # the forward warm, by utterance
+    net, _ = Nnet.load(model, "cuda")
+    fwd_ms = []
+    for x in feats.values():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nnet_forward(net, x)
+        torch.cuda.synchronize()
+        fwd_ms.append(1e3 * (time.perf_counter() - t0))
+
+    # latgen-faster-mapped at its defaults on the card, timed by part;
+    # each utterance's result kept for the CPU check
+    cls = BeamSearchDecoder
+    times, undo = timed_methods(cls, ("_record_forward",
+                                      "_prune_records_device",
+                                      "_build_lattice", "decode_lattice"))
+    results, planes, card_decoders = [], [], []
+    decode_lattice, record_forward = cls.decode_lattice, cls._record_forward
+
+    def keep(self, *a, **k):
+        card_decoders.append(self)
+        out = decode_lattice(self, *a, **k)
+        results.append(out)
+        return out
+
+    def keep_planes(self, *a, **k):
+        out = record_forward(self, *a, **k)
+        planes.append((out[4].shape, out[5].shape))
+        return out
+    cls.decode_lattice, cls._record_forward = keep, keep_planes
+    try:
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["latgen-faster-mapped", tid2pdf, tlg,
+                         f"ark:{at('ll_cut.ark')}", f"ark:{at('lat.ark')}",
+                         f"ark,t:{at('words.txt')}"])
+        latgen_cli_s = time.perf_counter() - t0
+    finally:
+        cls.decode_lattice, cls._record_forward = decode_lattice, \
+            record_forward
+        undo()
+    if rc != 0 or len(results) != LATGEN_UTTS:
+        raise RuntimeError(f"latgen-faster-mapped exited {rc}, "
+                           f"{len(results)} lattices")
+    card = card_decoders[0]
+    if card.device.type != "cuda" or (card.K, card.beam, card.acoustic_scale) \
+            != (7000, 16.0, 0.1):
+        raise RuntimeError(f"latgen decoded on {card.device} at K={card.K}")
+    drops = card.last_record_drops
+    # one utterance's launches a frame and device busy share
+    key = max(ll, key=lambda k: len(ll[k]))
+    counts = {}
+    by_kernel = device_ms_by_kernel(
+        lambda: card.decode_lattice(ll[key], lattice_beam=8.0), counts)
+    kernels = {n: c for n, c in counts.items()
+               if not n.startswith(("Memcpy", "Memset"))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.decode_lattice(ll[key], lattice_beam=8.0)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    device_ms = sum(v for n, v in by_kernel.items() if n in kernels)
+
+    # the lattice tools, and the dense Viterbi's words as the reference
+    steps = [["lattice-copy", f"ark:{at('lat.ark')}", f"ark,t:{at('lat.txt')}"],
+             ["lattice-scale", "--acoustic-scale=0.1",
+              f"ark,t:{at('lat.txt')}", f"ark:{at('scaled.ark')}"],
+             ["lattice-best-path", f"ark:{at('scaled.ark')}",
+              f"ark,t:{at('tra.txt')}"]]
+    tool_s = {}
+    for argv in steps:
+        t0 = time.perf_counter()
+        rc, _ = run_cli(argv)
+        tool_s[argv[0]] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"{argv[0]} exited {rc}")
+    lut = np.loadtxt(tid2pdf, dtype=np.int64)
+    dense = ViterbiDecoder(packed, lut, acoustic_scale=0.1)
+    with open(at("ref.txt"), "w") as f:
+        for k, x in ll.items():
+            f.write(" ".join([k] + [str(w) for w in dense.decode(x)[0]])
+                    + "\n")
+    rc, report = run_cli(["compute-wer", f"ark:{at('ref.txt')}",
+                          f"ark:{at('tra.txt')}"])
+    best = read_ints(at("tra.txt"))
+    latgen_words = read_ints(at("words.txt"))
+    if rc != 0 or best != latgen_words or best != read_ints(at("ref.txt")):
+        raise RuntimeError(f"lattice best paths {best}, latgen's words "
+                           f"{latgen_words}, dense {read_ints(at('ref.txt'))}")
+
+    # lattice-determinize on each utterance's first DET_FRAMES frames
+    with matrix_writer(f"ark:{at('ll_det.ark')}") as w:
+        for k, x in ll.items():
+            w[k] = x[:DET_FRAMES]
+    det_steps = [["latgen-faster-mapped", tid2pdf, tlg,
+                  f"ark:{at('ll_det.ark')}", f"ark:{at('lat_cut.ark')}",
+                  f"ark,t:{at('words_cut.txt')}"],
+                 ["lattice-scale", "--acoustic-scale=0.1",
+                  f"ark:{at('lat_cut.ark')}", f"ark:{at('scaled_cut.ark')}"],
+                 ["lattice-determinize", f"ark:{at('scaled_cut.ark')}",
+                  f"ark:{at('det_cut.ark')}"],
+                 ["lattice-best-path", f"ark:{at('det_cut.ark')}",
+                  f"ark,t:{at('tra_cut.txt')}"]]
+    for argv in det_steps:
+        t0 = time.perf_counter()
+        rc, _ = run_cli(argv)
+        tool_s[argv[0] + ("_cut" if argv[0] == "latgen-faster-mapped"
+                          else "")] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"{argv[0]} exited {rc}")
+    if read_ints(at("tra_cut.txt")) != read_ints(at("words_cut.txt")):
+        raise RuntimeError("the determinized lattices' best paths are not "
+                           "latgen's words")
+    det_states = sum(c.num_states for _, c in sequential_lattice_reader(
+        f"ark:{at('det_cut.ark')}"))
+
+    # the CPU's forward and lattices, from the child
+    t0 = time.perf_counter()
+    cpu = cpu_child_result(child)
+    cpu_wait_s = time.perf_counter() - t0
+    cpu_ll = np.load(at("cpu_forward.npz"))
+    worst = 0.0
+    for k, got in ll_full.items():
+        want = cpu_ll[k]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"{k}: bad loglikes {got.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    if worst > CROSS_CHECK_ATOL:
+        raise RuntimeError(f"card loglikes {worst} from the CPU's")
+    mine = [decode_summary(*r) for r in results]
+    if mine != cpu["decodes"] or drops != cpu["last_record_drops"]:
+        raise RuntimeError(f"card lattices {mine} are not the CPU's "
+                           f"{cpu['decodes']} (drops {drops}, "
+                           f"{cpu['last_record_drops']})")
+
+    arcs = [len(r[3].arcs) for r in results]
+    em_shape, eps_shape = planes[0]
+    n = LATGEN_UTTS
+    log("latgen", utts=n, frames=frames, latgen_frames=LATGEN_FRAMES,
+        blstmp_launches_per_utt=launches / n, per_step=0,
+        forward_ms_per_utt=float(np.mean(fwd_ms)),
+        forward_cli_s=forward_cli_s, loglikes_max_abs_err_vs_cpu=worst,
+        K=card.K, A=card.A, A_em=card.A_em, eps_rounds=card.eps_rounds,
+        decode_lattice_ms_per_utt=float(np.mean(times["decode_lattice"])),
+        split_ms_per_utt={
+            "forward_loop": float(np.mean(times["_record_forward"])),
+            "prune": float(np.mean(times["_prune_records_device"])),
+            "host_build": float(np.mean(times["_build_lattice"]))},
+        latgen_cli_s=latgen_cli_s,
+        record_bytes_per_frame=4 * (int(np.prod(em_shape[1:]))
+                                    + int(np.prod(eps_shape[1:]))),
+        record_planes=[list(em_shape), list(eps_shape)],
+        lattice_arcs_per_frame=sum(arcs) / sum(len(x) for x in ll.values()),
+        last_record_drops=drops, rec_budget=card.rec_budget,
+        cpu_process_s=cpu["seconds"], cpu_wait_s=cpu_wait_s,
+        card_lattices_equal_cpu=True,
+        profiled={"T": len(ll[key]), "ms": one_ms,
+                  "kernel_launches": sum(kernels.values()),
+                  "launches_per_frame": sum(kernels.values()) / len(ll[key]),
+                  "device_busy_ms": device_ms,
+                  "device_busy_share": device_ms / one_ms},
+        tool_s=tool_s, compute_wer=report.strip().splitlines(),
+        best_path_words=sum(len(v) for v in best.values()),
+        det_frames=DET_FRAMES, det_states=det_states,
+        determinize_s=tool_s["lattice-determinize"])
+    return launches
+
+
+def lattice_score_phase(rec, corpus, workdir):
+    """decode_wer_dev_test on the recipe's dev and test sets at the
+    ladder's decode settings on the card, and on the CPU in a child
+    process beside it: the same lattices and the same WER at every LMWT;
+    every lattice holds the decoder's best path."""
+    from kaldi_aslp_tpu_torch.decoder import (
+        BeamSearchDecoder,
+        PackedGraph,
+        lattice_best_path,
+    )
+    from kaldi_aslp_tpu_torch.fst import ctc_lut
+
+    packed = PackedGraph.from_fst(rec.tlg)
+    lut = ctc_lut(rec.num_outputs)
+    sets = {}
+    for split in ("dev", "test"):
+        ll = {u: rec.posteriors(x) - rec.log_priors
+              for u, x in corpus[f"{split}_feats"].items()}
+        refs = {u: [rec.lang.words.id(w) for w in t]
+                for u, t in corpus[f"{split}_texts"].items()}
+        sets[split] = (ll, refs)
+    kw = dict(acoustic_scale=rec.acoustic_scale, lmwt_range=LMWT_RANGE,
+              beam=RECIPE_OPTS["decode_beam"],
+              max_active=RECIPE_OPTS["decode_max_active"],
+              lattice_beam=LATTICE_BEAM)
+    work = os.path.join(workdir, "lattice_score")
+    os.makedirs(work)
+    save_packed(os.path.join(work, "graph.npz"), packed)
+    np.savez(os.path.join(work, "ll.npz"),
+             **{f"{split}/{u}": x for split, (ll, _) in sets.items()
+                for u, x in ll.items()})
+    child = start_cpu_child(work, {
+        "kind": "score", "graph": os.path.join(work, "graph.npz"),
+        "loglikes": os.path.join(work, "ll.npz"), "lut": lut.tolist(),
+        "refs": {split: refs for split, (_, refs) in sets.items()},
+        "kw": {**kw, "lmwt_range": list(LMWT_RANGE)}})
+    card = scored_lattices("cuda", packed, lut, sets, kw)
+    t0 = time.perf_counter()
+    cpu = cpu_child_result(child)
+    cpu_wait_s = time.perf_counter() - t0
+    fields = ("test_wer", "dev_wer", "lmwt", "sweeps", "decodes")
+    if any(card[f] != cpu[f] for f in fields):
+        bad = [f for f in fields if card[f] != cpu[f]]
+        raise RuntimeError(f"card {bad} not the CPU's: "
+                           f"{[(card[f], cpu[f]) for f in bad][:1]}")
+    # every lattice holds the decoder's best path
+    for words, _ali, score, lat in card["results"]:
+        got, cost = lattice_best_path(lat, acoustic_scale=rec.acoustic_scale)
+        if got != words or abs(-cost - score) > BEAM_SCORE_RTOL * abs(score):
+            raise RuntimeError(f"lattice best path {got} {-cost}, decoder "
+                               f"{words} {score}")
+    # one utterance's launches a frame
+    dec = BeamSearchDecoder(packed, lut, acoustic_scale=rec.acoustic_scale,
+                            beam=RECIPE_OPTS["decode_beam"],
+                            max_active=RECIPE_OPTS["decode_max_active"])
+    test_ll = sets["test"][0]
+    key = max(test_ll, key=lambda u: len(test_ll[u]))
+    counts = {}
+    device_ms_by_kernel(lambda: dec.decode_lattice(
+        test_ll[key], lattice_beam=LATTICE_BEAM), counts)
+    kernels = sum(c for n, c in counts.items()
+                  if not n.startswith(("Memcpy", "Memset")))
+    utts = len(card["decodes"])
+    frames = sum(len(x) for ll, _ in sets.values() for x in ll.values())
+    log("lattice_score", utts=utts, frames=frames,
+        dev_wer=card["dev_wer"], test_wer=card["test_wer"],
+        lmwt_selected_on_dev=card["lmwt"], lmwt_range=list(LMWT_RANGE),
+        dev_sweep=card["sweeps"][0], lattice_beam=LATTICE_BEAM,
+        card_ms_per_utt=1e3 * card["seconds"] / utts,
+        cpu_ms_per_utt=1e3 * cpu["seconds"] / utts,
+        card_s=card["seconds"], cpu_process_s=cpu["seconds"],
+        cpu_wait_s=cpu_wait_s,
+        lattice_arcs_per_frame=sum(d["arcs"] for d in card["decodes"])
+        / frames, launches_per_frame=kernels / len(test_ll[key]),
+        card_lattices_equal_cpu=True, lattices_hold_best_path=True)
+
+
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
@@ -3004,9 +3529,15 @@ def main() -> int:
          corpus) = ctc_recipe_phase(workdir)
         beam_phase(rec, corpus)
         budget_sweep_phase(rec, corpus)
+        t0 = time.perf_counter()
+        latgen_launches = latgen_phase(paths, workdir)
+        log("latgen_phase", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        lattice_score_phase(rec, corpus, workdir)
+        log("lattice_score_phase", seconds=time.perf_counter() - t0)
     records = kernel_records(launches, runs, bptt_launches, kernel_results,
                              train_results, xg_results, lstm_results,
-                             recipe_wide, recipe_ctc)
+                             recipe_wide, recipe_ctc, latgen_launches)
     log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
@@ -3018,7 +3549,7 @@ def main() -> int:
 
 def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
                    train_results, xg_results, lstm_results, recipe_wide,
-                   recipe_ctc):
+                   recipe_ctc, latgen_launches):
     """The ten kernels' JSON entries from the phases' results."""
     def launched(name):
         return {run: n[name] for run, n in runs.items() if n[name]}
@@ -3053,7 +3584,8 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
         kernel_record("lstmp_forward", "lstmp_forward.cu",
                       "lstm_pallas.py:43",
                       {"serving": serving_launches,
-                       "bptt_cv": bptt_launches["lstmp_forward_cv"]},
+                       "bptt_cv": bptt_launches["lstmp_forward_cv"],
+                       "latgen": latgen_launches},
                       kernel_results, served[2],
                       (served[2]["bound_ms"], served[2]["bound_by"]),
                       timed_at="S, T = 1, 16, both directions of a BLSTMP "

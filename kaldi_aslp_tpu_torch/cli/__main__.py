@@ -2,8 +2,10 @@
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
 reference binaries; the port has the online server and its client, the
-CTC trainer and the BPTT trainer so far.  As in the JAX package, the
-BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are one trainer:
+CTC trainer, the BPTT trainer, the network forward, the lattice
+generator and lattice tools, and compute-wer so far.  As in the JAX
+package, the BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are
+one trainer and the forward's -skip / -blstm-lc variants one forward:
 the architecture lives in the model file, and a model with a component
 the port lacks fails at load with the registry's error."""
 
@@ -11,7 +13,12 @@ from __future__ import annotations
 
 import sys
 
-from kaldi_aslp_tpu_torch.cli import online_tools, train_tools
+from kaldi_aslp_tpu_torch.cli import (
+    lat_tools,
+    nnet_tools,
+    online_tools,
+    train_tools,
+)
 
 TOOLS = {
     # aslp-onlinebin server + client
@@ -25,6 +32,19 @@ TOOLS = {
     "aslp-nnet-train-blstm-streams-lc": train_tools.nnet_train_lstm_streams,
     "aslp-nnet-train-blstm-parallel": train_tools.nnet_train_lstm_streams,
     "aslp-nnet-train-perutt": train_tools.nnet_train_lstm_streams,
+    # aslp-nnetbin forward: -skip / -blstm-lc are the same main
+    "aslp-nnet-forward": nnet_tools.nnet_forward_cli,
+    "aslp-nnet-forward-skip": nnet_tools.nnet_forward_cli,
+    "aslp-nnet-forward-blstm-lc": nnet_tools.nnet_forward_cli,
+    # latbin, bin
+    "lattice-best-path": lat_tools.lattice_best_path_cli,
+    "lattice-scale": lat_tools.lattice_scale_cli,
+    "lattice-copy": lat_tools.lattice_copy_cli,
+    "lattice-determinize": lat_tools.lattice_determinize_cli,
+    "lattice-lmrescore": lat_tools.lattice_lmrescore_cli,
+    "latgen-faster-mapped": lat_tools.latgen_faster_mapped_cli,
+    "aslp-latgen-faster-rtf": lat_tools.latgen_faster_rtf_cli,
+    "compute-wer": nnet_tools.compute_wer,
 }
 
 

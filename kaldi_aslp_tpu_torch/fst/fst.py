@@ -39,6 +39,7 @@ class Fst:
         self.arcs: List[List[Arc]] = []
         self.finals: Dict[int, float] = {}
         self.start: int = -1
+        self._label_index: Dict[int, Dict[int, List[Arc]]] = {}
 
     # -- construction -------------------------------------------------------
     def add_state(self) -> int:
@@ -47,6 +48,20 @@ class Fst:
 
     def add_arc(self, state: int, arc: Arc) -> None:
         self.arcs[state].append(arc)
+        self._label_index.pop(state, None)
+
+    def arcs_with_label(self, state: int, label: int):
+        """Arcs of ``state`` whose ilabel == label, from a per-state
+        index built at first use (dropped by add_arc): a backoff LM's
+        unigram state holds about a vocabulary of arcs, so a scan per
+        consumed word would make lattice rescoring O(V) an arc."""
+        d = self._label_index.get(state)
+        if d is None:
+            d = {}
+            for a in self.arcs[state]:
+                d.setdefault(a.ilabel, []).append(a)
+            self._label_index[state] = d
+        return d.get(label, ())
 
     def set_start(self, s: int) -> None:
         self.start = s
