@@ -41,6 +41,31 @@ exits nonzero:
                 acoustic forward, Viterbi advance, backtrace);
   5. check    - one request's per-chunk acoustic scores from the card
                 against the port on the CPU (plain versions);
+ 5b. serve-batched - 8 clients at once (the 4 serving utterances, each
+                twice) through BatchedDecodeSessions sharing one
+                AcousticBatcher at JAX's defaults over the flagship's
+                batched eval forward: fewer calls than requests, every
+                call 3 two-direction launches (S = B, persistent sweep),
+                each final the unbatched server's for the same audio, one
+                call's rows against their S = 1 forward (1e-4); the
+                batched forward at B = 1..16 chunks of 16 frames (padded to
+                32) timed beside B sequential S = 1 calls, and the kernel
+                alone at S = B beside its plain version, its plan and its
+                bound;
+ 5c. vad      - [silence, tone, silence, tone, silence] through the
+                energy-VAD server's factory and the NN-VAD server's
+                (--vad-nnet: a VAD net of the JAX recipe's topology, hand
+                weights from a numpy seed, a JAX-format zip), both
+                --device=cuda: at least 2 non-empty finals each, the VAD
+                net run at least once a chunk with frames; its posteriors
+                (1e-5) and speech masks (equal) on the card against the
+                CPU's, and one utterance's online MFCC (1e-4);
+ 5d. punctuation - a CRF punctuation processor trained on the card; its
+                log-likelihoods (1e-5) and Viterbi tags (equal) against
+                the CPU; a punctuation= session's final against the
+                processor's output on the unpunctuated final;
+ 5e. entry    - kaldi_aslp_tpu_torch.entry.entry() once: a finite
+                [8, 200, 72] output from 3 launches, per_step 0;
   6. train-kernels - hold the BLSTMP training kernels (forward and
                 backward) against their plain versions at C=512, P=320
                 with ragged masks, a nonzero initial state and nonzero
@@ -166,6 +191,13 @@ exits nonzero:
                 on the card, both timed; one utterance's kernel launches
                 a frame and device time by torch.profiler; no hand kernel
                 may launch;
+ 15b. batched-decode - the beam phase's utterances in batches of 8
+                through BatchedBeamDecoder (beam 32, K=2048) and
+                BatchedViterbiDecoder on the card, each utterance held to
+                its single decode (words, alignment, score 1e-3), each
+                batch timed beside the sequential decodes; one beam
+                batch's launches a frame and busy share by torch.profiler;
+                no hand kernel may launch;
  16. budget-sweep - the port's nn_budget_sweep on the same recipe (dev
                 WER at K = 2048, 1024, 512, 256), each K timed;
  17. latgen   - Kaldi's offline chain on the flagship through the port's
@@ -439,15 +471,18 @@ def bound(ops, nbytes):
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def lstmp_forward_bound(S, T, C, P, directions=1):
+def lstmp_forward_bound(S, T, C, P, directions=1, valid=None):
     # per direction in: xg [S, T, G], W_r [G, P], W_rm [P, C], peep [3, C];
     # out: its columns of ys [S, T, P]; once: mask, c0, r0 in, c_T, r_T
-    # out; all float32.  Per direction, frame and stream r_prev . W_r^T and
-    # m . W_rm^T: 2 (GP + PC) float32 FLOP
+    # out; all float32.  Per direction, valid frame and stream r_prev .
+    # W_r^T and m . W_rm^T: 2 (GP + PC) float32 FLOP; ``valid`` is the
+    # mask's count of valid stream-frames (S T when None): a padded frame
+    # only holds the carry
     G = 4 * C
+    valid = S * T if valid is None else valid
     nbytes = 4 * (directions * (S * T * (G + P) + G * P + P * C + 3 * C)
                   + S * T + 2 * S * (C + P))
-    return bound([(directions * 2 * S * T * (G * P + P * C), PEAK_F32)],
+    return bound([(directions * 2 * valid * (G * P + P * C), PEAK_F32)],
                  nbytes)
 
 
@@ -816,6 +851,11 @@ def synth_pcm(seed: int, seconds: float) -> bytes:
     return np.clip(wave, -32768, 32767).astype("<i2").tobytes()
 
 
+def serving_pcms():
+    """The four serving utterances, 3.0-3.75 s each."""
+    return [synth_pcm(i, 3.0 + 0.25 * i) for i in range(4)]
+
+
 async def request(port: int, pcm: bytes) -> dict:
     """Send ``pcm`` in 250 ms chunks while reading events; time the final
     event from the last byte sent."""
@@ -846,6 +886,7 @@ async def request(port: int, pcm: bytes) -> dict:
     t_final = events[-1][0]
     audio_s = len(pcm) / 2 / SAMPLE_RATE
     return {"audio_s": audio_s, "partials": types.count("partial"),
+            "final_text": events[-1][1]["text"],
             "final_text_words": len(events[-1][1]["text"].split()),
             "latency_ms_last_byte_to_final": 1e3 * (t_final - t_last_byte),
             "audio_s_per_s": audio_s / (t_final - t_first)}
@@ -886,7 +927,7 @@ def slice_phase(paths, device: str):
         session.acoustic_fn = acoustic_fn
         return session
 
-    pcms = [synth_pcm(i, 3.0 + 0.25 * i) for i in range(4)]
+    pcms = serving_pcms()
 
     async def serve():
         server = OnlineTcpServer(make_session, OnlineServerOptions(port=0))
@@ -920,7 +961,7 @@ def slice_phase(paths, device: str):
         concurrent_pair_audio_s_per_s=(
             (stats[2]["audio_s"] + stats[3]["audio_s"]) / concurrent_s))
     chunk_split(factory, pcms[0])
-    return launches, recorded
+    return launches, recorded, [st["final_text"] for st in stats]
 
 
 def chunk_split(factory, pcm: bytes, chunks: int = 8):
@@ -2866,9 +2907,11 @@ def beam_phase(rec, corpus):
     for w in wrappers.values():
         w.launches = 0
     card_ms, cpu_ms, frames, worst, failed = [], [], 0, 0.0, 0
+    singles = {}
     for key, m in loglikes.items():
         got, ms = timed_decode(card, m)
         want, ms_cpu = timed_decode(cpu, m)
+        singles[key] = got
         card_ms.append(ms)
         cpu_ms.append(ms_cpu)
         frames += len(m)
@@ -2933,6 +2976,7 @@ def beam_phase(rec, corpus):
                   "device_busy_share": device_ms / one_ms,
                   "top_kernels": dict(sorted(
                       kernels.items(), key=lambda kv: -kv[1])[:6])})
+    return loglikes, singles
 
 
 def budget_sweep_phase(rec, corpus):
@@ -3160,8 +3204,9 @@ def latgen_phase(paths, workdir):
     fbank = Fbank(FrameExtractionOptions(dither=0.0),
                   MelBanksOptions(num_bins=FEAT_DIM))
     feats = {}
+    pcms = serving_pcms()
     for i in range(LATGEN_UTTS):
-        pcm = np.frombuffer(synth_pcm(i, 3.0 + 0.25 * i), "<i2")
+        pcm = np.frombuffer(pcms[i], "<i2")
         feats[f"utt{i}"] = fbank(pcm.astype(np.float32)).cpu().numpy()
     with matrix_writer(f"ark:{at('feats.ark')}") as w:
         for k, v in feats.items():
@@ -3444,6 +3489,582 @@ def lattice_score_phase(rec, corpus, workdir):
         card_lattices_equal_cpu=True, lattices_hold_best_path=True)
 
 
+# -- serve-batched: cross-session acoustic batching --------------------------
+
+BATCH_SIZES = (1, 2, 4, 8, 16)   # chunks a batched call, timed
+BATCH_ROW_ATOL = 1e-4            # a batched row against its S = 1 forward
+BATCHED_CLIENTS = 8              # the four serving utterances, each twice
+
+
+def serve_batched_phase(paths, finals):
+    """Eight clients at once through ``BatchedDecodeSession``s sharing one
+    ``AcousticBatcher`` (JAX's defaults) over the flagship's batched eval
+    forward on the card (``SessionFactory.batched_acoustic_fn``): every
+    batched call one ``blstmp_forward`` launch a layer at S = B on a
+    persistent sweep, fewer calls than requests, each client's final the
+    unbatched server's for the same audio (``finals``, phase 4), one
+    call's rows against the S = 1 forward of their frames; then the
+    batched forward timed at B = 1..16 chunks beside B sequential S = 1
+    calls, and the kernel alone at S = B beside its bound."""
+    from kaldi_aslp_tpu_torch.cli.online_tools import session_factory_from_argv
+    from kaldi_aslp_tpu_torch.online.batching import AcousticBatcher
+    from kaldi_aslp_tpu_torch.online.server import (
+        OnlineServerOptions,
+        OnlineTcpServer,
+    )
+    from kaldi_aslp_tpu_torch.ops import lstmp as lp
+    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
+
+    factory = session_factory_from_argv(
+        ["--device=cuda", f"--num-mel-bins={FEAT_DIM}", *paths])
+    batcher = AcousticBatcher(factory.batched_acoustic_fn)
+    shapes, bad, sample = [], [], {}
+
+    def counted(x, mask):
+        before = (blstmp_forward.launches, blstmp_forward.per_step)
+        out = factory.batched_acoustic_fn(x, mask)
+        shapes.append(x.shape)
+        after = (blstmp_forward.launches, blstmp_forward.per_step)
+        if after != (before[0] + LAYERS, before[1]):
+            bad.append((x.shape, before, after))
+        if len(x) > 1 and not sample:
+            sample.update(x=x.copy(), mask=mask.copy(), out=out.copy())
+        return out
+    batcher.batched_forward = counted
+    pcms = (serving_pcms() * 2)[:BATCHED_CLIENTS]
+
+    async def serve():
+        server = OnlineTcpServer(lambda: factory.batched_session(batcher),
+                                 OnlineServerOptions(port=0))
+        port = await server.start()
+        try:
+            t0 = time.perf_counter()
+            out = await asyncio.gather(*[request(port, p) for p in pcms])
+            return out, time.perf_counter() - t0
+        finally:
+            await server.stop()
+
+    for wrapper in (blstmp_forward, lstmp_forward):
+        wrapper.launches = wrapper.per_step = 0
+    stats, wall_s = asyncio.run(serve())
+    launches, per_step = blstmp_forward.launches, blstmp_forward.per_step
+    if bad or per_step or lstmp_forward.launches or not shapes:
+        raise RuntimeError(f"batched calls off their launches: {bad[:3]}, "
+                           f"per_step {per_step}, one-direction "
+                           f"{lstmp_forward.launches}")
+    if launches != LAYERS * batcher.num_batches:
+        raise RuntimeError(f"{launches} launches for {batcher.num_batches} "
+                           "batched calls")
+    if not batcher.num_batches < batcher.num_requests:
+        raise RuntimeError(f"no coalescing: {batcher.num_batches} calls for "
+                           f"{batcher.num_requests} requests")
+    texts = [st["final_text"] for st in stats]
+    want = [finals[i % len(finals)] for i in range(len(pcms))]
+    if texts != want:
+        raise RuntimeError(f"batched finals {texts}, unbatched {want}")
+    if not sample:
+        raise RuntimeError(f"no batched call held two chunks: {shapes}")
+    worst = 0.0
+    for i, row in enumerate(sample["out"]):
+        n = int(sample["mask"][i].sum())
+        alone = factory.acoustic_fn(sample["x"][i, :n])
+        worst = max(worst, float(np.abs(row[:n] - alone).max()))
+    if worst > BATCH_ROW_ATOL:
+        raise RuntimeError(f"batched rows differ from S = 1 by {worst}")
+    sizes = [s[0] for s in shapes]
+    log("serve_batched", clients=len(pcms), requests=batcher.num_requests,
+        batched_calls=batcher.num_batches, blstmp_launches=launches,
+        per_step=per_step, batch_sizes=dict(sorted(
+            {b: sizes.count(b) for b in set(sizes)}.items())),
+        padded_T=sorted({s[1] for s in shapes}),
+        finals_equal_unbatched=True, finals_nonempty=sum(map(bool, texts)),
+        row_check_B=len(sample["out"]), row_max_abs_err=worst,
+        row_atol=BATCH_ROW_ATOL,
+        audio_s_per_s=sum(st["audio_s"] for st in stats) / wall_s,
+        latency_ms_last_byte_to_final=[
+            st["latency_ms_last_byte_to_final"] for st in stats],
+        defaults={"max_batch": batcher.max_batch,
+                  "max_wait_ms": 1e3 * batcher.max_wait_s,
+                  "t_bucket": batcher.t_bucket})
+
+    # the batched forward at B chunks of 16 frames (padded to 32) beside B
+    # sequential S = 1 forwards of the same chunks, and the kernel alone
+    rs = np.random.RandomState(11)
+    frames = factory.flags.chunk_frames
+    Tp = batcher.t_bucket
+    dev = factory.device
+    timings = []
+    for B in BATCH_SIZES:
+        chunks = rs.randn(B, frames, FEAT_DIM).astype(np.float32)
+        x = np.zeros((B, Tp, FEAT_DIM), np.float32)
+        x[:, :frames] = chunks
+        mask = np.zeros((B, Tp), np.float32)
+        mask[:, :frames] = 1.0
+        batched_ms = cuda_ms(lambda: factory.batched_acoustic_fn(x, mask), 20)
+        seq_ms = cuda_ms(lambda: [factory.acoustic_fn(c) for c in chunks], 10)
+        xgs = [torch.from_numpy(uniform(rs, B, Tp, 4 * C, scale=1.0)).to(dev)
+               for _ in range(2)]
+        weights = [tuple(torch.from_numpy(uniform(rs, *shape)).to(dev)
+                         for shape in ((4 * C, P), (P, C), (3, C)))
+                   for _ in range(2)]
+        m = torch.from_numpy(mask).to(dev)
+        zeros = (torch.zeros((B, C), device=dev),
+                 torch.zeros((B, P), device=dev))
+        kernel_ms = cuda_ms(lambda: lp.blstmp_forward(
+            *xgs, m, *weights, *zeros), 50)
+        plain_ms = cuda_ms(lambda: lp.blstmp_forward_reference(
+            *xgs, m, *weights, *zeros), 3)
+        got = lp.blstmp_forward(*xgs, m, *weights, *zeros)[0]
+        ref = lp.blstmp_forward_reference(*xgs, m, *weights, *zeros)[0]
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, **KERNEL_TOL):
+            raise RuntimeError(f"blstmp_forward at S={B} off by {err}")
+        bound_ms, bound_by = lstmp_forward_bound(
+            B, Tp, C, P, directions=2, valid=int(mask.sum()))
+        plan = lp.plan_for(B, C, P, 2, dev)
+        timings.append(dict(
+            B=B, T=Tp, valid_frames=frames, batched_forward_ms=batched_ms,
+            sequential_ms=seq_ms, batched_per_chunk_ms=batched_ms / B,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, max_abs_err=err,
+            bound_ms=bound_ms, bound_by=bound_by, regime=plan.regime,
+            persistent=plan.persistent))
+        log("serve_batched_timing", **timings[-1],
+            clock="CUDA events, median", card=smi_name_and_power())
+    return launches, timings
+
+
+# -- vad: the energy- and NN-gated servers ------------------------------------
+
+VAD_NET_HIDDEN = 32              # recipes/vad.py:141-145's topology
+VAD_POST_ATOL = 1e-5             # the VAD net's posteriors, card vs CPU
+MFCC_TOL = dict(rtol=1e-4, atol=1e-4)   # online MFCC, card vs CPU
+VAD_WORD_BIAS = 12.0             # output bias lifting one phone (below)
+
+
+def two_bursts(seed: int = 7) -> np.ndarray:
+    """[silence, tone, silence, tone, silence] (1, 0.5, 1, 0.5, 1 s;
+    tests/test_vad_session_convert.py:48-53's shape), noise under the
+    tones; int16 range floats."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(SAMPLE_RATE // 2) / SAMPLE_RATE
+    tone = 5000 * np.sin(2 * np.pi * 300 * t) + 20 * rs.randn(len(t))
+    quiet = 2 * rs.randn(SAMPLE_RATE)
+    return np.concatenate([quiet, tone, quiet, tone, quiet])
+
+
+def write_vad_files(paths, workdir):
+    """The VAD servers' files: the flagship zip with one phone's output
+    bias raised (``VAD_WORD_BIAS``), a CTC TLG over 70 one-phone words on
+    the flagship's 71 phones + blank, its LUT and words; and the VAD net
+    (recipes/vad.py's Affine(D->32), Sigmoid, Affine(32->2), Softmax at
+    the server's feature dimension), its weights set by hand from a numpy
+    seed to read the mean log-mel value, written as a JAX zip.  On random
+    weights the flagship decodes every segment to the lifted phone's
+    word, so the servers' finals count the segments the VAD cut."""
+    from kaldi_aslp_tpu_torch.fst import (
+        Lang,
+        Lexicon,
+        ctc_lut,
+        make_ctc_decode_graph,
+        make_unigram_grammar,
+    )
+    from kaldi_aslp_tpu_torch.models import (
+        AffineTransform,
+        Nnet,
+        Sigmoid,
+        Softmax,
+    )
+
+    words = {f"V{i:02d}": f"P{i:02d}" for i in range(70)}
+    lex = "\n".join(f"{w} {p}" for w, p in words.items()) + "\n<SIL> SIL\n"
+    lang = Lang.build(Lexicon.from_text(lex))
+    if len(lang.phones) != TARGETS:
+        raise RuntimeError(f"{len(lang.phones)} CTC outputs, want {TARGETS}")
+    tlg = make_ctc_decode_graph(
+        lang, make_unigram_grammar({w: 1 / len(words) for w in words},
+                                   lang.words))
+    out = [f"{workdir}/vad_{n}" for n in
+           ("am.zip", "tid2pdf.txt", "TLG.txt", "words.txt", "net.zip")]
+    net, _ = Nnet.load(paths[0], "cpu")
+    with torch.no_grad():
+        net.nodes[-1].b[lang.phones.id("P00")] += VAD_WORD_BIAS
+    net.save(out[0])
+    np.savetxt(out[1], ctc_lut(TARGETS), fmt="%d")
+    with open(out[2], "w") as f:
+        f.write(tlg.to_text())
+    with open(out[3], "w") as f:
+        f.write(lang.words.to_text())
+    rs = np.random.RandomState(21)
+    H = VAD_NET_HIDDEN
+    vad = Nnet()
+    for comp in (AffineTransform(FEAT_DIM, H), Sigmoid(H, H),
+                 AffineTransform(H, 2), Softmax(2, 2)):
+        vad.add(comp)
+    with torch.no_grad():
+        vad.nodes[0].w.copy_(torch.from_numpy(
+            (2.0 / FEAT_DIM + 0.01 * rs.randn(H, FEAT_DIM)).astype(
+                np.float32)))
+        vad.nodes[0].b.copy_(torch.from_numpy(
+            (-1.0 + 0.01 * rs.randn(H)).astype(np.float32)))
+        vad.nodes[2].w.copy_(torch.tensor([[-0.5] * H, [0.5] * H]))
+        vad.nodes[2].b.copy_(torch.tensor([8.0, -8.0]))
+    vad.save(out[4])
+    return out
+
+
+async def stream_events(port: int, pcm: bytes) -> list:
+    """One client's events for ``pcm`` sent in 250 ms pieces."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    for i in range(0, len(pcm), CHUNK_BYTES):
+        writer.write(pcm[i:i + CHUNK_BYTES])
+        await writer.drain()
+    writer.write_eof()
+    events = [json.loads(line) async for line in reader]
+    writer.close()
+    await writer.wait_closed()
+    return events
+
+
+def serve_one(make_session, pcm: bytes) -> list:
+    from kaldi_aslp_tpu_torch.online.server import (
+        OnlineServerOptions,
+        OnlineTcpServer,
+    )
+
+    async def run():
+        server = OnlineTcpServer(make_session, OnlineServerOptions(port=0))
+        port = await server.start()
+        try:
+            return await stream_events(port, pcm)
+        finally:
+            await server.stop()
+    return asyncio.run(run())
+
+
+def vad_phase(paths, workdir):
+    """The two-burst audio through the energy-VAD server's factory, then
+    the NN-VAD server's (--vad-nnet), both --device=cuda: at least 2
+    non-empty finals each, the VAD net run at least once a chunk that
+    had frames; the VAD net's posteriors and speech masks on the card
+    against the CPU's, and one utterance's online MFCC on the card
+    against the CPU's."""
+    from kaldi_aslp_tpu_torch.cli.online_tools import session_factory_from_argv
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.online.feature_pipeline import (
+        OnlineFeatureOptions,
+        OnlineFeaturePipeline,
+    )
+    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward
+    from kaldi_aslp_tpu_torch.vad import NnetVad, VadOptions
+
+    am, lut, tlg, words, vad_zip = write_vad_files(paths, workdir)
+    audio = two_bursts()
+    pcm = np.clip(audio, -32768, 32767).astype("<i2").tobytes()
+    argv = ["--device=cuda", f"--num-mel-bins={FEAT_DIM}"]
+    blstmp_forward.launches = blstmp_forward.per_step = 0
+    results, factories = {}, {}
+    for name, extra, energy in (("energy", [], True),
+                                ("nnet", [f"--vad-nnet={vad_zip}"], False)):
+        factory = session_factory_from_argv(argv + extra + [am, lut, tlg,
+                                                            words],
+                                            use_energy_vad=energy)
+        sessions, frame_calls = [], []
+
+        def make():
+            session = factory()
+            sessions.append(session)
+            inner = session.vad.features.accept_waveform
+
+            def counted(samples):
+                out = inner(samples)
+                frame_calls.append(len(out) > 0)
+                return out
+            session.vad.features.accept_waveform = counted
+            return session
+
+        t0 = time.perf_counter()
+        events = serve_one(make, pcm)
+        seconds = time.perf_counter() - t0
+        finals = [e["text"] for e in events if e["type"] == "final"]
+        gate = sessions[0].vad.vad
+        forwards = getattr(gate, "num_forwards", None)
+        results[name] = dict(
+            finals=finals, nonempty_finals=sum(map(bool, finals)),
+            partials=sum(e["type"] == "partial" for e in events),
+            chunks_with_frames=sum(frame_calls), vad_net_forwards=forwards,
+            gate=type(gate).__name__, seconds=seconds)
+        if sum(map(bool, finals)) < 2:
+            raise RuntimeError(f"{name} VAD server: finals {finals}")
+        if not energy and (forwards is None or forwards < sum(frame_calls)
+                           or forwards == 0):
+            raise RuntimeError(f"VAD net ran {forwards} times for "
+                               f"{sum(frame_calls)} chunks with frames")
+        factories[name] = factory
+    # the VAD net on the card against the CPU, on the utterance's frames
+    cpu_feats = OnlineFeaturePipeline(OnlineFeatureOptions(
+        num_mel_bins=FEAT_DIM), device="cpu")
+    frames = cpu_feats.accept_waveform(audio.astype(np.float32))
+    card_vad = NnetVad(VadOptions(), net=factories["nnet"].vad_net)
+    cpu_vad = NnetVad(VadOptions(), net=Nnet.load(vad_zip, "cpu")[0])
+    post_card, post_cpu = (card_vad.posteriors(frames),
+                           cpu_vad.posteriors(frames))
+    post_err = float(np.abs(post_card - post_cpu).max())
+    masks_equal = bool(np.array_equal(
+        card_vad.detect_from_posteriors(post_card),
+        cpu_vad.detect_from_posteriors(post_cpu)))
+    speech_share = float(card_vad.detect_from_posteriors(post_card).mean())
+    if post_err > VAD_POST_ATOL or not masks_equal:
+        raise RuntimeError(f"VAD net card vs CPU: posteriors {post_err}, "
+                           f"masks equal {masks_equal}")
+    # online MFCC, card vs CPU, chunk by chunk
+    opts = OnlineFeatureOptions(feature_type="mfcc")
+    card_mfcc = OnlineFeaturePipeline(opts, device="cuda")
+    cpu_mfcc = OnlineFeaturePipeline(opts, device="cpu")
+    samples = np.frombuffer(serving_pcms()[0], "<i2").astype(np.float32)
+    mfcc_err, n = 0.0, 0
+    step = CHUNK_BYTES // 2
+    for i in range(0, len(samples), step):
+        a = card_mfcc.accept_waveform(samples[i:i + step])
+        b = cpu_mfcc.accept_waveform(samples[i:i + step])
+        if a.shape != b.shape or not np.allclose(a, b, **MFCC_TOL):
+            raise RuntimeError(f"online MFCC card vs CPU at sample {i}")
+        if len(a):
+            mfcc_err = max(mfcc_err, float(np.abs(a - b).max()))
+        n += len(a)
+    launches = blstmp_forward.launches
+    if blstmp_forward.per_step:
+        raise RuntimeError("the VAD servers took the per-step kernels")
+    log("vad", audio_s=len(audio) / SAMPLE_RATE, **{
+        f"{k}_server": v for k, v in results.items()},
+        vad_posteriors_max_abs_err=post_err, posteriors_atol=VAD_POST_ATOL,
+        vad_masks_equal=masks_equal, vad_speech_share=speech_share,
+        mfcc_frames=n, mfcc_dim=card_mfcc.dim, mfcc_max_abs_err=mfcc_err,
+        mfcc_tol=MFCC_TOL, blstmp_launches=launches)
+    return launches, (am, lut, tlg, words)
+
+
+# -- punctuation: CRF on the card, a punctuated session -----------------------
+
+PUNCT_CORPUS = 60                 # tests/test_crf_punctuation.py's toy size
+PUNCT_EPOCHS = 12
+CRF_ATOL = 1e-5
+
+
+def toy_punct_corpus(n: int, seed: int = 0):
+    """tests/test_crf_punctuation.py:_toy_corpus: 'huh' takes a question
+    mark, 'stop' ends a sentence with a period."""
+    rs = np.random.RandomState(seed)
+    vocab = ["alpha", "beta", "gamma", "delta"]
+    corpus = []
+    for _ in range(n):
+        tokens = [vocab[rs.randint(len(vocab))]
+                  for _ in range(rs.randint(2, 5))]
+        tags = ["N"] * len(tokens)
+        if rs.rand() < 0.5:
+            tokens.append("huh")
+            tags.append("W")
+        corpus.append((tokens + ["stop"], tags + ["J"]))
+    return corpus
+
+
+def punctuation_phase(vad_paths):
+    """A punctuation processor trained on the card; its CRF scores and
+    tags on the card against the CPU; one request served through a
+    ``punctuation=`` session on the card: its final is the processor's
+    output on the same session's final without punctuation."""
+    from kaldi_aslp_tpu_torch.cli.online_tools import session_factory_from_argv
+    from kaldi_aslp_tpu_torch.online.feature_pipeline import (
+        OnlineFeaturePipeline,
+    )
+    from kaldi_aslp_tpu_torch.online.punctuation import (
+        PunctuationProcessor,
+        token_features,
+    )
+    from kaldi_aslp_tpu_torch.online.server import DecodeSession
+    from kaldi_aslp_tpu_torch.ops.crf import (
+        _pad,
+        crf_log_likelihood,
+        crf_viterbi,
+    )
+    from kaldi_aslp_tpu_torch.utils.device import resolve_device
+
+    corpus = toy_punct_corpus(PUNCT_CORPUS)
+    t0 = time.perf_counter()
+    proc = PunctuationProcessor.train(corpus, num_epochs=PUNCT_EPOCHS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    card_p = proc.params
+    if card_p.emission.device.type != resolve_device("cuda").type:
+        raise RuntimeError("the processor trained off the card")
+    cpu_p = card_p.to("cpu")
+    tag_ids = {t: i for i, t in enumerate("NDJGW")}
+    worst, tags_equal = 0.0, True
+    for tokens, tags in corpus[:12] + [(["gamma"] * 40, ["N"] * 40)]:
+        feats = token_features(tokens)
+        ids = np.array([tag_ids[t] for t in tags])
+        lls, best = [], []
+        for p in (card_p, cpu_p):
+            fi, tg, m = _pad(feats, ids, 32, p.emission.device)
+            with torch.no_grad():
+                lls.append(float(crf_log_likelihood(p, fi, tg, m)))
+            best.append(crf_viterbi(p, fi, m).cpu().numpy()[:len(tokens)])
+        worst = max(worst, abs(lls[0] - lls[1]) / max(1.0, abs(lls[1])))
+        tags_equal &= bool(np.array_equal(*best))
+    if worst > CRF_ATOL or not tags_equal:
+        raise RuntimeError(f"CRF card vs CPU: {worst}, tags equal "
+                           f"{tags_equal}")
+    learned = proc.tag(["alpha", "beta", "huh", "stop"])
+    factory = session_factory_from_argv(
+        ["--device=cuda", f"--num-mel-bins={FEAT_DIM}", *vad_paths])
+    pcm = np.clip(two_bursts(), -32768, 32767).astype("<i2").tobytes()
+
+    def make(punctuation):
+        return lambda: DecodeSession(
+            OnlineFeaturePipeline(factory.feat_opts, device=factory.device),
+            factory.decoder(), factory.acoustic_fn, factory.words,
+            chunk_frames=factory.flags.chunk_frames, punctuation=punctuation)
+    plain = [e["text"] for e in serve_one(make(None), pcm)
+             if e["type"] == "final"]
+    punct = [e["text"] for e in serve_one(make(proc), pcm)
+             if e["type"] == "final"]
+    want = [proc.process(t) for t in plain]
+    if punct != want or not any(plain):
+        raise RuntimeError(f"punctuated finals {punct}, want {want}")
+    log("punctuation", corpus=len(corpus), epochs=PUNCT_EPOCHS,
+        train_s_on_card=train_s, crf_ll_max_rel_err=worst, atol=CRF_ATOL,
+        viterbi_tags_equal=tags_equal, learned_tags=learned,
+        finals=punct, finals_unpunctuated=plain)
+
+
+# -- batched-decode: lock-step batches on the card ----------------------------
+
+DECODE_BATCH = 8
+
+
+def batched_decode_phase(rec, loglikes, singles):
+    """The beam phase's utterances in batches of 8 through
+    ``BatchedBeamDecoder`` (beam 32, K=2048) and ``BatchedViterbiDecoder``
+    on the card, each utterance held to its single decode on the card (the
+    beam phase's, ``singles``; the dense decoder's here), each batch timed
+    beside the same utterances decoded one by one; one beam batch's
+    launches a frame and busy share by torch.profiler; no hand kernel may
+    launch."""
+    from kaldi_aslp_tpu_torch.decoder import (
+        BatchedBeamDecoder,
+        BatchedViterbiDecoder,
+        BeamSearchDecoder,
+        CsrGraph,
+        PackedGraph,
+        ViterbiDecoder,
+    )
+    from kaldi_aslp_tpu_torch.fst import ctc_lut
+
+    packed = PackedGraph.from_fst(rec.tlg)
+    csr = CsrGraph.from_packed(packed)
+    lut = ctc_lut(rec.num_outputs)
+    settings = dict(beam=RECIPE_OPTS["decode_beam"],
+                    max_active=RECIPE_OPTS["decode_max_active"])
+    keys = [k for k in loglikes if singles[k] is not None]
+    batches = [keys[i:i + DECODE_BATCH]
+               for i in range(0, len(keys), DECODE_BATCH)]
+    on_card = {k: torch.from_numpy(np.asarray(loglikes[k], np.float32)).cuda()
+               for k in keys}
+    wrappers = hand_kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = {}
+    for kind, batched, single in (
+            ("beam", BatchedBeamDecoder(csr, lut, **settings),
+             BeamSearchDecoder(csr, lut, **settings)),
+            ("dense", BatchedViterbiDecoder(packed, lut),
+             ViterbiDecoder(packed, lut))):
+        rows, worst = [], 0.0
+        for batch in batches:
+            if kind == "beam":
+                args = [on_card[k] for k in batch]
+            else:
+                args = [loglikes[k] for k in batch]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = batched.decode_batch(args)
+            batch_ms = 1e3 * (time.perf_counter() - t0)
+            seq_ms = 0.0
+            for key, g, a in zip(batch, got, args):
+                want, ms = timed_decode(single, a)
+                seq_ms += ms
+                rel = abs(g[2] - want[2]) / abs(want[2])
+                worst = max(worst, rel)
+                if (g[0] != want[0] or not np.array_equal(g[1], want[1])
+                        or rel > BEAM_SCORE_RTOL):
+                    raise RuntimeError(f"{kind} {key}: batched {g[0]} {g[2]}"
+                                       f", single {want[0]} {want[2]}")
+            rows.append({"B": len(batch),
+                         "frames": sum(len(loglikes[k]) for k in batch),
+                         "T_max": max(len(loglikes[k]) for k in batch),
+                         "batch_ms": batch_ms, "sequential_ms": seq_ms})
+        out[kind] = {"batches": rows, "worst_score_rel": worst,
+                     "batch_ms": sum(r["batch_ms"] for r in rows),
+                     "sequential_ms": sum(r["sequential_ms"] for r in rows)}
+    stray = {n: w.launches for n, w in wrappers.items() if w.launches}
+    if stray:
+        raise RuntimeError(f"the batched decoders launched hand kernels: "
+                           f"{stray}")
+    # one beam batch profiled: launches a frame, device busy share
+    beam_dec = BatchedBeamDecoder(csr, lut, **settings)
+    batch = [on_card[k] for k in batches[0]]
+    counts = {}
+    by_kernel = device_ms_by_kernel(lambda: beam_dec.decode_batch(batch),
+                                    counts)
+    kernels = {k: c for k, c in counts.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beam_dec.decode_batch(batch)
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    T_max = max(len(x) for x in batch)
+    device_ms = sum(v for k, v in by_kernel.items() if k in kernels)
+    K = settings["max_active"]
+    log("batched_decode", utts=len(keys), batch=DECODE_BATCH, **out,
+        plane_bytes=2 * T_max * (1 + beam_dec.eps_rounds) * len(batch)
+        * K * 4,
+        plane_bytes_B8_T400_2stages_K2048=2 * 400 * 2 * 8 * 2048 * 4,
+        profiled={"B": len(batch), "T_max": T_max, "ms": one_ms,
+                  "kernel_launches": sum(kernels.values()),
+                  "launches_per_frame": sum(kernels.values()) / T_max,
+                  "device_busy_ms": device_ms,
+                  "device_busy_share": device_ms / one_ms,
+                  "top_kernels": dict(sorted(
+                      kernels.items(), key=lambda kv: -kv[1])[:6])},
+        card=smi_name_and_power())
+
+
+# -- entry: the port's entry() on the card ------------------------------------
+
+def entry_phase():
+    """``kaldi_aslp_tpu_torch.entry.entry()`` once on the card: a finite
+    [8, 200, 72] output from 3 ``blstmp_forward`` launches, per_step 0;
+    then timed."""
+    from kaldi_aslp_tpu_torch.entry import entry
+    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
+
+    fwd, args = entry()
+    for wrapper in (blstmp_forward, lstmp_forward):
+        wrapper.launches = wrapper.per_step = 0
+    out = fwd(*args)
+    torch.cuda.synchronize()
+    launches, per_step = blstmp_forward.launches, blstmp_forward.per_step
+    if (tuple(out.shape) != (8, 200, TARGETS) or not torch.isfinite(out).all()
+            or out.device.type != "cuda"):
+        raise RuntimeError(f"entry() gave {tuple(out.shape)} on {out.device}")
+    if launches != LAYERS or per_step or lstmp_forward.launches:
+        raise RuntimeError(f"entry(): {launches} launches, {per_step} "
+                           "per-step")
+    log("entry", shape=list(out.shape), finite=True, blstmp_launches=launches,
+        per_step=per_step, forward_ms=cuda_ms(lambda: fwd(*args), 10),
+        clock="CUDA events, median", card=smi_name_and_power())
+    return launches
+
+
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
@@ -3502,8 +4123,14 @@ def main() -> int:
     kernel_results = kernel_phase(dev)
     with tempfile.TemporaryDirectory() as workdir:
         paths = write_model_and_graph(workdir)
-        launches, recorded = slice_phase(paths, "cuda")
+        launches, recorded, finals = slice_phase(paths, "cuda")
         cross_check(paths, recorded)
+        t0 = time.perf_counter()
+        batched_launches, batched_timings = serve_batched_phase(paths, finals)
+        vad_launches, vad_paths = vad_phase(paths, workdir)
+        punctuation_phase(vad_paths)
+        entry_launches = entry_phase()
+        log("serving_phases", seconds=time.perf_counter() - t0)
         train_results = train_kernel_phase(dev)
         xg_results = xg_train_kernel_phase(dev)
         model, feats, labels = write_train_files(workdir)
@@ -3527,7 +4154,10 @@ def main() -> int:
         bptt_step_split(model, dev)
         (runs["ctc_recipe"], recipe_wide, recipe_ctc, rec,
          corpus) = ctc_recipe_phase(workdir)
-        beam_phase(rec, corpus)
+        loglikes, singles = beam_phase(rec, corpus)
+        t0 = time.perf_counter()
+        batched_decode_phase(rec, loglikes, singles)
+        log("batched_decode_phase", seconds=time.perf_counter() - t0)
         budget_sweep_phase(rec, corpus)
         t0 = time.perf_counter()
         latgen_launches = latgen_phase(paths, workdir)
@@ -3535,9 +4165,12 @@ def main() -> int:
         t0 = time.perf_counter()
         lattice_score_phase(rec, corpus, workdir)
         log("lattice_score_phase", seconds=time.perf_counter() - t0)
-    records = kernel_records(launches, runs, bptt_launches, kernel_results,
-                             train_results, xg_results, lstm_results,
-                             recipe_wide, recipe_ctc, latgen_launches)
+    serving_runs = {"serving": launches, "serve_batched": batched_launches,
+                    "vad": vad_launches, "entry": entry_launches}
+    records = kernel_records(serving_runs, runs, bptt_launches,
+                             kernel_results, train_results, xg_results,
+                             lstm_results, recipe_wide, recipe_ctc,
+                             latgen_launches, batched_timings)
     log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
@@ -3547,9 +4180,9 @@ def main() -> int:
     return 0
 
 
-def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
+def kernel_records(serving_runs, runs, bptt_launches, kernel_results,
                    train_results, xg_results, lstm_results, recipe_wide,
-                   recipe_ctc, latgen_launches):
+                   recipe_ctc, latgen_launches, batched_timings):
     """The ten kernels' JSON entries from the phases' results."""
     def launched(name):
         return {run: n[name] for run, n in runs.items() if n[name]}
@@ -3583,7 +4216,7 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
     records = [
         kernel_record("lstmp_forward", "lstmp_forward.cu",
                       "lstm_pallas.py:43",
-                      {"serving": serving_launches,
+                      {**serving_runs,
                        "bptt_cv": bptt_launches["lstmp_forward_cv"],
                        "latgen": latgen_launches},
                       kernel_results, served[2],
@@ -3593,7 +4226,14 @@ def kernel_records(serving_launches, runs, bptt_launches, kernel_results,
                       one_direction={k: served[1][k] for k in
                                      ("ms", "plain_ms", "bound_ms",
                                       "per_step_ms")},
-                      per_step_ms=served[2]["per_step_ms"]),
+                      per_step_ms=served[2]["per_step_ms"],
+                      batched_serving=[
+                          {k: t[k] for k in ("B", "T", "kernel_ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "max_abs_err",
+                                             "regime", "batched_forward_ms",
+                                             "sequential_ms")}
+                          for t in batched_timings]),
         kernel_record("bilstmp_train_fwd", "bilstmp_train.cu",
                       "lstm_pallas.py:1037", launched("bilstmp_train_fwd"),
                       train_results["fwd"], train_results["fwd"][-1],

@@ -1,7 +1,7 @@
 """CLI dispatcher: ``python -m kaldi_aslp_tpu_torch.cli <tool> [args]``.
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
-reference binaries; the port has the online server and its client, the
+reference binaries; the port has the online servers and their client, the
 CTC trainer, the BPTT trainer, the network forward, the lattice
 generator and lattice tools, and compute-wer so far.  As in the JAX
 package, the BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are
@@ -23,6 +23,7 @@ from kaldi_aslp_tpu_torch.cli import (
 TOOLS = {
     # aslp-onlinebin server + client
     "aslp-online-nnet-vad-server": online_tools.online_nnet_vad_server,
+    "aslp-online-energy-vad-server": online_tools.online_energy_vad_server,
     "aslp-audio-provider-client": online_tools.audio_provider_client,
     # aslp-nnetbin trainers
     "aslp-nnet-train-ctc-streams": train_tools.nnet_train_ctc_streams,

@@ -1,16 +1,21 @@
 """Online serving CLI mains.
 
-Port of kaldi_aslp_tpu/cli/online_tools.py (``online_nnet_vad_server``
-without VAD, ``audio_provider_client``; reference:
+Port of kaldi_aslp_tpu/cli/online_tools.py (``online_nnet_vad_server``,
+``online_energy_vad_server``, ``audio_provider_client``; reference:
 src/aslp-onlinebin/aslp-online-nnet-vad-server.cc:33-130,
-aslp-audio-provider-client.cc).  The socket protocol is the JAX
-package's: int16-LE PCM in, one JSON object per line out
-(online/server.py).
+aslp-online-energy-vad-server.cc, aslp-audio-provider-client.cc).  The
+socket protocol is the JAX package's: int16-LE PCM in, one JSON object
+per line out (online/server.py).
 
-The server takes ``--device`` (default ``cuda``); on a machine without
+The servers take ``--device`` (default ``cuda``); on a machine without
 CUDA, ``--device=cuda`` raises rather than running on the CPU.  The VAD
-options (``--vad-nnet``, the energy-VAD server) are a later slice:
-``--vad-nnet`` raises ``NotImplementedError``."""
+net of ``--vad-nnet`` loads onto the same device and gates the session
+by its silence posteriors (online/vad_pipeline.py); where the JAX server
+loads that net and never runs it, the port runs it, and a net that
+fails to load or to run fails the session.  As in the JAX package, the
+CLI serves each session on its own; cross-session batching
+(online/batching.py) is the library's, through
+:meth:`SessionFactory.batched_session`."""
 
 from __future__ import annotations
 
@@ -27,8 +32,10 @@ from kaldi_aslp_tpu_torch.utils.log import get_logger
 
 logger = get_logger("online-cli")
 
-SERVER_USAGE = ("aslp-online-nnet-vad-server [--device=cuda] nnet-model "
-                "tid2pdf.txt HCLG.txt words.txt")
+SERVER_USAGE = ("aslp-online-nnet-vad-server [--device=cuda] "
+                "[--vad-nnet=m] nnet-model tid2pdf.txt HCLG.txt words.txt")
+ENERGY_SERVER_USAGE = ("aslp-online-energy-vad-server [--device=cuda] "
+                       "nnet-model tid2pdf.txt HCLG.txt words.txt")
 
 
 @dataclasses.dataclass
@@ -41,15 +48,20 @@ class ServerFlags(Config):
     acoustic_scale: float = 1.0
     class_frame_counts: str = ""   # pdf prior counts file (optional)
     no_softmax: bool = False
-    vad_nnet: str = ""             # VAD nnet model: not ported yet
+    vad_nnet: str = ""             # VAD nnet model (nnet server)
+    sil_threshold: float = 0.5     # the VAD net's silence posterior limit
+    energy_threshold: float = 9.0  # the energy gate's margin (energy server)
 
 
 class SessionFactory:
-    """Loads the model, LUT, graph and words named by ``args`` onto
-    ``flags.device``; each call makes a decode session
-    (kaldi_aslp_tpu/cli/online_tools.py:_build_session_factory)."""
+    """Loads the model, LUT, graph and words named by ``args`` (and the
+    VAD net of ``--vad-nnet``) onto ``flags.device``; each call makes a
+    decode session (kaldi_aslp_tpu/cli/online_tools.py:
+    _build_session_factory): energy-gated with ``use_energy_vad``,
+    NN-gated with a VAD net, else endpoint-ruled."""
 
-    def __init__(self, flags: ServerFlags, args: Sequence[str]):
+    def __init__(self, flags: ServerFlags, args: Sequence[str],
+                 use_energy_vad: bool = False):
         from kaldi_aslp_tpu_torch.fst.fst import Fst, SymbolTable
         from kaldi_aslp_tpu_torch.decoder.decodable import (
             NnetForwardOptions,
@@ -62,13 +74,19 @@ class SessionFactory:
         )
         from kaldi_aslp_tpu_torch.utils.device import resolve_device
 
-        if flags.vad_nnet:
-            raise NotImplementedError(
-                "--vad-nnet is not ported yet; run without VAD")
+        if use_energy_vad and flags.vad_nnet:
+            raise ValueError(
+                "--vad-nnet gates aslp-online-nnet-vad-server; "
+                "aslp-online-energy-vad-server gates on energy")
         self.flags = flags
+        self.use_energy_vad = use_energy_vad
         self.device = resolve_device(flags.device)
         self.net, _ = Nnet.load(args[0], self.device)
         self.net.eval()
+        self.vad_net = None
+        if flags.vad_nnet:
+            self.vad_net, _ = Nnet.load(flags.vad_nnet, self.device)
+            self.vad_net.eval()
         self.lut = np.loadtxt(args[1], dtype=np.int64).reshape(-1)
         with open(args[2]) as f:
             self.graph = PackedGraph.from_fst(Fst.from_text(f.read()))
@@ -90,27 +108,78 @@ class SessionFactory:
             self.net, np.asarray(frames, np.float32), self.forward_opts,
             prior=self.prior)
 
-    def __call__(self):
+    def batched_acoustic_fn(self, feats: np.ndarray,
+                            mask: np.ndarray) -> np.ndarray:
+        """[B, T, D] frames, [B, T] mask -> [B, T, P] scores: one forward
+        of the model for the batch (an ``AcousticBatcher``'s forward)."""
+        from kaldi_aslp_tpu_torch.decoder.decodable import (
+            nnet_forward_batched,
+        )
+
+        return self.flags.acoustic_scale * nnet_forward_batched(
+            self.net, feats, mask, self.forward_opts, prior=self.prior)
+
+    def decoder(self):
         from kaldi_aslp_tpu_torch.decoder.online import OnlineViterbiDecoder
+
+        return OnlineViterbiDecoder(self.graph, self.lut, acoustic_scale=1.0,
+                                    device=self.device)
+
+    def __call__(self):
         from kaldi_aslp_tpu_torch.online.feature_pipeline import (
             OnlineFeaturePipeline,
         )
         from kaldi_aslp_tpu_torch.online.server import DecodeSession
+        from kaldi_aslp_tpu_torch.online.vad_pipeline import (
+            OnlineVadFeaturePipeline,
+        )
+        from kaldi_aslp_tpu_torch.online.vad_session import VadDecodeSession
+        from kaldi_aslp_tpu_torch.vad import EnergyVad, NnetVad, VadOptions
 
-        # no VAD: endpoint-rule session
-        return DecodeSession(
+        flags = self.flags
+        if self.use_energy_vad:
+            vad = EnergyVad(VadOptions(
+                energy_threshold=flags.energy_threshold), device=self.device)
+        elif self.vad_net is not None:
+            vad = NnetVad(VadOptions(
+                sil_posterior_threshold=flags.sil_threshold),
+                net=self.vad_net)
+        else:
+            # no VAD: endpoint-rule session
+            return DecodeSession(
+                OnlineFeaturePipeline(self.feat_opts, device=self.device),
+                self.decoder(), self.acoustic_fn, self.words,
+                chunk_frames=flags.chunk_frames)
+        return VadDecodeSession(
+            OnlineVadFeaturePipeline(self.feat_opts, vad=vad,
+                                     device=self.device),
+            self.decoder(), self.acoustic_fn, self.words,
+            chunk_frames=flags.chunk_frames)
+
+    def batched_session(self, batcher, punctuation=None):
+        """An endpoint-rule session whose chunks go through ``batcher``
+        (an ``AcousticBatcher``, typically over
+        :meth:`batched_acoustic_fn`), shared with the other sessions."""
+        from kaldi_aslp_tpu_torch.online.batching import BatchedDecodeSession
+        from kaldi_aslp_tpu_torch.online.feature_pipeline import (
+            OnlineFeaturePipeline,
+        )
+
+        return BatchedDecodeSession(
             OnlineFeaturePipeline(self.feat_opts, device=self.device),
-            OnlineViterbiDecoder(self.graph, self.lut, acoustic_scale=1.0,
-                                 device=self.device),
-            self.acoustic_fn, self.words,
-            chunk_frames=self.flags.chunk_frames)
+            self.decoder(), batcher.compute, self.words,
+            chunk_frames=self.flags.chunk_frames, punctuation=punctuation)
 
 
-def session_factory_from_argv(argv: Sequence[str]) -> SessionFactory:
-    """Parse the server's command line into a :class:`SessionFactory`."""
+def session_factory_from_argv(argv: Sequence[str],
+                              use_energy_vad: bool = False
+                              ) -> SessionFactory:
+    """Parse a server's command line into a :class:`SessionFactory`: the
+    NN server's, or with ``use_energy_vad`` the energy-VAD server's."""
     flags = ServerFlags()
-    args = parse_options(argv, [flags], SERVER_USAGE, 4, 4)
-    return SessionFactory(flags, args)
+    usage = ENERGY_SERVER_USAGE if use_energy_vad else SERVER_USAGE
+    args = parse_options(argv, [flags], usage, 4, 4)
+    return SessionFactory(flags, args, use_energy_vad)
 
 
 def _serve(flags: ServerFlags, make_session: SessionFactory) -> int:
@@ -138,9 +207,16 @@ def _serve(flags: ServerFlags, make_session: SessionFactory) -> int:
 
 
 def online_nnet_vad_server(argv):
-    """NN-decode server (reference:
-    aslp-onlinebin/aslp-online-nnet-vad-server.cc), without VAD."""
+    """NN-decode server with (optional) NN VAD gating (reference:
+    aslp-onlinebin/aslp-online-nnet-vad-server.cc)."""
     make_session = session_factory_from_argv(argv)
+    return _serve(make_session.flags, make_session)
+
+
+def online_energy_vad_server(argv):
+    """NN-decode server with energy-VAD gating (reference:
+    aslp-onlinebin/aslp-online-energy-vad-server.cc)."""
+    make_session = session_factory_from_argv(argv, use_energy_vad=True)
     return _serve(make_session.flags, make_session)
 
 

@@ -1,16 +1,20 @@
 """Decoding (port of kaldi_aslp_tpu/decoder/): the acoustic-score
-bridge, the exact dense Viterbi (whole-utterance and online), the beam
-decoder with its lattices, the Kaldi lattice shapes and their
-operations, MBR and N-best.  The JAX package's ``equal_align``,
-``BatchedViterbiDecoder`` and ``BatchedBeamDecoder`` are not ported yet
-(ROADMAP queue 1 items 4 and 10)."""
+bridge, the exact dense Viterbi (whole-utterance, online and batched),
+the beam decoder (one utterance or a lock-step batch) with its lattices,
+the Kaldi lattice shapes and their operations, MBR and N-best.  The JAX
+package's ``equal_align`` waits for the GMM-HMM port."""
 
 from kaldi_aslp_tpu_torch.decoder.viterbi import (
     DecodeError,
     PackedGraph,
     ViterbiDecoder,
 )
-from kaldi_aslp_tpu_torch.decoder.beam import BeamSearchDecoder, CsrGraph
+from kaldi_aslp_tpu_torch.decoder.beam import (
+    BatchedBeamDecoder,
+    BeamSearchDecoder,
+    CsrGraph,
+)
+from kaldi_aslp_tpu_torch.decoder.batched import BatchedViterbiDecoder
 from kaldi_aslp_tpu_torch.decoder.lattice import (
     Lattice,
     LatticeError,
@@ -40,6 +44,7 @@ from kaldi_aslp_tpu_torch.decoder.decodable import (
     PdfPrior,
     NnetForwardOptions,
     nnet_forward,
+    nnet_forward_batched,
 )
 from kaldi_aslp_tpu_torch.decoder.nbest import (
     NBestEntry,

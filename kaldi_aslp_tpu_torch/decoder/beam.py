@@ -70,7 +70,13 @@ What differs from the JAX decoder, and why:
     (``_build_lattice_native``, held equal to the numpy build by
     tests/test_beam_decode.py); the port builds no native helper and
     runs the numpy build;
-  - ``BatchedBeamDecoder`` is not ported yet (ROADMAP queue 1 item 4).
+  - ``BatchedBeamDecoder`` advances B frontiers [B, K] in lock step
+    through the same frame, each op on B rows (the sorts row-wise, so
+    the dedup is keyed by (utterance, state) and keeps the tie order);
+    JAX pads the batch to a power of two of chunks for its compiles and
+    walks identity planes past each length, where the port freezes a
+    row's frontier past its length and starts its backtrace at its own
+    last frame.
 """
 
 from __future__ import annotations
@@ -281,19 +287,21 @@ def _expand(states: torch.Tensor, scores: torch.Tensor,
 
     Returns (arc_pos [A] positions into the CSR arrays, slot [A]
     frontier slot each arc came from, score [A] source score, valid
-    [A] bool)."""
-    K = states.shape[0]
+    [A] bool).  Frontiers [B, K] (a lock-step batch) give [B, A]
+    arrays, each row its frontier's."""
+    K = states.shape[-1]
     se = row_se[states.clamp(min=0)]
-    deg = torch.where(states >= 0, se[:, 1], 0)
+    deg = torch.where(states >= 0, se[..., 1], 0)
     if cap > 0:
         deg = deg.clamp(max=cap)
-    cum = torch.cumsum(deg, 0)
+    cum = torch.cumsum(deg, -1)
     excl = cum - deg
-    slot = (torch.searchsorted(excl, positions, right=True) - 1).clamp(
-        0, K - 1)
-    arc_pos = (se[:, 0] - excl)[slot] + positions
-    valid = positions < cum[-1]
-    return torch.where(valid, arc_pos, 0), slot, scores[slot], valid
+    pos = positions.expand(*states.shape[:-1], -1).contiguous()
+    slot = (torch.searchsorted(excl, pos, right=True) - 1).clamp(0, K - 1)
+    arc_pos = (se[..., 0] - excl).gather(-1, slot) + pos
+    valid = pos < cum[..., -1:]
+    return (torch.where(valid, arc_pos, 0), slot, scores.gather(-1, slot),
+            valid)
 
 
 def _ascending_key(x: torch.Tensor) -> torch.Tensor:
@@ -317,22 +325,24 @@ def _dedup_topk(cand_dst: torch.Tensor, cand_score: torch.Tensor,
     order; the top-K is a stable descending sort cut to K.
 
     Returns (new_states, new_scores, chosen [K] candidate index, -1 for
-    dead slots)."""
+    dead slots).  Candidates [B, N] (a lock-step batch) are sorted row by
+    row, so the dedup is keyed by (row, state) and each row's result is
+    its own."""
     score_all = torch.where(valid, cand_score, NEG_INF)
     dsts = torch.where(valid, cand_dst, INVALID_DST)
     skey, order = torch.sort((dsts << 32) + _ascending_key(-score_all),
-                             stable=True)
+                             dim=-1, stable=True)
     sd = skey >> 32
     first = torch.ones_like(valid)
-    first[1:] = sd[1:] != sd[:-1]
-    masked = torch.where(first & (sd < INVALID_DST), score_all[order],
-                         NEG_INF)
-    top, sel = torch.sort(masked, descending=True, stable=True)
-    top, sel = top[:K], sel[:K]
+    first[..., 1:] = sd[..., 1:] != sd[..., :-1]
+    masked = torch.where(first & (sd < INVALID_DST),
+                         score_all.gather(-1, order), NEG_INF)
+    top, sel = torch.sort(masked, dim=-1, descending=True, stable=True)
+    top, sel = top[..., :K], sel[..., :K]
     alive = top > NEG_INF / 2
-    new_states = torch.where(alive, sd[sel], -1)
+    new_states = torch.where(alive, sd.gather(-1, sel), -1)
     new_scores = torch.where(alive, top, NEG_INF)
-    chosen = torch.where(alive, order[sel], -1)
+    chosen = torch.where(alive, order.gather(-1, sel), -1)
     return new_states, new_scores, chosen
 
 
@@ -342,14 +352,15 @@ def _best_final_dev(st: torch.Tensor, sc: torch.Tensor,
     (kaldi_aslp_tpu/decoder/beam.py:_best_final_dev): the best token on
     a final state, else the best token.  ``torch.argmax`` returns the
     first maximum, as ``jnp.argmax`` does.  Returns (slot, score,
-    reached_final) as 0-dim tensors."""
+    reached_final) as 0-dim tensors, or [B] for frontiers [B, K]."""
     fin = torch.where(st >= 0, final_tbl[st.clamp(min=0)], float("inf"))
     total = torch.where(torch.isfinite(fin), sc - fin, NEG_INF)
-    k1 = torch.argmax(total)
-    k2 = torch.argmax(sc)
-    has = total[k1] > NEG_INF / 2
-    return (torch.where(has, k1, k2), torch.where(has, total[k1], sc[k2]),
-            has)
+    k1 = torch.argmax(total, dim=-1, keepdim=True)
+    k2 = torch.argmax(sc, dim=-1, keepdim=True)
+    t1, s2 = total.gather(-1, k1), sc.gather(-1, k2)
+    has = t1 > NEG_INF / 2
+    return (torch.where(has, k1, k2).squeeze(-1),
+            torch.where(has, t1, s2).squeeze(-1), has.squeeze(-1))
 
 
 def _backtrace(arc_planes: np.ndarray, slot_planes: np.ndarray,
@@ -522,21 +533,23 @@ class BeamSearchDecoder:
         """Advance the frontier (st, sc) over one frame of acoustic
         scores; appends each stage's (arc position, previous slot)
         planes to ``arcs`` / ``slots`` and, with ``records``, its packed
-        record plane (``_record``).  Returns the new frontier."""
+        record plane (``_record``).  Returns the new frontier.  A
+        lock-step batch passes ``ll_t`` [B, P] and frontiers [B, K] (no
+        records): every op then serves its B rows."""
         K = self.K
         arc_pos, slot, src_sc, ok = _expand(st, sc, self._em_se,
                                             self._pos_em)
         w = self._em_w[arc_pos]
-        ac = self.acoustic_scale * ll_t[self._em_pdf[arc_pos]]
+        ac = self.acoustic_scale * ll_t.gather(-1, self._em_pdf[arc_pos])
         cand = src_sc - w + ac
-        best = torch.where(ok, cand, NEG_INF).max()
+        best = torch.where(ok, cand, NEG_INF).amax(-1, keepdim=True)
         ok = ok & (cand >= best - self.beam)
         cand_dst = self._em_dst[arc_pos]
         nst, nsc, chosen = _dedup_topk(cand_dst, cand, ok, K)
         sel = chosen.clamp(min=0)
         live = chosen >= 0
-        arcs.append(torch.where(live, arc_pos[sel], -1))
-        slots.append(torch.where(live, slot[sel], -1))
+        arcs.append(torch.where(live, arc_pos.gather(-1, sel), -1))
+        slots.append(torch.where(live, slot.gather(-1, sel), -1))
         if records is not None:
             records.append(_record(arc_pos, cand, st[slot], cand_dst,
                                    ac - w, ok, rec_budget, counts))
@@ -550,17 +563,18 @@ class BeamSearchDecoder:
             cand_e = src_sc - w_e
             ok = ok & (cand_e >= best - self.beam)
             # the carried frontier comes first (candidates 0..K-1)
-            m_dst = torch.cat([st, dst_e])
-            m_score = torch.cat([sc, cand_e])
-            m_ok = torch.cat([st >= 0, ok])
+            m_dst = torch.cat([st, dst_e], -1)
+            m_score = torch.cat([sc, cand_e], -1)
+            m_ok = torch.cat([st >= 0, ok], -1)
             nst, nsc, chosen = _dedup_topk(m_dst, m_score, m_ok, K)
             sel = chosen.clamp(min=0)
             from_eps = chosen >= K
             eps_sel = (sel - K).clamp(min=0)
-            arcs.append(torch.where(from_eps, arc_pos[eps_sel], -1))
+            arcs.append(torch.where(from_eps, arc_pos.gather(-1, eps_sel),
+                                    -1))
             slots.append(torch.where(
                 chosen < 0, -1,
-                torch.where(from_eps, slot[eps_sel], sel)))
+                torch.where(from_eps, slot.gather(-1, eps_sel), sel)))
             if records is not None:
                 records.append(_record(arc_pos, cand_e, st[slot], dst_e,
                                        -w_e, ok, rec_budget, counts))
@@ -1082,3 +1096,74 @@ class BeamSearchDecoder:
                 f["dst"][keep].tolist(), f["tid"][keep].tolist(), words,
                 f["w"][keep].tolist(), f["ac"][keep].tolist()))
         return Lattice(T, arcs_out, self.graph.start, finals)
+
+
+class BatchedBeamDecoder(BeamSearchDecoder):
+    """Beam decode a batch of utterances in lock step over one shared
+    graph (kaldi_aslp_tpu/decoder/beam.py:BatchedBeamDecoder; reference:
+    per-core run.pl sharding, decode.sh:129-134, as one program), each
+    utterance's result that of :meth:`BeamSearchDecoder.decode`.
+
+    A frame is the single decoder's :meth:`_frame` on [B, K] frontiers,
+    so its launches serve B utterances.  The backpointer planes stay on the
+    device until the last frame: [T_max, stages, B, K] int32 x 2, so
+    B = 8, T = 400, 2 stages and K = 2048 hold 105 MB (8 * 400 * 2 *
+    2048 * 4 bytes * 2); size the batch by it."""
+
+    def decode_batch(self, loglikes_list
+                     ) -> List[Tuple[List[int], np.ndarray, float]]:
+        """list of [T_b, P] (numpy, or tensors on any device) -> list of
+        (words, alignment, score).  Raises DecodeError naming the first
+        utterance whose tokens all died."""
+        B = len(loglikes_list)
+        if B == 0:
+            return []
+        lens = [len(x) for x in loglikes_list]
+        T_max = max(lens)
+        states0, scores0, init_bp = self._init_frontier()
+        if T_max == 0:
+            return [self.decode(x) for x in loglikes_list]
+        P = loglikes_list[0].shape[1]
+        # the padded batch, assembled on the device
+        ll = torch.zeros((B, T_max, P), dtype=torch.float32,
+                         device=self.device)
+        for b, x in enumerate(loglikes_list):
+            ll[b, :lens[b]] = self._loglikes_on_device(x)
+        active = (torch.arange(T_max)[None, :]
+                  < torch.tensor(lens)[:, None]).to(self.device)
+        st = torch.from_numpy(states0).to(self.device).expand(B, -1)
+        sc = torch.from_numpy(scores0).to(self.device).expand(B, -1)
+        arcs: list = []
+        slots: list = []
+        stages = 1 + self.eps_rounds
+        for t in range(T_max):
+            nst, nsc = self._frame(ll[:, t], st, sc, arcs, slots)
+            # the planes as int32 (the docstring's size)
+            arcs[-stages:] = [a.int() for a in arcs[-stages:]]
+            slots[-stages:] = [a.int() for a in slots[-stages:]]
+            # a row past its length keeps its last frontier
+            on = active[:, t:t + 1]
+            st, sc = torch.where(on, nst, st), torch.where(on, nsc, sc)
+        k, score, _ = _best_final_dev(st, sc, self._final)
+        # one copy to the host: both planes, the slots, the scores' bits
+        flat = torch.cat([torch.stack(arcs + slots).reshape(-1),
+                          k.to(torch.int32),
+                          score.view(torch.int32)]).cpu().numpy()
+        scores = flat[-B:].view(np.float32)
+        ks = flat[-2 * B:-B]
+        planes = flat[:-2 * B].reshape(2, T_max, stages, B, self.K)
+        out = []
+        for b in range(B):
+            if scores[b] <= NEG_INF / 2:
+                raise DecodeError(
+                    f"decode failed: empty frontier (utterance {b})")
+            T = lens[b]
+            if T == 0:
+                out.append(self.decode(loglikes_list[b]))
+                continue
+            start_slot, arcs_rev = _backtrace(
+                planes[0, :T, :, b], planes[1, :T, :, b], int(ks[b]))
+            words, ali = self._host_path_tail(arcs_rev, start_slot, T,
+                                              states0, init_bp)
+            out.append((words, ali, float(scores[b])))
+        return out

@@ -70,23 +70,61 @@ def nnet_forward(
     if opts.time_shift:
         x = np.concatenate(
             [x[opts.time_shift:], np.repeat(x[-1:], opts.time_shift, 0)])
-    # the inference path, as the JAX package calls apply(train=False)
+    y = _eval_forward(net, torch.from_numpy(np.array(x[None])).to(device))
+    out = _scores(y[0], opts, prior).cpu().numpy()
+    if opts.skip_width > 1:
+        out = np.repeat(out, opts.skip_width, axis=0)[:T]
+    return out
+
+
+@torch.inference_mode()
+def nnet_forward_batched(
+    net: Nnet,
+    feats: np.ndarray,
+    mask: np.ndarray,
+    opts: Optional[NnetForwardOptions] = None,
+    prior: Optional[PdfPrior] = None,
+) -> np.ndarray:
+    """:func:`nnet_forward` over a padded batch: ``feats`` [B, T, D] and
+    ``mask`` [B, T] (1 = valid) -> [B, T, P] scores, one network forward
+    for the batch on the device of ``net``'s parameters (the batched
+    forward of online/batching.py:AcousticBatcher).  The mask holds each
+    recurrent layer's carry through a row's padding, so a row's valid
+    frames score as they do alone.  Frame skipping and time shift are
+    per-utterance options and are refused here."""
+    opts = opts or NnetForwardOptions()
+    if opts.skip_width > 1 or opts.time_shift:
+        raise ValueError("nnet_forward_batched takes no skip_width or "
+                         "time_shift")
+    device = next(net.parameters()).device
+    y = _eval_forward(
+        net, torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(
+            device),
+        torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(device))
+    return _scores(y, opts, prior).cpu().numpy()
+
+
+def _eval_forward(net: Nnet, x: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The inference path, as the JAX package calls apply(train=False)."""
     was_training = net.training
     net.eval()
     try:
-        y, _ = net(torch.from_numpy(np.array(x[None])).to(device))
+        y, _ = net(x, mask=mask)
     finally:
         net.train(was_training)
-    y = y[0]
+    return y
+
+
+def _scores(y: torch.Tensor, opts: NnetForwardOptions,
+            prior: Optional[PdfPrior]) -> torch.Tensor:
+    """Network outputs [..., P] -> decoder scores."""
     if not opts.no_softmax:
         y = torch.log_softmax(y, dim=-1)
     elif opts.apply_log:
         y = torch.log(torch.clamp(y, min=1e-20))
     if opts.blank_scale != 1.0:
-        y[:, 0] += float(np.log(opts.blank_scale))
+        y[..., 0] += float(np.log(opts.blank_scale))
     if prior is not None:
         y = prior.subtract(y)
-    out = y.cpu().numpy()
-    if opts.skip_width > 1:
-        out = np.repeat(out, opts.skip_width, axis=0)[:T]
-    return out
+    return y

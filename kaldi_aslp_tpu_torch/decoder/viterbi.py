@@ -19,7 +19,7 @@ does not pad."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,16 +111,20 @@ def _eps_relax_host(scores: np.ndarray, bp: np.ndarray,
 
 def _seg_max_arg(cand, dst, arc_ids, num_states):
     """Per destination state: the best candidate score (at least NEG_INF)
-    and the largest arc id within 1e-6 of it (-1 where no arc)."""
-    best = torch.full((num_states,), NEG_INF, dtype=cand.dtype,
+    and the largest arc id within 1e-6 of it (-1 where no arc).
+    ``cand`` [..., A] may have leading batch dimensions (one score table
+    a row, decoder/batched.py); ``dst`` and ``arc_ids`` are [A]."""
+    lead = cand.shape[:-1]
+    idx = dst.expand(*lead, -1)
+    best = torch.full((*lead, num_states), NEG_INF, dtype=cand.dtype,
                       device=cand.device)
-    best = best.scatter_reduce(0, dst, cand, reduce="amax",
+    best = best.scatter_reduce(-1, idx, cand, reduce="amax",
                                include_self=True)
-    is_best = cand >= best[dst] - 1e-6
-    winner = torch.full((num_states,), -1, dtype=arc_ids.dtype,
+    is_best = cand >= best.gather(-1, idx) - 1e-6
+    winner = torch.full((*lead, num_states), -1, dtype=arc_ids.dtype,
                         device=cand.device)
     winner = winner.scatter_reduce(
-        0, dst, torch.where(is_best, arc_ids, -1), reduce="amax",
+        -1, idx, torch.where(is_best, arc_ids, -1), reduce="amax",
         include_self=True)
     return best, winner
 
@@ -145,26 +149,31 @@ class _DeviceArcs:
 
 def _viterbi_scan(loglikes: torch.Tensor, init_scores: torch.Tensor,
                   arcs: _DeviceArcs, acoustic_scale: float,
-                  num_states: int, eps_iters: int):
-    """Returns (final_scores [S], bp [T, S] arc ids) for
-    ``loglikes [T, P]`` (kaldi_aslp_tpu/decoder/viterbi.py:_viterbi_scan)."""
-    scores = init_scores
+                  num_states: int, eps_iters: int,
+                  valid: Optional[torch.Tensor] = None):
+    """Returns (final_scores [B, S], bp [T, B, S] arc ids) for
+    ``loglikes [B, T, P]`` (kaldi_aslp_tpu/decoder/viterbi.py:_viterbi_scan;
+    B > 1 is decoder/batched.py's vmap).  ``valid [B, T]`` marks each
+    row's frames; a row's scores hold through the frames past its
+    length."""
+    scores = init_scores.expand(loglikes.shape[0], -1)
     all_bps = []
-    for t in range(loglikes.shape[0]):
-        acoustic = acoustic_scale * loglikes[t][arcs.em_pdf]
-        cand = scores[arcs.em_src] - arcs.em_w + acoustic
+    for t in range(loglikes.shape[1]):
+        acoustic = acoustic_scale * loglikes[:, t, arcs.em_pdf]
+        cand = scores[:, arcs.em_src] - arcs.em_w + acoustic
         new_scores, bp = _seg_max_arg(cand, arcs.em_dst, arcs.em_idx,
                                       num_states)
         bp = torch.where(new_scores > NEG_INF, bp, -1)
         if len(arcs.ep_src) > 0:
             for _ in range(eps_iters):
-                cand_e = new_scores[arcs.ep_src] - arcs.ep_w
+                cand_e = new_scores[:, arcs.ep_src] - arcs.ep_w
                 best, winner = _seg_max_arg(cand_e, arcs.ep_dst,
                                             arcs.ep_idx, num_states)
                 improved = best > new_scores
                 new_scores = torch.where(improved, best, new_scores)
                 bp = torch.where(improved, winner, bp)
-        scores = new_scores
+        scores = (new_scores if valid is None
+                  else torch.where(valid[:, t:t + 1], new_scores, scores))
         all_bps.append(bp)
     return scores, torch.stack(all_bps)
 
@@ -206,12 +215,19 @@ class ViterbiDecoder:
 
     def _scan(self, loglikes: np.ndarray, init: np.ndarray):
         """Run the DP on the decoder's device; host (final, bps)."""
+        final, bps = self._scan_batch(
+            torch.from_numpy(np.array(loglikes, np.float32)
+                             ).to(self.device)[None],
+            torch.from_numpy(init).to(self.device))
+        return final[0].cpu().numpy(), bps[:, 0].cpu().numpy()
+
+    def _scan_batch(self, loglikes: torch.Tensor, init: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None):
+        """The DP over [B, T, P] device scores: (final [B, S], bp [T, B,
+        S])."""
         g = self.graph
-        final, bps = _viterbi_scan(
-            torch.from_numpy(np.array(loglikes, np.float32)).to(self.device),
-            torch.from_numpy(init).to(self.device), self._arcs,
-            self.acoustic_scale, g.num_states, max(g.eps_diameter, 1))
-        return final.cpu().numpy(), bps.cpu().numpy()
+        return _viterbi_scan(loglikes, init, self._arcs, self.acoustic_scale,
+                             g.num_states, max(g.eps_diameter, 1), valid)
 
     def decode(self, loglikes: np.ndarray
                ) -> Tuple[List[int], np.ndarray, float]:

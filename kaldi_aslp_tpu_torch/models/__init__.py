@@ -17,4 +17,8 @@ from kaldi_aslp_tpu_torch.models.recurrent import (
     Lstm,
     LstmProjectedStreams,
 )
-from kaldi_aslp_tpu_torch.models.simple import AffineTransform
+from kaldi_aslp_tpu_torch.models.simple import (
+    AffineTransform,
+    Sigmoid,
+    Softmax,
+)

@@ -1,7 +1,8 @@
 """Frame-level components.
 
-Port of kaldi_aslp_tpu/models/simple.py; so far only ``AffineTransform``
-(:20-55), the flagship's output layer.  The rest of that module waits
+Port of kaldi_aslp_tpu/models/simple.py: ``AffineTransform`` (:20-55),
+the flagship's output layer, and the activations ``Sigmoid`` and
+``Softmax`` (:82-113), the VAD net's.  The rest of that module waits
 for a later slice."""
 
 from __future__ import annotations
@@ -56,3 +57,21 @@ class AffineTransform(Component):
     @property
     def max_norm(self) -> float:
         return float(self.attrs.get("max_norm", 0.0))
+
+
+@register
+class Sigmoid(Component):
+    token = "<Sigmoid>"
+
+    def forward(self, x, state=None, mask=None):
+        return torch.sigmoid(x), state
+
+
+@register
+class Softmax(Component):
+    """(reference: nnet-activation.h:35)."""
+
+    token = "<Softmax>"
+
+    def forward(self, x, state=None, mask=None):
+        return torch.softmax(x, dim=-1), state

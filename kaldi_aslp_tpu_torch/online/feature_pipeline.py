@@ -1,4 +1,5 @@
-"""Streaming feature pipeline: incremental fbank + sliding-window CMN.
+"""Streaming feature pipeline: incremental fbank or MFCC + sliding-window
+CMN.
 
 Port of kaldi_aslp_tpu/online/feature_pipeline.py (reference:
 src/aslp-online/online-feature-pipeline.h:159 OnlineFeaturePipeline).
@@ -6,7 +7,9 @@ Samples buffer on the host; whenever enough arrive, the finished frames
 are computed with the batched extractor on the pipeline's device
 (identical values to offline: frames depend only on their own samples),
 then sliding-window CMN is applied on the host in float64 over the frames
-seen so far.  The MFCC branch waits for a later slice."""
+seen so far.  ``feature_type="mfcc"`` builds ``Mfcc`` with the default
+mel options and ``num_ceps``, as the JAX pipeline does (it does not read
+``num_mel_bins``); any other type raises."""
 
 from __future__ import annotations
 
@@ -18,13 +21,14 @@ import torch
 
 from kaldi_aslp_tpu_torch.feats.fbank import Fbank, FbankOptions
 from kaldi_aslp_tpu_torch.feats.mel import MelBanksOptions
+from kaldi_aslp_tpu_torch.feats.mfcc import Mfcc, MfccOptions
 from kaldi_aslp_tpu_torch.feats.window import FrameExtractionOptions
 from kaldi_aslp_tpu_torch.utils.config import Config
 
 
 @dataclasses.dataclass
 class OnlineFeatureOptions(Config):
-    feature_type: str = "fbank"  # fbank (mfcc is not ported yet)
+    feature_type: str = "fbank"  # fbank|mfcc
     samp_freq: float = 16000.0
     num_mel_bins: int = 40
     num_ceps: int = 13
@@ -37,15 +41,21 @@ class OnlineFeaturePipeline:
     def __init__(self, opts: Optional[OnlineFeatureOptions] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.opts = opts or OnlineFeatureOptions()
-        if self.opts.feature_type != "fbank":
-            raise NotImplementedError(
-                f"feature_type={self.opts.feature_type!r} is not ported "
-                "yet; the port has fbank")
         frame_opts = FrameExtractionOptions(
             samp_freq=self.opts.samp_freq, dither=0.0)
-        self._extractor = Fbank(
-            frame_opts, MelBanksOptions(num_bins=self.opts.num_mel_bins),
-            FbankOptions(), device=device)
+        if self.opts.feature_type == "fbank":
+            self._extractor = Fbank(
+                frame_opts, MelBanksOptions(num_bins=self.opts.num_mel_bins),
+                FbankOptions(), device=device)
+        elif self.opts.feature_type == "mfcc":
+            self._extractor = Mfcc(
+                frame_opts, MelBanksOptions(),
+                MfccOptions(num_ceps=self.opts.num_ceps), device=device)
+        else:
+            # JAX builds MFCC for any other name; the port refuses it
+            raise NotImplementedError(
+                f"feature_type={self.opts.feature_type!r}: the online "
+                "pipeline has fbank and mfcc")
         self._frame_opts = frame_opts
         self.reset()
 

@@ -7,8 +7,10 @@ decode-thread.cc:162, aslp-onlinebin/aslp-online-nnet-vad-server.cc).
 asyncio serves the connections; each runs a session that streams int16
 PCM in and newline-delimited JSON results out
 (``{"type": "partial"|"final", "text": ...}``).  The network forward and
-the Viterbi advance run per chunk of ``chunk_frames`` frames.  VAD
-sessions, cross-session batching and punctuation are later slices."""
+the Viterbi advance run per chunk of ``chunk_frames`` frames; a session
+that has ``accept_samples_async`` / ``finalize_async`` (the
+cross-session batched one, online/batching.py) is awaited instead.  VAD
+sessions are online/vad_session.py."""
 
 from __future__ import annotations
 
@@ -50,7 +52,12 @@ class DecodeSession:
         endpoint_config: Optional[OnlineEndpointConfig] = None,
         sil_tids: Optional[np.ndarray] = None,
         chunk_frames: int = 32,
+        punctuation=None,
     ):
+        # optional CRF punctuation on final results (reference:
+        # decode-thread.cc applies PunctuationProcessor before
+        # WriteFinalReslut)
+        self.punctuation = punctuation
         self.features = feature_pipeline
         self.decoder = decoder
         self.acoustic_fn = acoustic_fn
@@ -60,6 +67,7 @@ class DecodeSession:
                          if sil_tids is not None else np.zeros(0))
         self.chunk_frames = chunk_frames
         self._pending = np.zeros((0, feature_pipeline.dim), np.float32)
+        self.finals: List[str] = []
 
     def _words_to_text(self, words: List[int]) -> str:
         return " ".join(self.word_syms.sym(w) for w in words)
@@ -92,10 +100,18 @@ class DecodeSession:
         if len(self._pending):
             self.decoder.advance_decoding(self.acoustic_fn(self._pending))
             self._pending = np.zeros((0, self.features.dim), np.float32)
+        return self.finalize_sync()
+
+    def finalize_sync(self) -> dict:
+        """The final result of what was decoded, then the resets; pending
+        frames stay pending (the batched sessions' endpoint, as JAX's)."""
         if self.decoder.num_frames_decoded == 0:
             return {"type": "final", "text": ""}
         words, _, _ = self.decoder.finalize_decoding()
         text = self._words_to_text(words)
+        if self.punctuation is not None:
+            text = self.punctuation.process(text)
+        self.finals.append(text)
         self.decoder.reset()
         self.features.reset()
         return {"type": "final", "text": text}
@@ -122,10 +138,17 @@ class OnlineTcpServer:
                     break
                 samples = np.frombuffer(data, dtype="<i2").astype(
                     np.float32)
-                for event in session.accept_samples(samples):
+                if hasattr(session, "accept_samples_async"):
+                    events = await session.accept_samples_async(samples)
+                else:
+                    events = session.accept_samples(samples)
+                for event in events:
                     writer.write((json.dumps(event) + "\n").encode())
                     await writer.drain()
-            final = session.finalize()
+            if hasattr(session, "finalize_async"):
+                final = await session.finalize_async()
+            else:
+                final = session.finalize()
             writer.write((json.dumps(final) + "\n").encode())
             await writer.drain()
         except (ConnectionResetError, asyncio.IncompleteReadError):

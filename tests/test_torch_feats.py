@@ -211,6 +211,6 @@ def test_compute_batched_dithers_each_utterance_in_turn():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="mfcc"):
-        OnlineFeaturePipeline(OnlineFeatureOptions(feature_type="mfcc"),
+    with pytest.raises(NotImplementedError, match="plp"):
+        OnlineFeaturePipeline(OnlineFeatureOptions(feature_type="plp"),
                               device="cpu")

@@ -135,12 +135,12 @@ def test_loader_keeps_unused_attrs(tmp_path):
 
 
 def test_unknown_token_is_an_error(tmp_path):
-    from kaldi_aslp_tpu.models.simple import Sigmoid
+    from kaldi_aslp_tpu.models.simple import Tanh
     net = JaxNnet()
     net.add(JaxAffine(4, 4))
-    net.add(Sigmoid(4, 4))
+    net.add(Tanh(4, 4))
     net.save(str(tmp_path / "m.zip"), net.init(jax.random.PRNGKey(0)))
-    with pytest.raises(ValueError, match="<Sigmoid>"):
+    with pytest.raises(ValueError, match="<Tanh>"):
         Nnet.load(str(tmp_path / "m.zip"), "cpu")
 
 

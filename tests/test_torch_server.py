@@ -180,10 +180,24 @@ async def run():
 
 
 events = asyncio.run(run())
+# the serving modules ported with the VAD servers and batching: loaded,
+# and the energy-VAD factory's session driven on the same PCM
+import numpy as np
+NEW = ["kaldi_aslp_tpu_torch." + m for m in (
+    "vad.vad", "online.vad_pipeline", "online.vad_session",
+    "online.punctuation", "online.batching", "ops.crf", "decoder.batched",
+    "entry")]
+missing = [m for m in NEW if m not in sys.modules]
+energy = session_factory_from_argv(
+    ["--device=cpu", "--num-mel-bins=23"] + sys.argv[2:],
+    use_energy_vad=True)()
+samples = np.frombuffer(pcm, "<i2").astype(np.float32)
+energy_events = energy.accept_samples(samples) + [energy.finalize()]
 shared = sorted({m.split(".")[1] for m in sys.modules
                  if m.startswith("kaldi_aslp_tpu.")})
 print(json.dumps({"events": events, "jax": "jax" in sys.modules,
-                  "shared": shared}))
+                  "shared": shared, "missing": missing,
+                  "energy_events": energy_events}))
 """
 
 
@@ -199,15 +213,48 @@ def test_port_serves_with_jax_blocked(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] is False
     assert out["shared"] == []
+    assert out["missing"] == []
     types = [e["type"] for e in out["events"]]
     assert "partial" in types and types[-1] == "final"
+    assert out["energy_events"][-1]["type"] == "final"
 
 
 def test_cli_vad_nnet_is_not_silently_ignored(tmp_path):
+    """--vad-nnet builds an NN-gated session whose VAD net runs on the
+    session's audio (the JAX server loads it and never runs it)."""
+    from kaldi_aslp_tpu_torch.models import (
+        AffineTransform,
+        Nnet,
+        Sigmoid,
+        Softmax,
+    )
+    from kaldi_aslp_tpu_torch.online import VadDecodeSession
+    from kaldi_aslp_tpu_torch.vad import NnetVad
+
     paths = _write_files(tmp_path)
-    with pytest.raises(NotImplementedError, match="vad-nnet"):
+    vad = Nnet()
+    for comp in (AffineTransform(BINS, 32), Sigmoid(32, 32),
+                 AffineTransform(32, 2), Softmax(2, 2)):
+        vad.add(comp)
+    vad.reset_parameters(torch.Generator().manual_seed(0))
+    vad_zip = str(tmp_path / "vad.zip")
+    vad.save(vad_zip)
+    factory = session_factory_from_argv(
+        ["--device=cpu", f"--num-mel-bins={BINS}", f"--vad-nnet={vad_zip}",
+         "--sil-threshold=0.3", *paths])
+    session = factory()
+    assert isinstance(session, VadDecodeSession)
+    gate = session.vad.vad
+    assert isinstance(gate, NnetVad) and gate.net is factory.vad_net
+    assert gate.opts.sil_posterior_threshold == 0.3
+    samples = np.frombuffer(_pcm(), "<i2").astype(np.float32)
+    for i in range(0, len(samples), 4000):
+        session.accept_samples(samples[i:i + 4000])
+    session.finalize()
+    assert gate.num_forwards == len(range(0, len(samples), 4000))
+    with pytest.raises(FileNotFoundError):
         session_factory_from_argv(
-            ["--device=cpu", "--vad-nnet=vad.zip", *paths])
+            ["--device=cpu", "--vad-nnet=no-such-vad.zip", *paths])
 
 
 def test_cli_cuda_device_never_drops_to_cpu(tmp_path):
@@ -220,7 +267,9 @@ def test_cli_cuda_device_never_drops_to_cpu(tmp_path):
 
 def test_cli_dispatcher(capsys):
     assert cli_main(["--help"]) == 1
-    assert "aslp-online-nnet-vad-server" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "aslp-online-nnet-vad-server" in err
+    assert "aslp-online-energy-vad-server" in err
     assert cli_main(["no-such-tool"]) == 1
 
 
