@@ -220,6 +220,32 @@ exits nonzero:
                 the decoder's best path, one decode's launches a frame.
                 Both lattice phases run their CPU side in a child process
                 beside the card's (lattice_cpu_child).
+ 19. hybrid   - the hybrid HMM/NN path on the card, no hand kernel
+                launched in the whole phase: (a) the ladder's mono stage
+                (hard_ladder --stages=mono at the small scale: 8
+                iterations, 400 gaussians, realigned on 1 2 3 4 6) on
+                phase 14's corpus, its test and dev WER in JAX's band
+                (10, 95), pruning_sensitivity degraded >= healthy + 1, its
+                final alignments equal frame for frame to the same run on
+                the CPU in a child process (mono_cpu_child), one
+                utterance's GMM loglikes within 1e-4 relative of the CPU,
+                one re-estimation's statistics the same bits twice, train,
+                realignment, re-estimation and decode timed, one
+                realignment pass profiled; (b) HybridRecipe on (a)'s
+                alignments and HCLG (bootstrap=), the ladder's full-scale
+                DNN (4 x 512 Sigmoid, 351 spliced inputs) and dnn-stage
+                options (lr 0.2, acoustic scale 0.1, LMWT sweep on dev,
+                beam 32), 2 newbob iterations: the second epoch's loss
+                below the first's, one minibatch's loss and gradients and
+                one utterance's prior-subtracted scores within 1e-4 of the
+                CPU, the WER, one epoch profiled; (c) aslp-nnet-train-simple
+                --device=cuda at build_dnn_hybrid's widths (440 inputs,
+                4 x 1024 Sigmoid, 3019 pdfs, random weights from a numpy
+                seed) on an ark/scp corpus of frame targets, minibatch 256,
+                pool 32768, one epoch: the loss's last quarter below its
+                first, the written model loads and moved,
+                --cross-validate=true moves nothing and prints
+                FRAME_ACCURACY; one step split by CUDA events.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -4065,6 +4091,475 @@ def entry_phase():
     return launches
 
 
+# -- phase 19: the hybrid HMM/NN path ------------------------------------------
+
+# (a) the ladder's mono stage at the small scale (hard_ladder._Scale
+# "small".mono: 8 iterations, 400 gaussians, realigned on 1 2 3 4 6) on
+# the CTC recipe's corpus; JAX's band for its WER
+# (tests/test_hard_ladder.py:93-101) and pruning sensitivity
+MONO_WER_BAND = (10.0, 95.0)
+MONO_LL_RTOL = 1e-4
+# (b) HybridRecipe on (a)'s alignments and HCLG, the ladder's full-scale
+# DNN (kaldi_aslp_tpu/recipes/hard_ladder.py:131: 4 x 512 Sigmoid) and
+# the dnn stage's options (:264-270), cut to 2 newbob iterations; card
+# vs CPU: the loss relative, each gradient against its tensor's largest
+# magnitude, the prior-subtracted scores absolute (float32, TF32 off)
+HYBRID_DNN_OPTS = dict(model_type="dnn", hidden_dim=512, num_layers=4,
+                       splice_context=4, learn_rate=0.2, acoustic_scale=0.1,
+                       lmwt_sweep=" ".join(str(x) for x in LMWT_RANGE),
+                       decode_beam=32.0, max_iters=2)
+HYBRID_TOL = 1e-4
+# (c) aslp-nnet-train-simple at build_dnn_hybrid's widths (440 inputs,
+# 4 x 1024 Sigmoid, 3019 pdfs) on SIMPLE_UTTS utterances of frame
+# targets, the tool's default minibatch and pool
+SIMPLE_UTTS = 64
+SIMPLE_TARGETS = 64
+SIMPLE_ARGS = ["--minibatch-size=256", "--randomizer-size=32768",
+               "--learn-rate=0.2", "--momentum=0.9"]
+
+
+def hand_kernel_launches():
+    """Every hand kernel wrapper's launch count, by name."""
+    return {n: w.launches for n, w in hand_kernel_wrappers().items()}
+
+
+def mono_cpu_child(job):
+    """In a process of its own, beside the card's run: the mono stage's
+    training on the CPU from the job's pickled corpus; its final
+    alignments into the job's npz, its seconds printed as JSON."""
+    import pickle
+
+    from kaldi_aslp_tpu_torch.gmm.mono import MonophoneTrainer
+
+    torch.set_num_threads(4)
+    with open(job, "rb") as f:
+        spec = pickle.load(f)
+    t0 = time.perf_counter()
+    mono = MonophoneTrainer(spec["lang"], opts=spec["opts"], device="cpu")
+    am, _ = mono.train(spec["feats"], spec["texts"])
+    np.savez(spec["out"], **mono._final_alignments)
+    print(json.dumps({"seconds": time.perf_counter() - t0,
+                      "gaussians": int(am.num_gauss_per_pdf.sum())}),
+          flush=True)
+
+
+def hybrid_mono_part(corpus, workdir):
+    """The ladder's mono stage on the card: its WER in JAX's band, pruning
+    sensitivity, the final alignments equal to a CPU run's, one
+    utterance's loglikes against the CPU, one re-estimation's statistics
+    the same bits twice; each part timed."""
+    import pickle
+
+    from kaldi_aslp_tpu_torch.gmm import diag_gmm
+    from kaldi_aslp_tpu_torch.gmm.mono import MonophoneTrainer
+    from kaldi_aslp_tpu_torch.recipes import hard_ladder
+
+    sc = hard_ladder._Scale("small")
+    work = os.path.join(workdir, "hybrid")
+    os.makedirs(work)
+    job = os.path.join(work, "mono_cpu.pkl")
+    with open(job, "wb") as f:
+        pickle.dump({"lang": corpus["lang"], "opts": sc.mono,
+                     "feats": corpus["train_feats"],
+                     "texts": corpus["train_texts"],
+                     "out": os.path.join(work, "mono_cpu.npz")}, f)
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.mono_cpu_child({job!r})"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    times, undo = timed_methods(MonophoneTrainer,
+                                ["train", "_align_all", "_reestimate"])
+    decode_ms = []
+    inner_decode = hard_ladder.decode_wer_dev_test
+
+    def decode(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_decode(*a, **k)
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    hard_ladder.decode_wer_dev_test = decode
+    t0 = time.perf_counter()
+    try:
+        results = hard_ladder.run(os.path.join(work, "ladder"),
+                                  scale="small", stages=["mono"],
+                                  corpus=corpus, device="cuda")
+    finally:
+        undo()
+        hard_ladder.decode_wer_dev_test = inner_decode
+    stage_s = time.perf_counter() - t0
+    art = hard_ladder.run.artifacts
+    wer, dev_wer = results["mono"], hard_ladder.run.dev_results["mono"]
+    t0 = time.perf_counter()
+    healthy, degraded = hard_ladder.pruning_sensitivity(art)
+    sensitivity_s = time.perf_counter() - t0
+    lo, hi = MONO_WER_BAND
+    if not (lo < wer < hi and lo < dev_wer < hi):
+        raise RuntimeError(f"mono WER test {wer} dev {dev_wer} outside "
+                           f"{MONO_WER_BAND}")
+    if not degraded >= healthy + 1.0:
+        raise RuntimeError(f"pruning sensitivity: degraded {degraded}, "
+                           f"healthy {healthy}")
+    mono, am0 = art["mono"], art["am0"]
+    # the final alignments against the CPU's run of the same stage
+    t0 = time.perf_counter()
+    cpu = cpu_child_result(child)
+    cpu_wait_s = time.perf_counter() - t0
+    z = np.load(os.path.join(work, "mono_cpu.npz"))
+    card_ali = mono._final_alignments
+    if sorted(z.files) != sorted(card_ali):
+        raise RuntimeError("the CPU run aligned other utterances")
+    differ = {u: int((z[u] != card_ali[u]).sum()) for u in z.files
+              if not np.array_equal(z[u], card_ali[u])}
+    frames = sum(len(a) for a in card_ali.values())
+    if differ:
+        raise RuntimeError(f"mono alignments differ from the CPU's in "
+                           f"{len(differ)} utterances: {differ}")
+    # one utterance's loglikes, card against CPU
+    u = max(corpus["test_feats"], key=lambda k: len(corpus["test_feats"][k]))
+    feats = torch.from_numpy(corpus["test_feats"][u])
+    card_ll = diag_gmm.gmm_loglikes(feats.cuda(), *am0.pack("cuda")).cpu()
+    cpu_ll = diag_gmm.gmm_loglikes(feats, *am0.pack("cpu"))
+    ll_rel = float(((card_ll - cpu_ll).abs() / cpu_ll.abs()).max())
+    if not ll_rel <= MONO_LL_RTOL:
+        raise RuntimeError(f"GMM loglikes card vs CPU {ll_rel}")
+    # one re-estimation's statistics, twice on the card
+    utts = list(card_ali)
+    tm = mono.trans_model
+    F = np.concatenate([corpus["train_feats"][k] for k in utts])
+    pdfs = np.concatenate([tm.alignment_to_pdfs(card_ali[k]) for k in utts])
+
+    def stats_once():
+        s = diag_gmm.GmmStats(am0, "cuda")
+        s.accumulate(am0.pack("cuda"), F, pdfs)
+        return s
+
+    runs = [stats_once() for _ in range(2)]
+    same = all(torch.equal(getattr(runs[0], k), getattr(runs[1], k))
+               for k in ("occ", "mean_acc", "var_acc"))
+    if not same:
+        raise RuntimeError("GMM statistics differ between two runs")
+    stats_ms = cuda_ms(stats_once, reps=5)
+    # one realignment pass on the card: device busy share
+    graphs = {k: mono.compiler.compile(corpus["train_texts"][k])
+              for k in utts}
+    counts = {}
+    t0 = time.perf_counter()
+    mono._align_all(am0, graphs, corpus["train_feats"], utts)
+    torch.cuda.synchronize()
+    align_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel = device_ms_by_kernel(
+        lambda: mono._align_all(am0, graphs, corpus["train_feats"], utts),
+        counts)
+    device_ms = sum(v for k, v in by_kernel.items()
+                    if not k.startswith(("Memcpy", "Memset")))
+    launches = sum(c for k, c in counts.items()
+                   if not k.startswith(("Memcpy", "Memset")))
+    T_max = max(len(corpus["train_feats"][k]) for k in utts)
+    out = {"test_wer": wer, "dev_wer": dev_wer, "pruning_healthy": healthy,
+           "pruning_degraded": degraded, "pdfs": am0.num_pdfs,
+           "gaussians": int(am0.num_gauss_per_pdf.sum()),
+           "train_utts": len(utts), "train_frames": frames,
+           "stage_s": stage_s, "train_ms": times["train"][0],
+           "realign_ms": times["_align_all"],
+           "reestimate_ms": times["_reestimate"],
+           "decode_dev_test_ms": decode_ms[0],
+           "pruning_sensitivity_s": sensitivity_s,
+           "cpu_train_s": cpu["seconds"], "cpu_wait_s": cpu_wait_s,
+           "alignments_equal_cpu": True, "loglikes_rel_err": ll_rel,
+           "stats_same_bits_twice": True, "stats_ms": stats_ms,
+           "realign_pass_ms": align_ms,
+           "realign_launches_per_frame": launches / T_max,
+           "realign_device_busy_share": device_ms / align_ms,
+           "graph_states": art["packed0"].num_states,
+           "graph_arcs": len(art["packed0"].src)}
+    log("hybrid_mono", **out, card=smi_name_and_power())
+    return art, out
+
+
+def hybrid_dnn_part(corpus, art, workdir):
+    """HybridRecipe on the mono alignments and HCLG: the second epoch's
+    loss below the first's, one minibatch's loss and gradients and one
+    utterance's scores against the CPU, the WER, each part timed."""
+    import copy
+
+    from kaldi_aslp_tpu_torch.decoder.decodable import (
+        NnetForwardOptions,
+        nnet_forward,
+    )
+    from kaldi_aslp_tpu_torch.fst import arpa_to_fst
+    from kaldi_aslp_tpu_torch.recipes.hybrid import (
+        HybridRecipe,
+        HybridRecipeOptions,
+    )
+    from kaldi_aslp_tpu_torch.train import (
+        FrameTrainer,
+        NnetTrainOptions,
+        init_velocity,
+    )
+    from kaldi_aslp_tpu_torch.train.trainer import upload_frames
+
+    lang, mono, am0, tm0 = (corpus["lang"], art["mono"], art["am0"],
+                            art["tm0"])
+    t0 = time.perf_counter()
+    alis = mono.align(am0, corpus["train_feats"], corpus["train_texts"])
+    align_s = time.perf_counter() - t0
+    targets = {u: tm0.alignment_to_pdfs(a) for u, a in alis.items()}
+    G = arpa_to_fst(corpus["arpa"], lang.words)
+    rec = HybridRecipe(lang, HybridRecipeOptions(**HYBRID_DNN_OPTS))
+    times, undo = timed_methods(HybridRecipe, ["_sweep"])
+    t0 = time.perf_counter()
+    try:
+        stats = rec.run(corpus["train_feats"], corpus["train_texts"],
+                        corpus["test_feats"], corpus["test_texts"],
+                        grammar=G, work_dir=os.path.join(workdir, "hybrid",
+                                                         "dnn"),
+                        bootstrap=(targets, tm0.num_pdfs, art["hclg0"],
+                                   art["lut0"]),
+                        dev_feats=corpus["dev_feats"],
+                        dev_texts=corpus["dev_texts"])
+    finally:
+        undo()
+    run_s = time.perf_counter() - t0
+    for e in rec.epochs:
+        log("hybrid_epoch", **e)
+    losses = [e["train_loss"] for e in rec.epochs]
+    if not np.isfinite(losses).all() or not losses[1] < losses[0]:
+        raise RuntimeError(f"DNN training loss did not fall: {losses}")
+    # one minibatch's loss and gradients, card against CPU, from the
+    # trained parameters
+    cpu_net = copy.deepcopy(rec.net).to("cpu")
+    batch = next(iter(rec.batches(rec.tr_utts, 0)))
+    got = {}
+    for name, net in (("card", copy.deepcopy(rec.net)),
+                      ("cpu", copy.deepcopy(cpu_net))):
+        trainer = FrameTrainer(net, NnetTrainOptions(momentum=0.9))
+        loss, _ = trainer.step(init_velocity(net),
+                               upload_frames(batch, trainer.device),
+                               HYBRID_DNN_OPTS["learn_rate"])
+        got[name] = (float(loss), {k: p.grad.cpu()
+                                   for k, p in net.named_parameters()})
+    loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    grad_rel = max(float((got["card"][1][k] - g).abs().max()
+                         / g.abs().max()) for k, g in got["cpu"][1].items())
+    # one utterance's scores (log-posteriors minus log-priors)
+    u = max(corpus["test_feats"], key=lambda k: len(corpus["test_feats"][k]))
+    card_scores = rec.scores(corpus["test_feats"][u])
+    cpu_scores = nnet_forward(cpu_net, rec._nn_feats(corpus["test_feats"][u]),
+                              NnetForwardOptions(), rec.prior)
+    score_err = float(np.abs(card_scores - cpu_scores).max())
+    if not (loss_rel <= HYBRID_TOL and grad_rel <= HYBRID_TOL
+            and score_err <= HYBRID_TOL):
+        raise RuntimeError(f"DNN card vs CPU: loss {loss_rel}, gradients "
+                           f"{grad_rel}, scores {score_err}")
+    # one training epoch on a copy, profiled: device busy share
+    net = copy.deepcopy(rec.net)
+    trainer = FrameTrainer(net, NnetTrainOptions(momentum=0.9))
+    velocity = init_velocity(net)
+
+    def epoch():
+        trainer.train_epoch(velocity, rec.batches(rec.tr_utts, 1), 1e-3)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    epoch_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel = device_ms_by_kernel(epoch)
+    device_ms = sum(v for k, v in by_kernel.items()
+                    if not k.startswith(("Memcpy", "Memset")))
+    out = {"test_wer": stats.wer, "dev_wer": rec.last_dev_wer,
+           "report": stats.report(), "pdfs": rec.num_pdfs,
+           "input_dim": rec.net.nodes[0].input_dim,
+           "train_frames": rec.epochs[0]["train_frames"],
+           "losses": losses, "align_s": align_s, "run_s": run_s,
+           "epoch_s": [e["seconds"] for e in rec.epochs],
+           "decode_sweep_ms": times["_sweep"][0],
+           "loss_rel_err": loss_rel, "grad_rel_err": grad_rel,
+           "scores_max_abs_err": score_err, "tol": HYBRID_TOL,
+           "epoch_ms": epoch_ms, "epoch_device_busy_share":
+           device_ms / epoch_ms}
+    log("hybrid_dnn", **out, card=smi_name_and_power())
+    return out
+
+
+def write_simple_files(workdir):
+    """build_dnn_hybrid's full widths at random weights (numpy seed 1357:
+    N(0, 0.1) hidden and N(0, 0.04) output weights, zero biases) and a
+    corpus of SIMPLE_UTTS utterances of 400-600 frames whose frame targets
+    are a function of the features: one of SIMPLE_TARGETS pdfs, picked
+    by the argmax of a fixed projection of the frame."""
+    from kaldi_aslp_tpu_torch.io import int_vector_writer, matrix_writer
+    from kaldi_aslp_tpu_torch.models.flagship import build_dnn_hybrid
+
+    rs = np.random.RandomState(1357)
+    net = build_dnn_hybrid()
+    last = len(net.nodes) - 1
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            scale = 0.04 if name.startswith(f"nodes.{last}.") else 0.1
+            p.copy_(torch.from_numpy(
+                (scale * rs.randn(*p.shape)).astype(np.float32)
+                if name.endswith(".w") else np.zeros(p.shape, np.float32)))
+    model = f"{workdir}/dnn_hybrid.zip"
+    net.save(model)
+    D, V = net.nodes[0].input_dim, net.output_dim
+    proj = rs.randn(D, SIMPLE_TARGETS)
+    pdfs = rs.choice(V, SIMPLE_TARGETS, replace=False).astype(np.int32)
+    frames = 0
+    with matrix_writer(f"ark,scp:{workdir}/simple_feats.ark,"
+                       f"{workdir}/simple_feats.scp") as fw, \
+            int_vector_writer(f"ark:{workdir}/simple_ali.ark") as tw:
+        for i in range(SIMPLE_UTTS):
+            feats = rs.randn(rs.randint(400, 601), D).astype(np.float32)
+            fw[f"utt{i:02d}"] = feats
+            tw[f"utt{i:02d}"] = pdfs[np.argmax(feats @ proj, axis=1)]
+            frames += len(feats)
+    return (model, f"scp:{workdir}/simple_feats.scp",
+            f"ark:{workdir}/simple_ali.ark", frames)
+
+
+def hybrid_cli_part(workdir):
+    """aslp-nnet-train-simple --device=cuda at the DNN hybrid's full
+    widths: the loss falls, the model it writes loads and moved;
+    --cross-validate=true moves nothing and prints FRAME_ACCURACY; one
+    step split by CUDA events."""
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.train import (
+        FrameTrainer,
+        NnetTrainOptions,
+        init_velocity,
+    )
+
+    model, feats, targets, frames = write_simple_files(workdir)
+    steps = []
+    inner_step = FrameTrainer.step
+
+    def step(self, velocity, batch, learn_rate):
+        loss, aux = inner_step(self, velocity, batch, learn_rate)
+        steps.append(float(loss))   # syncs the card
+        return loss, aux
+
+    out = f"{workdir}/dnn_hybrid_trained.zip"
+    FrameTrainer.step = step
+    t0 = time.perf_counter()
+    try:
+        rc, printed = run_cli(["aslp-nnet-train-simple", "--device=cuda",
+                               *SIMPLE_ARGS, feats, targets, model, out])
+    finally:
+        FrameTrainer.step = inner_step
+    train_s = time.perf_counter() - t0
+    q = len(steps) // 4
+    first, last = float(np.mean(steps[:q])), float(np.mean(steps[-q:]))
+    if rc != 0 or q < 2 or not np.isfinite(steps).all() or not last < first:
+        raise RuntimeError(f"train-simple exit {rc}, losses {steps}")
+    before, _ = Nnet.load(model, "cpu")
+    after, _ = Nnet.load(out, "cpu")
+    moved = max(float((p - q_).abs().max()) for p, q_ in zip(
+        after.state_dict().values(), before.state_dict().values()))
+    if moved == 0.0 or not all(torch.isfinite(p).all()
+                               for p in after.state_dict().values()):
+        raise RuntimeError(f"the written model: change {moved}")
+    seen = {}
+    inner_eval = FrameTrainer.evaluate
+
+    def evaluate(self, batches, reporter=None):
+        params = {k: v.clone() for k, v in self.net.state_dict().items()}
+        rep = inner_eval(self, batches, reporter)
+        seen["unchanged"] = all(torch.equal(v, params[k]) for k, v in
+                                self.net.state_dict().items())
+        return rep
+
+    FrameTrainer.evaluate = evaluate
+    t0 = time.perf_counter()
+    try:
+        rc, cv_printed = run_cli(["aslp-nnet-train-simple", "--device=cuda",
+                                  "--cross-validate=true", feats, targets,
+                                  out])
+    finally:
+        FrameTrainer.evaluate = inner_eval
+    cv_s = time.perf_counter() - t0
+    if rc != 0 or "FRAME_ACCURACY" not in cv_printed or \
+            not seen.get("unchanged"):
+        raise RuntimeError(f"cross-validation: exit {rc}, {seen}")
+    # one step at the tool's minibatch, split by CUDA events
+    net, _ = Nnet.load(model, "cuda")
+    dev = next(net.parameters()).device
+    trainer = FrameTrainer(net, NnetTrainOptions(momentum=0.9))
+    velocity = init_velocity(net)
+    rs = np.random.RandomState(0)
+    N = 256
+    x = torch.from_numpy(rs.randn(N, net.nodes[0].input_dim).astype(
+        np.float32)).to(dev)
+    t = torch.from_numpy(rs.randint(0, net.output_dim, N)).to(dev)
+    w = torch.ones(N, device=dev)
+    trainer.step(velocity, (x, t, w), 1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splits = []
+    for _ in range(RECIPE_SPLIT_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for p in net.parameters():
+            p.grad = None
+        net.train()
+        ev[0].record()
+        y = trainer.forward(x)
+        ev[1].record()
+        loss, _ = trainer.loss(y, t, w)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        trainer._update(velocity, 1e-4)
+        ev[4].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    med = np.median(np.asarray(splits), axis=0)
+    step_ms = float(med.sum())
+    out = {"frames": frames, "steps": len(steps),
+           "first_quarter_loss": first, "last_quarter_loss": last,
+           "max_param_change": moved, "train_s": train_s, "cv_s": cv_s,
+           "cv_params_unchanged": True,
+           "report": printed.strip().splitlines()[0],
+           "cv_report": cv_printed.strip().splitlines(),
+           "step_split": {"N": N, "forward_ms": float(med[0]),
+                          "loss_ms": float(med[1]),
+                          "backward_ms": float(med[2]),
+                          "update_ms": float(med[3]), "step_ms": step_ms,
+                          "frames_per_s": N / (step_ms / 1e3),
+                          "peak_mem_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30}}
+    log("hybrid_cli", **out, card=smi_name_and_power())
+    return out
+
+
+def hybrid_phase(corpus, workdir):
+    """Phase 19: the mono stage, the hybrid DNN on its alignments and the
+    frame trainer's CLI, with no hand kernel launched anywhere in it."""
+    for w in hand_kernel_wrappers().values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    art, mono = hybrid_mono_part(corpus, workdir)
+    dnn = hybrid_dnn_part(corpus, art, workdir)
+    cli = hybrid_cli_part(workdir)
+    launches = hand_kernel_launches()
+    seconds = time.perf_counter() - t0
+    log("hybrid", mono_test_wer=mono["test_wer"],
+        mono_dev_wer=mono["dev_wer"], dnn_test_wer=dnn["test_wer"],
+        dnn_dev_wer=dnn["dev_wer"],
+        pruning=[mono["pruning_healthy"], mono["pruning_degraded"]],
+        mono_stage_s=mono["stage_s"], dnn_run_s=dnn["run_s"],
+        cli_train_s=cli["train_s"], dnn_step_ms=cli["step_split"]["step_ms"],
+        realign_device_busy_share=mono["realign_device_busy_share"],
+        dnn_epoch_device_busy_share=dnn["epoch_device_busy_share"],
+        hand_kernel_launches=launches, seconds=seconds,
+        card=smi_name_and_power())
+    if any(launches.values()):
+        raise RuntimeError(f"the hybrid phase launched hand kernels: "
+                           f"{launches}")
+
+
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
@@ -4165,6 +4660,7 @@ def main() -> int:
         t0 = time.perf_counter()
         lattice_score_phase(rec, corpus, workdir)
         log("lattice_score_phase", seconds=time.perf_counter() - t0)
+        hybrid_phase(corpus, workdir)
     serving_runs = {"serving": launches, "serve_batched": batched_launches,
                     "vad": vad_launches, "entry": entry_launches}
     records = kernel_records(serving_runs, runs, bptt_launches,

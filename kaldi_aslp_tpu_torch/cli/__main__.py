@@ -2,7 +2,7 @@
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
 reference binaries; the port has the online servers and their client, the
-CTC trainer, the BPTT trainer, the network forward, the lattice
+frame trainer, the CTC trainer, the BPTT trainer, the network forward, the lattice
 generator and lattice tools, and compute-wer so far.  As in the JAX
 package, the BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are
 one trainer and the forward's -skip / -blstm-lc variants one forward:
@@ -26,6 +26,9 @@ TOOLS = {
     "aslp-online-energy-vad-server": online_tools.online_energy_vad_server,
     "aslp-audio-provider-client": online_tools.audio_provider_client,
     # aslp-nnetbin trainers
+    "aslp-nnet-train-simple": train_tools.nnet_train_simple,
+    "aslp-nnet-train-mse": train_tools.nnet_train_simple,
+    "aslp-nnet-train-frame": train_tools.nnet_train_simple,
     "aslp-nnet-train-ctc-streams": train_tools.nnet_train_ctc_streams,
     "aslp-nnet-train-lstm-streams": train_tools.nnet_train_lstm_streams,
     "aslp-nnet-train-lstm-streams-skip": train_tools.nnet_train_lstm_streams,

@@ -1,10 +1,12 @@
 """Training CLI mains.
 
-Port of ``nnet_train_ctc_streams`` and ``nnet_train_lstm_streams`` from
-kaldi_aslp_tpu/cli/train_tools.py (reference:
-src/aslp-nnetbin/aslp-nnet-train-ctc-streams.cc and
-aslp-nnet-train-lstm-streams.cc):
+Port of ``nnet_train_simple``, ``nnet_train_ctc_streams`` and
+``nnet_train_lstm_streams`` from kaldi_aslp_tpu/cli/train_tools.py
+(reference: src/aslp-nnetbin/aslp-nnet-train-simple.cc,
+aslp-nnet-train-ctc-streams.cc and aslp-nnet-train-lstm-streams.cc):
 
+    aslp-nnet-train-simple [--device=cuda] feats-rspec targets-rspec
+        model-in [model-out]
     aslp-nnet-train-ctc-streams [--device=cuda] feats-rspec
         labels-rspec model-in [model-out]
     aslp-nnet-train-lstm-streams [--device=cuda] feats-rspec
@@ -14,10 +16,11 @@ Each reads features and targets from Kaldi tables, runs one epoch of
 momentum SGD (or, with ``--cross-validate``, only the loss, in ``eval()``
 mode with no update) on ``--device`` (default ``cuda``; on a machine
 without CUDA it raises rather than run on the CPU), writes the model in
-the JAX package's zip format, and prints the "AvgLoss:" report.  The CTC
-tool batches whole utterances with ``CtcBatcher``; the BPTT tool cuts
-multi-stream chunks with ``SequenceDataReader`` and carries the state
-across them.
+the JAX package's zip format, and prints the "AvgLoss:" report.  The
+frame tool shuffles frames with ``FrameRandomizer`` (its pool and
+minibatch flags); the CTC tool batches whole utterances with
+``CtcBatcher``; the BPTT tool cuts multi-stream chunks with
+``SequenceDataReader`` and carries the state across them.
 
 Where the JAX tools differ, and the port does not follow:
   - the JAX CTC tool cuts the features to the length of the label
@@ -27,11 +30,17 @@ Where the JAX tools differ, and the port does not follow:
   - the JAX tools pass only the learning rate and momentum to the update;
     the port passes the l1 and l2 penalties too;
   - the JAX BPTT tool's cross-validation still updates the parameters
-    chunk by chunk (only the save is skipped); the port's evaluates."""
+    chunk by chunk (only the save is skipped); the port's evaluates;
+  - the JAX frame tool with ``--objective-function=mse`` subtracts the
+    alignment's pdf ids from the [N, P] outputs, which fails to
+    broadcast; the port's takes them as one-hot rows of the output's
+    width, as the reference turns an alignment into a target matrix
+    (PosteriorToMatrix)."""
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
@@ -42,6 +51,8 @@ logger = get_logger("train-cli")
 
 CTC_USAGE = ("aslp-nnet-train-ctc-streams [--device=cuda] feats-rspec "
              "labels-rspec model-in [model-out]")
+FRAME_USAGE = ("aslp-nnet-train-simple [--device=cuda] feats-rspec "
+               "targets-rspec model-in [model-out]")
 LSTM_USAGE = ("aslp-nnet-train-lstm-streams [--device=cuda] feats-rspec "
               "targets-rspec model-in [model-out]")
 
@@ -54,6 +65,11 @@ class TrainerFlags(Config):
     l2_penalty: float = 0.0
     cross_validate: bool = False
     device: str = "cuda"
+
+
+@dataclasses.dataclass
+class FrameTrainerFlags(TrainerFlags):
+    objective_function: str = "xent"
 
 
 def ctc_source(feats_rspec: str, labels_rspec: str):
@@ -97,6 +113,48 @@ def _train_options(flags: TrainerFlags):
                             momentum=flags.momentum,
                             l1_penalty=flags.l1_penalty,
                             l2_penalty=flags.l2_penalty)
+
+
+def nnet_train_simple(argv) -> int:
+    """Frame-shuffled cross-entropy or MSE trainer (reference:
+    aslp-nnet-train-simple.cc); also aslp-nnet-train-mse and
+    aslp-nnet-train-frame."""
+    from kaldi_aslp_tpu_torch.data.randomizer import (
+        FrameRandomizer,
+        RandomizerOptions,
+    )
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.train import FrameTrainer, init_velocity
+    from kaldi_aslp_tpu_torch.utils.device import resolve_device
+
+    flags = FrameTrainerFlags()
+    ropts = RandomizerOptions()
+    args = parse_options(argv, [flags, ropts], FRAME_USAGE, 3, 4)
+    device = resolve_device(flags.device)
+    net, states = Nnet.load(args[2], device)
+    trainer = FrameTrainer(net, _train_options(flags),
+                           objective=flags.objective_function)
+
+    def batches():
+        r = FrameRandomizer(ropts)
+        for _, f, t in frame_source(args[0], args[1]):
+            r.feed(f, t)
+            if r.full():
+                yield from r.iterate_minibatches()
+        yield from r.flush()
+
+    t0 = time.perf_counter()
+    if flags.cross_validate:
+        rep = trainer.evaluate(batches())
+    else:
+        _, rep = trainer.train_epoch(init_velocity(net), batches(),
+                                     flags.learn_rate)
+        if len(args) > 3:
+            net.save(args[3], states)
+    print(rep.report())
+    logger.info("done in %.1fs (%s)", time.perf_counter() - t0,
+                "CV" if flags.cross_validate else "train")
+    return 0
 
 
 def nnet_train_ctc_streams(argv) -> int:

@@ -1,2 +1,2 @@
 """Training data feed (port of kaldi_aslp_tpu/data/): truncated-BPTT
-chunks and CTC stream batches."""
+chunks, CTC stream batches and the frame randomizer."""

@@ -1,13 +1,16 @@
 """Decoding (port of kaldi_aslp_tpu/decoder/): the acoustic-score
-bridge, the exact dense Viterbi (whole-utterance, online and batched),
-the beam decoder (one utterance or a lock-step batch) with its lattices,
-the Kaldi lattice shapes and their operations, MBR and N-best.  The JAX
-package's ``equal_align`` waits for the GMM-HMM port."""
+bridge, the exact dense Viterbi (whole-utterance, online and batched)
+and the forced alignment over per-utterance training graphs
+(``align_batched``, ``equal_align``), the beam decoder (one utterance or
+a lock-step batch) with its lattices, the Kaldi lattice shapes and their
+operations, MBR and N-best."""
 
 from kaldi_aslp_tpu_torch.decoder.viterbi import (
     DecodeError,
     PackedGraph,
     ViterbiDecoder,
+    align_batched,
+    equal_align,
 )
 from kaldi_aslp_tpu_torch.decoder.beam import (
     BatchedBeamDecoder,

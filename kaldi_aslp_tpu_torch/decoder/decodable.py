@@ -1,6 +1,7 @@
 """Acoustic-score bridge: network outputs -> decoder log-likelihoods.
 
-Port of kaldi_aslp_tpu/decoder/decodable.py (``PdfPrior``,
+Port of kaldi_aslp_tpu/decoder/decodable.py (``PdfPrior`` with
+``from_alignments``,
 ``NnetForwardOptions``, ``nnet_forward``; reference:
 src/aslp-nnet/nnet-decodable.{h,cc}, nnet-pdf-prior.{h,cc},
 src/aslp-nnetbin/aslp-nnet-forward.cc).  The network runs once over
@@ -10,7 +11,7 @@ prior are plain torch ops."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -33,6 +34,17 @@ class PdfPrior:
             rel < prior_floor, 1e10,
             np.log(np.maximum(rel, prior_floor)) * prior_scale,
         ).astype(np.float32)
+
+    @classmethod
+    def from_alignments(cls, alignments: Dict[str, np.ndarray],
+                        num_pdfs: int, **kw) -> "PdfPrior":
+        """analyze-counts equivalent (reference: bin/analyze-counts.cc):
+        the prior from the pdf counts of ``alignments`` (utt -> pdf
+        ids)."""
+        counts = np.zeros(num_pdfs, np.float64)
+        for ali in alignments.values():
+            np.add.at(counts, np.asarray(ali), 1.0)
+        return cls(counts, **kw)
 
     def subtract(self, log_post: torch.Tensor) -> torch.Tensor:
         return log_post - torch.from_numpy(self.log_priors).to(

@@ -14,12 +14,21 @@ the same words and alignments.
 
 The JAX decoder pads arcs (cost 1e30, id -1), states (to 64) and chunk
 lengths so XLA compiles few programs.  PyTorch runs eagerly, so the port
-does not pad."""
+does not pad.
+
+``align_batched`` (viterbi.py:342-425) aligns many utterances, each on
+its own training graph, in one frame loop: a batch's graphs are laid
+side by side as one graph (disjoint state and arc ranges), each
+utterance's loglikes in its own column block, each state's score held
+past its utterance's last frame.  No arc is padded, so none can win
+where it should not, and the tie rule above picks the same arc: the
+arcs into one state all come from one utterance, their ids shifted by
+the same offset.  ``equal_align`` (:426-517) is the host copy."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -153,9 +162,9 @@ def _viterbi_scan(loglikes: torch.Tensor, init_scores: torch.Tensor,
                   valid: Optional[torch.Tensor] = None):
     """Returns (final_scores [B, S], bp [T, B, S] arc ids) for
     ``loglikes [B, T, P]`` (kaldi_aslp_tpu/decoder/viterbi.py:_viterbi_scan;
-    B > 1 is decoder/batched.py's vmap).  ``valid [B, T]`` marks each
-    row's frames; a row's scores hold through the frames past its
-    length."""
+    B > 1 is decoder/batched.py's vmap).  ``valid`` [B, T] marks each
+    row's frames, or [B, T, S] each state's (``align_batched``'s side by
+    side graphs); a score holds through the frames past its length."""
     scores = init_scores.expand(loglikes.shape[0], -1)
     all_bps = []
     for t in range(loglikes.shape[1]):
@@ -172,8 +181,11 @@ def _viterbi_scan(loglikes: torch.Tensor, init_scores: torch.Tensor,
                 improved = best > new_scores
                 new_scores = torch.where(improved, best, new_scores)
                 bp = torch.where(improved, winner, bp)
-        scores = (new_scores if valid is None
-                  else torch.where(valid[:, t:t + 1], new_scores, scores))
+        if valid is not None:
+            vt = valid[:, t]
+            new_scores = torch.where(vt if vt.dim() == 2 else vt[:, None],
+                                     new_scores, scores)
+        scores = new_scores
         all_bps.append(bp)
     return scores, torch.stack(all_bps)
 
@@ -207,11 +219,7 @@ class ViterbiDecoder:
 
     def _init(self) -> Tuple[np.ndarray, np.ndarray]:
         """Start-state scores + host eps closure backpointers."""
-        g = self.graph
-        init = np.full(g.num_states, NEG_INF, np.float32)
-        init[g.start] = 0.0
-        init_bp = np.full(g.num_states, -1, np.int64)
-        return _eps_relax_host(init, init_bp, self._ep, g.eps_diameter)
+        return _init_scores(self.graph, self._ep)
 
     def _scan(self, loglikes: np.ndarray, init: np.ndarray):
         """Run the DP on the decoder's device; host (final, bps)."""
@@ -243,33 +251,218 @@ class ViterbiDecoder:
     def _finish(self, final_scores: np.ndarray, bps: np.ndarray,
                 T: int, init_bp: np.ndarray
                 ) -> Tuple[List[int], np.ndarray, float]:
-        """Final-state selection + host backtrace through arc-id
-        backpointers."""
-        g = self.graph
-        total = final_scores - g.final
-        end_state = int(np.argmax(total))
-        if not np.isfinite(total[end_state]) or total[end_state] <= NEG_INF:
-            raise DecodeError("no complete path found (empty decode)")
-        ali = np.zeros(T, np.int32)
-        words_rev: List[int] = []
-        s = end_state
-        t = T - 1
-        while t >= 0:
-            a = int(bps[t, s])
-            if a < 0:
-                raise DecodeError(f"broken backpointer at t={t} s={s}")
-            if g.olabel[a] > 0:
-                words_rev.append(int(g.olabel[a]))
-            if g.ilabel[a] > 0:
-                ali[t] = g.ilabel[a]
-                t -= 1
-            s = int(g.src[a])
-        # initial epsilon chain (before frame 0)
-        while s != g.start:
-            a = int(init_bp[s])
-            if a < 0:
+        return _backtrace(self.graph, final_scores, bps, T, init_bp)
+
+
+def _init_scores(graph: PackedGraph, ep) -> Tuple[np.ndarray, np.ndarray]:
+    """Start-state scores + host eps closure backpointers."""
+    init = np.full(graph.num_states, NEG_INF, np.float32)
+    init[graph.start] = 0.0
+    init_bp = np.full(graph.num_states, -1, np.int64)
+    return _eps_relax_host(init, init_bp, ep, graph.eps_diameter)
+
+
+def _backtrace(g: PackedGraph, final_scores: np.ndarray, bps: np.ndarray,
+               T: int, init_bp: np.ndarray
+               ) -> Tuple[List[int], np.ndarray, float]:
+    """Final-state selection + host backtrace through arc-id
+    backpointers."""
+    total = final_scores - g.final
+    end_state = int(np.argmax(total))
+    if not np.isfinite(total[end_state]) or total[end_state] <= NEG_INF:
+        raise DecodeError("no complete path found (empty decode)")
+    ali = np.zeros(T, np.int32)
+    words_rev: List[int] = []
+    s = end_state
+    t = T - 1
+    while t >= 0:
+        a = int(bps[t, s])
+        if a < 0:
+            raise DecodeError(f"broken backpointer at t={t} s={s}")
+        if g.olabel[a] > 0:
+            words_rev.append(int(g.olabel[a]))
+        if g.ilabel[a] > 0:
+            ali[t] = g.ilabel[a]
+            t -= 1
+        s = int(g.src[a])
+    # initial epsilon chain (before frame 0)
+    while s != g.start:
+        a = int(init_bp[s])
+        if a < 0:
+            break
+        if g.olabel[a] > 0:
+            words_rev.append(int(g.olabel[a]))
+        s = int(g.src[a])
+    return list(reversed(words_rev)), ali, float(total[end_state])
+
+
+def align_batched(graphs: Dict[str, Union[PackedGraph, Fst]],
+                  tid_to_pdf: np.ndarray,
+                  loglikes: Dict[str, np.ndarray],
+                  acoustic_scale: float = 1.0, batch: int = 64,
+                  device: Union[str, torch.device] = "cuda") -> dict:
+    """Exact Viterbi alignment of many utterances, each over its own
+    training graph, ``batch`` utterances a frame loop on ``device`` (the
+    gmm-align-compiled role at corpus granularity; reference:
+    steps/align_si.sh).
+
+    ``graphs``/``loglikes``: dicts utt -> PackedGraph (or Fst) / [T, P]
+    array.  Returns utt -> (words, alignment, score) like
+    ViterbiDecoder.decode; utterances of similar length share a batch."""
+    dev = resolve_device(device)
+    lut = np.asarray(tid_to_pdf, np.int64)
+    packed = {u: g if isinstance(g, PackedGraph) else PackedGraph.from_fst(g)
+              for u, g in graphs.items()}
+    utts = sorted(packed, key=lambda u: (len(loglikes[u]), u))
+    out = {}
+    for i0 in range(0, len(utts), batch):
+        chunk = utts[i0:i0 + batch]
+        out.update(_align_side_by_side(
+            chunk, [packed[u] for u in chunk],
+            [np.asarray(loglikes[u], np.float32) for u in chunk],
+            lut, acoustic_scale, dev))
+    return out
+
+
+def _align_side_by_side(utts: Sequence[str], graphs: Sequence[PackedGraph],
+                        lls: Sequence[np.ndarray], lut: np.ndarray,
+                        acoustic_scale: float, dev: torch.device) -> dict:
+    """One frame loop over the utterances' graphs laid side by side:
+    utterance b's states and arcs are shifted past those of 0..b-1 and
+    its arcs read the loglike columns [b P, (b+1) P)."""
+    B = len(utts)
+    P = lls[0].shape[1]
+    lens = [len(x) for x in lls]
+    T = max(lens)
+    ems, eps, inits, init_bps, s_offs, a_offs = [], [], [], [], [], []
+    s_off = a_off = 0
+    for b, g in enumerate(graphs):
+        (es, ed, eil, ew, ei), (ps, pd, pw, pi) = _split(g)
+        ini, ibp = _init_scores(g, (ps, pd, pw, pi))
+        ems.append((es + s_off, ed + s_off, lut[eil] + b * P, ew, ei + a_off))
+        eps.append((ps + s_off, pd + s_off, pw, pi + a_off))
+        inits.append(ini)
+        init_bps.append(ibp)
+        s_offs.append(s_off)
+        a_offs.append(a_off)
+        s_off += g.num_states
+        a_off += len(g.src)
+    em = tuple(np.concatenate(cols) for cols in zip(*ems))
+    ep = tuple(np.concatenate(cols) for cols in zip(*eps))
+    # the emitting arcs' "ids" are already loglike columns: map them
+    # through the identity
+    arcs = _DeviceArcs(em, ep, np.arange(B * P), dev)
+    ll = np.zeros((T, B, P), np.float32)
+    for b, x in enumerate(lls):
+        ll[:len(x), b] = x
+    state_len = np.repeat(lens, [g.num_states for g in graphs])
+    valid = np.arange(T)[:, None] < state_len[None, :]
+    eps_iters = max(max(g.eps_diameter for g in graphs), 1)
+    if T > 0:
+        final, bps = _viterbi_scan(
+            torch.from_numpy(ll.reshape(1, T, B * P)).to(dev),
+            torch.from_numpy(np.concatenate(inits)).to(dev), arcs,
+            float(acoustic_scale), s_off, eps_iters,
+            torch.from_numpy(valid[None]).to(dev))
+        final, bps = final[0].cpu().numpy(), bps[:, 0].cpu().numpy()
+    else:
+        final, bps = np.concatenate(inits), np.zeros((0, s_off), np.int64)
+    out = {}
+    for b, (u, g) in enumerate(zip(utts, graphs)):
+        cols = slice(s_offs[b], s_offs[b] + g.num_states)
+        bp = bps[:lens[b], cols]
+        out[u] = _backtrace(g, final[cols],
+                            np.where(bp >= 0, bp - a_offs[b], -1),
+                            lens[b], init_bps[b])
+    return out
+
+
+def equal_align(graph_fst: Fst, trans_model, num_frames: int,
+                rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """Uniform initial alignment (reference: bin/align-equal-compiled.cc):
+    pick a path through the graph and stretch it over num_frames by
+    inserting self-loops.
+
+    The path chosen is the LONGEST acyclic path fitting num_frames, so
+    optional-silence branches are taken and silence models receive
+    occupancy from iteration 0 (the reference gets this from its random
+    path choice + --boost-silence)."""
+    # longest-emitting-arcs path over the graph's DFS-forward DAG
+    # (back edges, e.g. the 5-state silence topology's backward
+    # transitions, are dropped; they never extend a simple path anyway)
+    WHITE, GRAY, BLACK = 0, 1, 2
+    color = {graph_fst.start: GRAY}
+    order = []
+    dag_arcs = []  # (src, arc) with no self-loops / back edges
+    stack = [(graph_fst.start, iter(graph_fst.arcs[graph_fst.start]))]
+    while stack:
+        s, it = stack[-1]
+        advanced = False
+        for a in it:
+            if a.nextstate == s:
+                continue
+            c = color.get(a.nextstate, WHITE)
+            if c == GRAY:
+                continue  # back edge
+            dag_arcs.append((s, a))
+            if c == WHITE:
+                color[a.nextstate] = GRAY
+                stack.append(
+                    (a.nextstate, iter(graph_fst.arcs[a.nextstate])))
+                advanced = True
                 break
-            if g.olabel[a] > 0:
-                words_rev.append(int(g.olabel[a]))
-            s = int(g.src[a])
-        return list(reversed(words_rev)), ali, float(total[end_state])
+        if not advanced:
+            color[s] = BLACK
+            order.append(s)
+            stack.pop()
+    topo_pos = {s: i for i, s in enumerate(reversed(order))}
+    dag_by_src: Dict[int, list] = {}
+    for s, a in dag_arcs:
+        dag_by_src.setdefault(s, []).append(a)
+    best_len: Dict[int, int] = {graph_fst.start: 0}
+    prev: Dict[int, Tuple[int, object]] = {graph_fst.start: (-1, None)}
+    for s in sorted(topo_pos, key=topo_pos.get):
+        if s not in best_len:
+            continue
+        for a in dag_by_src.get(s, ()):
+            cand = best_len[s] + (1 if a.ilabel > 0 else 0)
+            if cand > best_len.get(a.nextstate, -1) and \
+                    cand <= num_frames:
+                best_len[a.nextstate] = cand
+                prev[a.nextstate] = (s, a)
+    finals = [s for s in graph_fst.finals if s in best_len]
+    if not finals:
+        raise RuntimeError("graph has no accepting path within frames")
+    end = max(finals, key=lambda s: best_len[s])
+    path = []
+    s = end
+    while prev[s][1] is not None:
+        p, a = prev[s]
+        path.append(a)
+        s = p
+    path.reverse()
+    emitting = [a for a in path if a.ilabel > 0]
+    n = len(emitting)
+    if n == 0 or num_frames < n:
+        raise RuntimeError(
+            f"cannot equal-align {n} states into {num_frames} frames")
+    # distribute extra frames as self-loops after each emitting arc
+    base = num_frames // n
+    extra = num_frames % n
+    ali = []
+    for i, a in enumerate(emitting):
+        count = base + (1 if i < extra else 0)
+        ts, _ = trans_model.tid_to_arc(a.ilabel)
+        self_tid = None
+        for ai, (dest, _p) in enumerate(trans_model.arcs_of(ts)):
+            if dest == trans_model.states[ts].hmm_state:
+                self_tid = trans_model.pair_to_tid(ts, ai)
+                break
+        # occupying a state for k frames consumes (k-1) self-loop arcs
+        # then the forward arc (all emit the state's pdf)
+        if count > 1:
+            if self_tid is None:
+                raise RuntimeError("state has no self-loop for stretching")
+            ali.extend([self_tid] * (count - 1))
+        ali.append(a.ilabel)
+    return np.asarray(ali, np.int32)

@@ -1,9 +1,10 @@
-"""Post-processing feature transforms: deltas and CMVN.
+"""Post-processing feature transforms: deltas, splicing and CMVN.
 
 Port of the parts of kaldi_aslp_tpu/feats/functions.py the hard corpus
-needs (``DeltaFeaturesOptions``, ``delta_scales``, ``add_deltas``,
-``acc_cmvn_stats``, ``apply_cmvn``; reference: src/feat/
-feature-functions.{h,cc} DeltaFeatures, src/transform/cmvn.{h,cc}).
+and the hybrid DNN need (``DeltaFeaturesOptions``, ``delta_scales``,
+``add_deltas``, ``splice_frames``, ``acc_cmvn_stats``, ``apply_cmvn``;
+reference: src/feat/feature-functions.{h,cc} DeltaFeatures and
+SpliceFrames, src/transform/cmvn.{h,cc}).
 Deltas are gathers and weighted sums over a fixed context on the
 features' device; CMVN stats keep the reference's 2 x (dim+1)
 accumulator layout in float64, on the features' device."""
@@ -66,6 +67,17 @@ def add_deltas(feats: torch.Tensor,
             acc = acc + w * feats[torch.clamp(frames + j, 0, T - 1)]
         outputs.append(acc)
     return torch.cat(outputs, dim=-1)
+
+
+def splice_frames(feats: torch.Tensor, left: int, right: int
+                  ) -> torch.Tensor:
+    """[T, D] -> [T, D * (left + 1 + right)] frame splicing, the context
+    clamped at both edges (reference: feature-functions.cc SpliceFrames;
+    also the Splice component, nnet-various.h:43)."""
+    T = feats.shape[0]
+    frames = torch.arange(T, device=feats.device)
+    return torch.cat([feats[torch.clamp(frames + off, 0, T - 1)]
+                      for off in range(-left, right + 1)], dim=-1)
 
 
 def acc_cmvn_stats(feats: Union[torch.Tensor, np.ndarray],

@@ -8,11 +8,17 @@ from kaldi_aslp_tpu_torch.fst.ctc_graph import (
 )
 from kaldi_aslp_tpu_torch.fst.determinize import determinize, minimize_encoded
 from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst, SymbolTable
+from kaldi_aslp_tpu_torch.fst.hclg import (
+    TrainingGraphCompiler,
+    expand_hmm,
+    make_decode_graph,
+)
 from kaldi_aslp_tpu_torch.fst.lang import (
     Lang,
     Lexicon,
     arpa_to_fst,
     make_lexicon_fst,
+    make_linear_acceptor,
     make_unigram_grammar,
     parse_arpa,
 )
@@ -21,4 +27,5 @@ __all__ = ["EPS", "Arc", "Fst", "SymbolTable", "Lang", "Lexicon",
            "make_lexicon_fst", "make_unigram_grammar", "parse_arpa",
            "arpa_to_fst", "determinize",
            "minimize_encoded", "ctc_lut", "expand_ctc",
-           "make_ctc_decode_graph"]
+           "make_ctc_decode_graph", "make_linear_acceptor", "expand_hmm",
+           "make_decode_graph", "TrainingGraphCompiler"]

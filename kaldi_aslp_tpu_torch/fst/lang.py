@@ -2,7 +2,7 @@
 
 The port's own copy of the parts of kaldi_aslp_tpu/fst/lang.py it uses
 (``Lexicon``, ``Lang``, ``make_lexicon_fst``, ``make_unigram_grammar``,
-``parse_arpa``, ``arpa_to_fst``; reference:
+``make_linear_acceptor``, ``parse_arpa``, ``arpa_to_fst``; reference:
 egs/wsj/s5/utils/prepare_lang.sh, make_lexicon_fst.pl, src/lmbin/arpa2fst).
 Host-side; outputs the port's Fst type."""
 
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst, SymbolTable
 
@@ -107,6 +107,20 @@ def make_unigram_grammar(word_probs: Dict[str, float],
         G.add_arc(s, Arc(words.id(w), words.id(w),
                          -math.log(max(p, 1e-10)), s))
     return G
+
+
+def make_linear_acceptor(word_ids: Sequence[int]) -> Fst:
+    """Transcript acceptor for training-graph compilation
+    (reference: compile-train-graphs.cc MakeLinearAcceptor)."""
+    f = Fst()
+    cur = f.add_state()
+    f.set_start(cur)
+    for w in word_ids:
+        nxt = f.add_state()
+        f.add_arc(cur, Arc(w, w, 0.0, nxt))
+        cur = nxt
+    f.set_final(cur)
+    return f
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Recipes (port of kaldi_aslp_tpu/recipes/): the phone-CTC recipe, the
-hard synthetic corpus it trains on, the hard ladder's CTC stage
-(``hard_ladder``, ``decode_budget_sweep``) and the lattice
-decode-and-score helper (``score_util``)."""
+hybrid NN-HMM recipe (``hybrid``), the hard synthetic corpus they train
+on, the hard ladder's mono and CTC stages (``hard_ladder``,
+``decode_budget_sweep``) and the lattice decode-and-score helper
+(``score_util``)."""
 
 from kaldi_aslp_tpu_torch.recipes.ctc import CtcRecipe, CtcRecipeOptions
 from kaldi_aslp_tpu_torch.recipes.hard_corpus import (

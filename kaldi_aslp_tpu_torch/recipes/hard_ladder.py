@@ -1,27 +1,33 @@
-"""The WER ladder on the hard synthetic corpus: its BLSTM-CTC stage.
+"""The WER ladder on the hard synthetic corpus: its monophone GMM and
+BLSTM-CTC stages.
 
-Port of kaldi_aslp_tpu/recipes/hard_ladder.py (``_Scale`` :77-133,
-``run`` :136-331 for ``stages=["ctc"]``, ``__main__`` :352-387;
-reference protocol: the egs/rm/s5 + aslp_scripts stage chain, the CTC
-stage being the aslp_scripts/ctc LSTM-CTC recipe).  The corpus has a
-third disjoint speaker set (dev): the recipe selects its (acoustic,
-prior) scales on dev and scores the test set once at the selection.
+Port of kaldi_aslp_tpu/recipes/hard_ladder.py (``GMM_BEAM``,
+``GMM_MAX_ACTIVE``, ``_Scale`` :77-133, ``run`` :136-331 for
+``stages`` among ``mono`` and ``ctc``, ``pruning_sensitivity`` :334,
+``__main__`` :352-387; reference protocol: the egs/rm/s5 + aslp_scripts
+stage chain: train_mono.sh, decode.sh + score_basic.sh's LMWT sweep, the
+aslp_scripts/ctc LSTM-CTC recipe).  The corpus has a third disjoint
+speaker set (dev): each stage selects its LMWT (mono) or its (acoustic,
+prior) scales (ctc) on dev and scores the test set once at the
+selection.
 
 What differs from the JAX ladder, and why:
-  - only the CTC stage is ported.  The GMM stages (mono, tri) and the
-    hybrid DNN raise ``NotImplementedError`` (ROADMAP.md queue 1, items
-    10 and 8); a ctc-only run never needs them (CTC labels come from
-    the lexicon, not from alignments), so this module imports nothing
-    of the GMM chain;
+  - the triphone stage (tri) and the hybrid DNN on its alignments (dnn)
+    raise ``NotImplementedError``: they wait for the ``tri`` slice
+    (gmm/deltas.py, tree/, fst/context.py; ROADMAP.md queue 1 item 10's
+    rest).  The hybrid recipe itself (recipes/hybrid.py) is ported;
+  - a mono-only run does not align the training set again with the
+    final model (the JAX ladder does it for the tri stage, which is not
+    ported);
   - each ``results.jsonl`` row carries the source revision it ran
     from, and the file is truncated at the start of a run (the JAX
     ladder appends rows without provenance);
-  - the corpus features and the recipe run on ``device`` (the card
-    unless the caller asks for the CPU); ``pruning_sensitivity`` and
-    ``--cpu`` need the GMM stage or the JAX backend, and wait.
+  - the corpus features, the GMM and the recipes run on ``device`` (the
+    card unless the caller asks for the CPU); ``--cpu`` selects the JAX
+    backend there and waits (``--device=cpu`` is the port's).
 
 Run: python -m kaldi_aslp_tpu_torch.recipes.hard_ladder [workdir]
-     [--small|--medium] --stages=ctc [--device=cpu]
+     [--small|--medium] --stages=mono,ctc [--device=cpu]
 """
 
 from __future__ import annotations
@@ -36,29 +42,49 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-from kaldi_aslp_tpu_torch.fst import arpa_to_fst
+import numpy as np
+
+from kaldi_aslp_tpu_torch.decoder.viterbi import PackedGraph
+from kaldi_aslp_tpu_torch.fst import arpa_to_fst, make_decode_graph
+from kaldi_aslp_tpu_torch.gmm.diag_gmm import corpus_loglikes
+from kaldi_aslp_tpu_torch.gmm.mono import MonophoneTrainer, MonoTrainOptions
 from kaldi_aslp_tpu_torch.recipes.ctc import CtcRecipe, CtcRecipeOptions
 from kaldi_aslp_tpu_torch.recipes.hard_corpus import (
     HardCorpusOptions,
     build_corpus,
+)
+from kaldi_aslp_tpu_torch.recipes.score_util import (
+    decode_wer_beam,
+    decode_wer_dev_test,
 )
 from kaldi_aslp_tpu_torch.utils.log import get_logger
 
 logger = get_logger("hard_ladder")
 
 STAGES = ("mono", "tri", "dnn", "ctc")
-UNPORTED = {"mono": "ROADMAP.md queue 1 item 10 (the GMM-HMM bootstrap)",
-            "tri": "ROADMAP.md queue 1 item 10 (the GMM-HMM bootstrap)",
-            "dnn": "ROADMAP.md queue 1 item 8 (the hybrid frame-level "
-                   "path, on item 10's alignments)"}
+TRI_SLICE = ("the tri slice: gmm/deltas.py, tree/, fst/context.py; "
+             "ROADMAP.md queue 1 item 10's rest")
+UNPORTED = {"tri": f"the triphone GMM ({TRI_SLICE})",
+            "dnn": "the hybrid DNN of ROADMAP.md queue 1 item 8 is "
+                   "ported, but this stage trains it on the tri stage's "
+                   f"alignments ({TRI_SLICE})"}
+
+# GMM-stage decode beam and frontier budget
+# (kaldi_aslp_tpu/recipes/hard_ladder.py:47-71): 96 is past the mono and
+# tri stages' saturation knee; the budget is set per scale (_Scale),
+# 8192 past small, the nearest power of two to the reference's
+# --max-active=7000 (steps/decode.sh)
+GMM_BEAM = 96.0
+GMM_MAX_ACTIVE = 8192
+LMWT_RANGE = range(4, 16)
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class _Scale:
-    """Corpus and CTC model sizes per scale preset
-    (kaldi_aslp_tpu/recipes/hard_ladder.py:77-133, without the GMM and
-    DNN stages' options)."""
+    """Corpus, GMM and model sizes per scale preset
+    (kaldi_aslp_tpu/recipes/hard_ladder.py:77-133, without the tri
+    stage's options)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -68,21 +94,35 @@ class _Scale:
                 num_test_speakers=3, num_dev_speakers=3)
             self.num_train, self.num_test, self.lm_mult = 60, 20, 8
             self.num_dev = 12
+            self.mono = MonoTrainOptions(
+                num_iters=8, totgauss=400, realign_iters="1 2 3 4 6")
+            self.dnn_hidden, self.dnn_layers, self.dnn_iters = 128, 2, 8
             self.ctc_hidden, self.ctc_layers, self.ctc_iters = 96, 2, 220
+            self.gmm_max_active = 2048
         elif name == "medium":
             self.corpus = HardCorpusOptions(
                 num_words=1000, num_train_speakers=24,
                 num_test_speakers=6, num_dev_speakers=6)
             self.num_train, self.num_test, self.lm_mult = 1500, 100, 4
             self.num_dev = 60
+            self.mono = MonoTrainOptions(
+                num_iters=12, totgauss=700,
+                realign_iters="1 2 3 4 5 6 8 10")
+            self.dnn_hidden, self.dnn_layers, self.dnn_iters = 256, 3, 12
             self.ctc_hidden, self.ctc_layers, self.ctc_iters = 160, 3, 60
+            self.gmm_max_active = GMM_MAX_ACTIVE
         elif name == "full":
             self.corpus = HardCorpusOptions(
                 num_words=5000, num_train_speakers=32,
                 num_test_speakers=8, num_dev_speakers=8)
             self.num_train, self.num_test, self.lm_mult = 1600, 200, 12
             self.num_dev = 100
+            self.mono = MonoTrainOptions(
+                num_iters=14, totgauss=1000,
+                realign_iters="1 2 3 4 5 6 8 10 12")
+            self.dnn_hidden, self.dnn_layers, self.dnn_iters = 512, 4, 14
             self.ctc_hidden, self.ctc_layers, self.ctc_iters = 320, 3, 60
+            self.gmm_max_active = GMM_MAX_ACTIVE
         else:
             raise ValueError(f"unknown scale {name!r}")
 
@@ -132,8 +172,8 @@ def run(root: str = "exp_hard", scale: str = "full",
         device: Union[str, torch.device] = "cuda") -> Dict[str, float]:
     """Runs the ladder's stages; returns {stage: test WER}.  ``corpus``
     lets tests inject a prebuilt corpus dict (build_corpus output).
-    Only ``stages=["ctc"]`` is ported; the default, every stage,
-    raises as the GMM and DNN stages do."""
+    The mono and ctc stages are ported; the default, every stage,
+    raises as the tri and dnn stages do."""
     stages = list(stages or STAGES)
     for s in stages:
         if s not in STAGES:
@@ -141,7 +181,7 @@ def run(root: str = "exp_hard", scale: str = "full",
         if s in UNPORTED:
             raise NotImplementedError(
                 f"the {s} stage is not ported yet ({UNPORTED[s]}); run "
-                "--stages=ctc")
+                "--stages=mono,ctc")
     os.makedirs(root, exist_ok=True)
     sc = _Scale(scale)
     t_start = time.time()
@@ -179,6 +219,41 @@ def run(root: str = "exp_hard", scale: str = "full",
                 "revision": revision,
             }) + "\n")
 
+    if "mono" in stages:
+        refs = {u: [lang.words.id(w) for w in t]
+                for u, t in corpus["test_texts"].items()}
+        dev_refs = {u: [lang.words.id(w) for w in t]
+                    for u, t in (corpus.get("dev_texts") or {}).items()}
+        mono = MonophoneTrainer(lang, opts=sc.mono, device=device)
+        am0, tm0 = mono.train(train_feats, corpus["train_texts"])
+        hclg0 = make_decode_graph(lang, G, tm0)
+        lut0 = tm0.alignment_to_pdfs(np.arange(tm0.num_transition_ids + 1))
+        packed0 = PackedGraph.from_fst(hclg0)
+        am_packed = am0.pack(device)
+        test_ll0 = corpus_loglikes(test_feats, sorted(test_feats), am_packed)
+        if dev_feats:
+            dev_ll0 = corpus_loglikes(dev_feats, sorted(dev_feats),
+                                      am_packed)
+            artifacts["dev_ll_mono"] = dev_ll0
+            wer, dev_wer, _ = decode_wer_dev_test(
+                packed0, lut0, dev_ll0, dev_refs, test_ll0, refs, 0.1,
+                LMWT_RANGE, beam=GMM_BEAM, max_active=sc.gmm_max_active,
+                device=device)
+        else:
+            wer, _ = decode_wer_beam(packed0, lut0, test_ll0, refs, 0.1,
+                                     LMWT_RANGE, beam=GMM_BEAM,
+                                     max_active=sc.gmm_max_active,
+                                     device=device)
+            dev_wer = float("nan")
+        results["mono"] = wer
+        dev_results["mono"] = dev_wer
+        artifacts.update(mono=mono, am0=am0, tm0=tm0, hclg0=hclg0,
+                         packed0=packed0, lut0=lut0, test_ll0=test_ll0,
+                         refs=refs, dev_refs=dev_refs, device=device)
+        logger.info("mono WER %.2f (dev %.2f; reference role: egs/rm "
+                    "mono 8.74%%, RESULTS:6)", wer, dev_wer)
+        emit("mono")
+
     if "ctc" in stages:
         ctc = CtcRecipe(lang, ctc_options(sc), device=device)
         st = ctc.run(train_feats, corpus["train_texts"], test_feats,
@@ -208,6 +283,25 @@ def run(root: str = "exp_hard", scale: str = "full",
     run.artifacts = artifacts   # for probes and tests
     run.dev_results = dev_results
     return results
+
+
+def pruning_sensitivity(artifacts, degraded_beam: float = 6.0,
+                        lmwt_range=LMWT_RANGE):
+    """Re-decode the mono stage's test set at a deliberately degraded
+    beam: the benchmark is only meaningful if a pruning regression moves
+    it.  Returns (healthy_wer, degraded_wer), both at decode_wer_beam's
+    default budget, on the device the stage ran on."""
+    a = artifacts
+    healthy, _ = decode_wer_beam(a["packed0"], a["lut0"], a["test_ll0"],
+                                 a["refs"], 0.1, lmwt_range, beam=GMM_BEAM,
+                                 device=a["device"])
+    degraded, _ = decode_wer_beam(a["packed0"], a["lut0"], a["test_ll0"],
+                                  a["refs"], 0.1, lmwt_range,
+                                  beam=degraded_beam, device=a["device"])
+    logger.info("pruning sensitivity: healthy %.2f vs degraded %.2f "
+                "(beam %.0f -> %.0f)", healthy, degraded, GMM_BEAM,
+                degraded_beam)
+    return healthy, degraded
 
 
 def main(argv: List[str]) -> int:

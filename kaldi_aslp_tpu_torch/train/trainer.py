@@ -1,8 +1,10 @@
-"""Trainers: whole-utterance CTC (reference:
-aslp-nnetbin/aslp-nnet-train-ctc-streams.cc) and truncated-BPTT chunks
-with frame cross-entropy targets (aslp-nnet-train-lstm-streams.cc).
+"""Trainers: frame-shuffled cross-entropy or MSE (reference:
+aslp-nnetbin/aslp-nnet-train-simple.cc), whole-utterance CTC
+(aslp-nnet-train-ctc-streams.cc) and truncated-BPTT chunks with frame
+cross-entropy targets (aslp-nnet-train-lstm-streams.cc).
 
-Port of ``CtcTrainer`` from kaldi_aslp_tpu/train/trainer.py with the
+Port of ``FrameTrainer`` (kaldi_aslp_tpu/train/trainer.py:39-120) and
+``CtcTrainer`` from kaldi_aslp_tpu/train/trainer.py, the latter with the
 "f32" feature transport only, and ``LstmStreamsTrainer``, which holds the
 step that the JAX package's BPTT CLI defines inline
 (kaldi_aslp_tpu/cli/train_tools.py:301-321).  One step is forward
@@ -20,18 +22,21 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from kaldi_aslp_tpu_torch.data.sequence import CtcBatch, SequenceChunk
 from kaldi_aslp_tpu_torch.models.losses import (
     LossReporter,
     ctc_batch_loss,
+    mse_loss,
     xent_loss,
 )
 from kaldi_aslp_tpu_torch.models.nnet import Nnet
 from kaldi_aslp_tpu_torch.train.sgd import NnetTrainOptions, make_sgd_update
 
 DeviceBatch = Tuple[torch.Tensor, ...]  # feats, labels, in/label lengths, mask
+DeviceFrames = Tuple[torch.Tensor, ...]  # feats, targets, weights
 DeviceChunk = Tuple[torch.Tensor, ...]  # feats, targets, mask, new_utt_flags
 
 
@@ -57,6 +62,20 @@ def upload_chunk(chunk: SequenceChunk, device: torch.device) -> DeviceChunk:
                        chunk.new_utt_flags), device)
 
 
+def upload_frames(batch: Tuple, device: torch.device) -> DeviceFrames:
+    """One randomizer minibatch (feats, targets[, weights]) on
+    ``device``: integer targets as int64, others as float32, weights of
+    one where the batch has none."""
+    feats, targets = batch[0], np.asarray(batch[1])
+    weights = batch[2] if len(batch) > 2 else np.ones(len(feats),
+                                                      np.float32)
+    tgt_dtype = (np.int64 if np.issubdtype(targets.dtype, np.integer)
+                 else np.float32)
+    return _to_device((np.ascontiguousarray(feats, np.float32),
+                       np.ascontiguousarray(targets, tgt_dtype),
+                       np.ascontiguousarray(weights, np.float32)), device)
+
+
 def device_batches(batches: Iterable[Any], device: torch.device,
                    send: Callable[[Any, torch.device], Tuple] = upload
                    ) -> Iterator[Tuple[torch.Tensor, ...]]:
@@ -72,6 +91,86 @@ def device_batches(batches: Iterable[Any], device: torch.device,
         current, ahead = ahead, send(batch, device)
         yield current
     yield ahead
+
+
+class FrameTrainer:
+    """Frame-shuffled cross-entropy or MSE training of ``net`` in place on
+    its parameters' device (reference: aslp-nnet-train-simple).
+
+    ``generator`` (a ``torch.Generator`` seeded 777, the seed of the JAX
+    trainer's PRNG key) is where components that draw noise in training
+    take it from; a DNN draws none.  A minibatch is [N, D] frames; a net
+    with a recurrent component (it takes [S, T, D]) sees them as N streams
+    of one frame, its state starting from zero at every frame, since a
+    shuffled minibatch holds no sequence (the JAX trainer hands such a
+    net the [N, D] array, which its LSTM cannot unpack)."""
+
+    def __init__(self, net: Nnet, opts: Optional[NnetTrainOptions] = None,
+                 objective: str = "xent"):
+        if objective not in ("xent", "mse"):
+            raise ValueError(objective)
+        self.net = net
+        self.opts = opts or NnetTrainOptions()
+        self.objective = objective
+        self.device = next(net.parameters()).device
+        self.generator = torch.Generator(self.device).manual_seed(777)
+        self._update = make_sgd_update(net, self.opts)
+        self._per_frame = any(comp.recurrent for comp in net.nodes)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        """The net's outputs [N, P] for frames [N, D] in its current
+        mode."""
+        if self._per_frame:
+            return self.net(feats[:, None])[0][:, 0]
+        return self.net(feats)[0]
+
+    def loss(self, y: torch.Tensor, targets: torch.Tensor,
+             weights: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """The objective of outputs ``y`` [N, P]; mse takes [N, P]
+        targets, or pdf ids [N] as one-hot rows (the reference's
+        PosteriorToMatrix of an alignment)."""
+        if self.objective == "xent":
+            return xent_loss(y, targets, weights)
+        if targets.dim() == y.dim() - 1:
+            targets = torch.nn.functional.one_hot(
+                targets.long(), y.shape[-1]).to(y.dtype)
+        return mse_loss(y, targets, weights)
+
+    def step(self, velocity: Dict[str, torch.Tensor], batch: DeviceFrames,
+             learn_rate: float) -> Tuple[torch.Tensor, Dict]:
+        """One training step on an uploaded minibatch; returns (loss,
+        aux)."""
+        feats, targets, weights = batch
+        self.net.train()
+        for p in self.net.parameters():
+            p.grad = None
+        loss, aux = self.loss(self.forward(feats), targets, weights)
+        loss.backward()
+        self._update(velocity, learn_rate)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def train_epoch(self, velocity: Dict[str, torch.Tensor],
+                    batches: Iterable[Tuple], learn_rate: float,
+                    reporter: Optional[LossReporter] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], LossReporter]:
+        reporter = reporter or LossReporter(self.objective)
+        for batch in device_batches(batches, self.device, upload_frames):
+            _, aux = self.step(velocity, batch, learn_rate)
+            reporter.update(aux)
+        return velocity, reporter
+
+    @torch.no_grad()
+    def evaluate(self, batches: Iterable[Tuple],
+                 reporter: Optional[LossReporter] = None) -> LossReporter:
+        """The loss (and, for xent, frame accuracy) in ``eval()`` mode
+        with no update."""
+        reporter = reporter or LossReporter(self.objective + "-cv")
+        self.net.eval()
+        for feats, targets, weights in device_batches(
+                batches, self.device, upload_frames):
+            reporter.update(self.loss(self.forward(feats), targets,
+                                      weights)[1])
+        return reporter
 
 
 class CtcTrainer:

@@ -120,9 +120,11 @@ def test_source_revision_without_git_is_a_digest_of_the_sources(
 
 
 @pytest.mark.parametrize("stages,item", [
-    (["mono"], "item 10"), (["tri"], "item 10"), (["dnn"], "item 8"),
+    (["mono", "tri"], "item 10"), (["tri"], "item 10"), (["dnn"], "item 8"),
     (None, "item 10"), (["ctc", "dnn"], "item 8")])
 def test_unported_stages_raise(tmp_path, stages, item):
+    """The tri and dnn stages raise before anything runs, naming their
+    ROADMAP items (the mono stage runs: tests/test_torch_hybrid.py)."""
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
         hard_ladder.run(str(tmp_path), scale="small", stages=stages,
                         corpus=tiny_corpus(), device="cpu")
