@@ -199,7 +199,7 @@ exits nonzero:
                 batch's launches a frame and busy share by torch.profiler;
                 no hand kernel may launch;
  16. budget-sweep - the port's nn_budget_sweep on the same recipe (dev
-                WER at K = 2048, 1024, 512, 256), each K timed;
+                WER at K = 2048 and 256), each K timed;
  17. latgen   - Kaldi's offline chain on the flagship through the port's
                 CLI, in process: 40-dim fbank of the 4 serving utterances,
                 aslp-nnet-forward on the card (3 blstmp_forward launches an
@@ -213,11 +213,12 @@ exits nonzero:
                 lattice-best-path (equal to latgen's words) and compute-wer
                 against the dense Viterbi's words; lattice-determinize on
                 the first DET_FRAMES frames, timed;
- 18. lattice-score - decode_wer_dev_test on the beam phase's dev and test
-                sets at the ladder's decode settings (beam 32, K = 2048,
-                lattice beam 8, LMWT 4..15) on the card: the same lattices
-                and WER at every LMWT as the CPU's, every lattice holding
-                the decoder's best path, one decode's launches a frame.
+ 18. lattice-score - decode_wer_dev_test on the first SCORE_UTTS of the
+                beam phase's dev and test sets at the ladder's decode
+                settings (beam 32, K = 2048, lattice beam 8, LMWT 4..15)
+                on the card: the same lattices and WER at every LMWT as
+                the CPU's, every lattice holding the decoder's best path,
+                one decode's launches a frame.
                 Both lattice phases run their CPU side in a child process
                 beside the card's (lattice_cpu_child).
  19. hybrid   - the hybrid HMM/NN path on the card, no hand kernel
@@ -225,27 +226,48 @@ exits nonzero:
                 (hard_ladder --stages=mono at the small scale: 8
                 iterations, 400 gaussians, realigned on 1 2 3 4 6) on
                 phase 14's corpus, its test and dev WER in JAX's band
-                (10, 95), pruning_sensitivity degraded >= healthy + 1, its
-                final alignments equal frame for frame to the same run on
-                the CPU in a child process (mono_cpu_child), one
-                utterance's GMM loglikes within 1e-4 relative of the CPU,
-                one re-estimation's statistics the same bits twice, train,
-                realignment, re-estimation and decode timed, one
-                realignment pass profiled; (b) HybridRecipe on (a)'s
-                alignments and HCLG (bootstrap=), the ladder's full-scale
-                DNN (4 x 512 Sigmoid, 351 spliced inputs) and dnn-stage
-                options (lr 0.2, acoustic scale 0.1, LMWT sweep on dev,
-                beam 32), 2 newbob iterations: the second epoch's loss
-                below the first's, one minibatch's loss and gradients and
-                one utterance's prior-subtracted scores within 1e-4 of the
-                CPU, the WER, one epoch profiled; (c) aslp-nnet-train-simple
-                --device=cuda at build_dnn_hybrid's widths (440 inputs,
-                4 x 1024 Sigmoid, 3019 pdfs, random weights from a numpy
-                seed) on an ark/scp corpus of frame targets, minibatch 256,
-                pool 32768, one epoch: the loss's last quarter below its
-                first, the written model loads and moved,
-                --cross-validate=true moves nothing and prints
+                (10, 95), pruning_sensitivity on the first PRUNING_UTTS
+                test utterances degraded >= healthy + 1, its final
+                alignments equal frame for frame to the same run on the
+                CPU in a child process (gmm_cpu_child, which goes on to
+                the tri stage), one utterance's GMM loglikes within 1e-4
+                relative of the CPU, one re-estimation's statistics the
+                same bits twice, train, realignment, re-estimation and
+                decode timed, one realignment pass profiled; (b)
+                aslp-nnet-train-simple --device=cuda at build_dnn_hybrid's
+                widths (440 inputs, 4 x 1024 Sigmoid, 3019 pdfs, random
+                weights from a numpy seed) on an ark/scp corpus of frame
+                targets, minibatch 256, pool 32768, one epoch: the loss's
+                last quarter below its first, the written model loads and
+                moved, --cross-validate=true moves nothing and prints
                 FRAME_ACCURACY; one step split by CUDA events.
+ 20. tri      - the ladder's tri and dnn stages and the rest of the GMM
+                family on the card, no hand kernel launched in the whole
+                phase: (a) hard_ladder.train_tri on (19)'s mono system at
+                the full preset's options (12 iterations, 4000 gaussians
+                and 400 leaves asked, realigned on 2 4 6 8 10), its CD
+                HCLG, dev and test decoded at beam 96, K = 8192, LMWT
+                selected on dev, the WERs in JAX's band; its tree, its
+                training and decode triples and its final alignments
+                equal to the CPU child's; tree, training, realignment,
+                re-estimation, graph and decode timed, one realignment
+                pass profiled; (b) HybridRecipe on (a)'s final alignments
+                and CD HCLG (bootstrap=, the ladder's dnn stage), the
+                ladder's full-scale DNN (4 x 512 Sigmoid, 351 spliced
+                inputs) and dnn-stage options (lr 0.2, acoustic scale
+                0.1, LMWT sweep on dev, beam 32), 6 newbob iterations:
+                the second epoch's loss below the first's, one
+                minibatch's loss and gradients and one utterance's
+                prior-subtracted scores within 1e-4 of the CPU, the test
+                and dev WER in JAX's band, one epoch profiled; (c) the
+                GMM family card against CPU (FAMILY_TOL) at the tri
+                system's size: LDA + MLLT from the tri alignments,
+                applied; one SAT outer iteration with the corpus's
+                speakers (transforms, re-estimated means, the SAT
+                objective raised); one EBW update; full-GMM loglikes of
+                from_diag(tri model); a global GMM's init_from_feats +
+                EM; the GMM VAD trained and run on (13)'s two-burst
+                signal (two segments).
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -258,6 +280,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -405,11 +428,12 @@ RECIPE_OPTS = dict(model_type="blstm", hidden_dim=320, num_layers=3,
                    decode_beam=32.0, decode_max_active=2048)
 # the beam phases (15, 16): the card's decode against the CPU's, the score
 # relative (float32 adds in the same order on both sides); the wide beam
-# that holds the beam decoder to the dense Viterbi; the sweep's budgets
-# (kaldi_aslp_tpu/recipes/decode_budget_sweep.py:97)
+# that holds the beam decoder to the dense Viterbi; the sweep's budgets,
+# the largest and the smallest of kaldi_aslp_tpu/recipes/
+# decode_budget_sweep.py:97's (1024 and 512 cut for phase 20's time)
 BEAM_SCORE_RTOL = 1e-3
 WIDE_BEAM = 1e9
-BUDGETS = (2048, 1024, 512, 256)
+BUDGETS = (2048, 256)
 # the lattice phases (17, 18): the flagship chain's utterances (the serving
 # phase's synthesized audio, forwarded whole), the frames of each that
 # latgen-faster-mapped and the lattice tools take (random weights give
@@ -424,6 +448,9 @@ LATGEN_FRAMES = 32
 DET_FRAMES = 6
 LATTICE_BEAM = 8.0
 LMWT_RANGE = range(4, 16)
+# utterances of each set (by name) the lattice-score phase decodes: 8 of
+# dev's 12 and of test's 20 (all of them cut for phase 20's time)
+SCORE_UTTS = 8
 # card vs CPU: MFCC + deltas + CMVN as the fbank tests hold them; a
 # training step's loss relative and gradients relative to each
 # parameter's largest |gradient| (float32, TF32 off); log posteriors
@@ -3454,10 +3481,11 @@ def lattice_score_phase(rec, corpus, workdir):
     lut = ctc_lut(rec.num_outputs)
     sets = {}
     for split in ("dev", "test"):
-        ll = {u: rec.posteriors(x) - rec.log_priors
-              for u, x in corpus[f"{split}_feats"].items()}
-        refs = {u: [rec.lang.words.id(w) for w in t]
-                for u, t in corpus[f"{split}_texts"].items()}
+        utts = sorted(corpus[f"{split}_feats"])[:SCORE_UTTS]
+        ll = {u: rec.posteriors(corpus[f"{split}_feats"][u]) - rec.log_priors
+              for u in utts}
+        refs = {u: [rec.lang.words.id(w) for w in corpus[f"{split}_texts"][u]]
+                for u in utts}
         sets[split] = (ll, refs)
     kw = dict(acoustic_scale=rec.acoustic_scale, lmwt_range=LMWT_RANGE,
               beam=RECIPE_OPTS["decode_beam"],
@@ -4099,20 +4127,31 @@ def entry_phase():
 # (tests/test_hard_ladder.py:93-101) and pruning sensitivity
 MONO_WER_BAND = (10.0, 95.0)
 MONO_LL_RTOL = 1e-4
-# (b) HybridRecipe on (a)'s alignments and HCLG, the ladder's full-scale
-# DNN (kaldi_aslp_tpu/recipes/hard_ladder.py:131: 4 x 512 Sigmoid) and
-# the dnn stage's options (:264-270), cut to 2 newbob iterations; card
-# vs CPU: the loss relative, each gradient against its tensor's largest
+# phase 20 (b) HybridRecipe on the tri stage's alignments and CD HCLG at
+# the ladder's full-scale dnn stage (hard_ladder.dnn_options of the full
+# preset: 4 x 512 Sigmoid, kaldi_aslp_tpu/recipes/hard_ladder.py:131,
+# :264-270), cut to DNN_ITERS of 14 newbob iterations (at 2 the 400-pdf
+# DNN decodes at 98.7 % WER on the CPU, outside JAX's band); card vs CPU:
+# the loss relative, each gradient against its tensor's largest
 # magnitude, the prior-subtracted scores absolute (float32, TF32 off)
-HYBRID_DNN_OPTS = dict(model_type="dnn", hidden_dim=512, num_layers=4,
-                       splice_context=4, learn_rate=0.2, acoustic_scale=0.1,
-                       lmwt_sweep=" ".join(str(x) for x in LMWT_RANGE),
-                       decode_beam=32.0, max_iters=2)
+DNN_ITERS = 6
 HYBRID_TOL = 1e-4
 # (c) aslp-nnet-train-simple at build_dnn_hybrid's widths (440 inputs,
 # 4 x 1024 Sigmoid, 3019 pdfs) on SIMPLE_UTTS utterances of frame
 # targets, the tool's default minibatch and pool
 SIMPLE_UTTS = 64
+# test utterances the pruning sensitivity decodes twice (of the 20)
+PRUNING_UTTS = 8
+# phase 20 (tri): JAX's WER band again; the GMM family's card-vs-CPU holds
+# against each array's largest magnitude (float64 on both sides, float32
+# out; the fMLLR and MLLT row solves and EM's iterations amplify rounding),
+# on FAMILY_FRAMES frames where a statistic is per gaussian and frame, and
+# a global GMM of GLOBAL_GAUSS gaussians grown over GLOBAL_ITERS iterations
+TRI_WER_BAND = MONO_WER_BAND
+FAMILY_TOL = 1e-4
+FAMILY_FRAMES = 1000
+GLOBAL_GAUSS = 64
+GLOBAL_ITERS = 10
 SIMPLE_TARGETS = 64
 SIMPLE_ARGS = ["--minibatch-size=256", "--randomizer-size=32768",
                "--learn-rate=0.2", "--momentum=0.9"]
@@ -4123,24 +4162,73 @@ def hand_kernel_launches():
     return {n: w.launches for n, w in hand_kernel_wrappers().items()}
 
 
-def mono_cpu_child(job):
-    """In a process of its own, beside the card's run: the mono stage's
-    training on the CPU from the job's pickled corpus; its final
-    alignments into the job's npz, its seconds printed as JSON."""
+def tree_nodes(tree):
+    """A decision tree, JSON-able: each root's nodes in pre-order, a
+    split as [key_pos, question], a leaf as its pdf."""
+    def walk(node):
+        if node.key_pos is None:
+            return int(node.pdf)
+        return [[int(node.key_pos), sorted(int(p) for p in node.question)],
+                walk(node.yes), walk(node.no)]
+    return [[int(p), int(pc), walk(n)]
+            for (p, pc), n in sorted(tree.roots.items())]
+
+
+def tm_triples(tm):
+    """A transition model's (phone, hmm state, pdf) triples, in id order."""
+    return [[s.phone, s.hmm_state, s.pdf] for s in tm.states[1:]]
+
+
+def gmm_cpu_child(job):
+    """In a process of its own, beside the card's run: the ladder's GMM
+    chain on the CPU from the job's pickled corpus and options, the mono
+    stage's training (its final alignments into the job's npz, a JSON
+    line), then the tri stage's (``hard_ladder.train_tri``: its final
+    alignments into the second npz, a JSON line with its tree and its
+    training and decode triples)."""
     import pickle
 
+    from kaldi_aslp_tpu_torch.fst import arpa_to_fst
     from kaldi_aslp_tpu_torch.gmm.mono import MonophoneTrainer
+    from kaldi_aslp_tpu_torch.recipes import hard_ladder
 
     torch.set_num_threads(4)
     with open(job, "rb") as f:
         spec = pickle.load(f)
+    lang, feats, texts = spec["lang"], spec["feats"], spec["texts"]
     t0 = time.perf_counter()
-    mono = MonophoneTrainer(spec["lang"], opts=spec["opts"], device="cpu")
-    am, _ = mono.train(spec["feats"], spec["texts"])
+    mono = MonophoneTrainer(lang, opts=spec["opts"], device="cpu")
+    am, tm = mono.train(feats, texts)
     np.savez(spec["out"], **mono._final_alignments)
-    print(json.dumps({"seconds": time.perf_counter() - t0,
+    print(json.dumps({"stage": "mono", "seconds": time.perf_counter() - t0,
                       "gaussians": int(am.num_gauss_per_pdf.sum())}),
           flush=True)
+    t0 = time.perf_counter()
+    art = hard_ladder.train_tri(lang, arpa_to_fst(spec["arpa"], lang.words),
+                                mono, am, tm, feats, texts, spec["tri_opts"],
+                                "cpu")
+    np.savez(spec["tri_out"], **art["tri"]._final_alignments)
+    print(json.dumps({"stage": "tri", "seconds": time.perf_counter() - t0,
+                      "gaussians": int(art["am1"].num_gauss_per_pdf.sum()),
+                      "tree": tree_nodes(art["tri"].tree),
+                      "train_triples": tm_triples(art["tm1"]),
+                      "decode_triples": tm_triples(art["tm1d"])}),
+          flush=True)
+
+
+def gmm_child_line(child, stage):
+    """The GMM CPU process's JSON line for ``stage`` (read as it comes);
+    raises, with its errors, if the process ends first."""
+    for line in child.stdout:
+        if line.startswith("{"):
+            out = json.loads(line)
+            if out.get("stage") == stage:
+                return out
+    child.wait()
+    with open(child.err_path) as f:
+        err = f.read()
+    raise RuntimeError(f"the GMM CPU process ended (exit {child.returncode}) "
+                       f"before its {stage} line: {err[-3000:]}")
 
 
 def hybrid_mono_part(corpus, workdir):
@@ -4157,17 +4245,22 @@ def hybrid_mono_part(corpus, workdir):
     sc = hard_ladder._Scale("small")
     work = os.path.join(workdir, "hybrid")
     os.makedirs(work)
-    job = os.path.join(work, "mono_cpu.pkl")
+    job = os.path.join(work, "gmm_cpu.pkl")
     with open(job, "wb") as f:
         pickle.dump({"lang": corpus["lang"], "opts": sc.mono,
+                     "tri_opts": tri_options(), "arpa": corpus["arpa"],
                      "feats": corpus["train_feats"],
                      "texts": corpus["train_texts"],
-                     "out": os.path.join(work, "mono_cpu.npz")}, f)
-    child = subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke; "
-         f"chip_smoke.mono_cpu_child({job!r})"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+                     "out": os.path.join(work, "mono_cpu.npz"),
+                     "tri_out": os.path.join(work, "tri_cpu.npz")}, f)
+    err_path = os.path.join(work, "gmm_cpu.err")
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.gmm_cpu_child({job!r})"],
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    child.err_path = err_path
     times, undo = timed_methods(MonophoneTrainer,
                                 ["train", "_align_all", "_reestimate"])
     decode_ms = []
@@ -4193,7 +4286,8 @@ def hybrid_mono_part(corpus, workdir):
     art = hard_ladder.run.artifacts
     wer, dev_wer = results["mono"], hard_ladder.run.dev_results["mono"]
     t0 = time.perf_counter()
-    healthy, degraded = hard_ladder.pruning_sensitivity(art)
+    healthy, degraded = hard_ladder.pruning_sensitivity(
+        art, max_utts=PRUNING_UTTS)
     sensitivity_s = time.perf_counter() - t0
     lo, hi = MONO_WER_BAND
     if not (lo < wer < hi and lo < dev_wer < hi):
@@ -4205,7 +4299,7 @@ def hybrid_mono_part(corpus, workdir):
     mono, am0 = art["mono"], art["am0"]
     # the final alignments against the CPU's run of the same stage
     t0 = time.perf_counter()
-    cpu = cpu_child_result(child)
+    cpu = gmm_child_line(child, "mono")
     cpu_wait_s = time.perf_counter() - t0
     z = np.load(os.path.join(work, "mono_cpu.npz"))
     card_ali = mono._final_alignments
@@ -4276,13 +4370,15 @@ def hybrid_mono_part(corpus, workdir):
            "graph_states": art["packed0"].num_states,
            "graph_arcs": len(art["packed0"].src)}
     log("hybrid_mono", **out, card=smi_name_and_power())
-    return art, out
+    return art, child, out
 
 
-def hybrid_dnn_part(corpus, art, workdir):
-    """HybridRecipe on the mono alignments and HCLG: the second epoch's
-    loss below the first's, one minibatch's loss and gradients and one
-    utterance's scores against the CPU, the WER, each part timed."""
+def hybrid_dnn_part(corpus, tri_art, workdir):
+    """The ladder's dnn stage: HybridRecipe on the tri stage's final
+    alignments (pdfs of its training transition model) and its CD HCLG
+    through ``bootstrap=``: the second epoch's loss below the first's,
+    one minibatch's loss and gradients and one utterance's scores against
+    the CPU, the WER, each part timed."""
     import copy
 
     from kaldi_aslp_tpu_torch.decoder.decodable import (
@@ -4290,10 +4386,8 @@ def hybrid_dnn_part(corpus, art, workdir):
         nnet_forward,
     )
     from kaldi_aslp_tpu_torch.fst import arpa_to_fst
-    from kaldi_aslp_tpu_torch.recipes.hybrid import (
-        HybridRecipe,
-        HybridRecipeOptions,
-    )
+    from kaldi_aslp_tpu_torch.recipes import hard_ladder
+    from kaldi_aslp_tpu_torch.recipes.hybrid import HybridRecipe
     from kaldi_aslp_tpu_torch.train import (
         FrameTrainer,
         NnetTrainOptions,
@@ -4301,14 +4395,14 @@ def hybrid_dnn_part(corpus, art, workdir):
     )
     from kaldi_aslp_tpu_torch.train.trainer import upload_frames
 
-    lang, mono, am0, tm0 = (corpus["lang"], art["mono"], art["am0"],
-                            art["tm0"])
-    t0 = time.perf_counter()
-    alis = mono.align(am0, corpus["train_feats"], corpus["train_texts"])
-    align_s = time.perf_counter() - t0
-    targets = {u: tm0.alignment_to_pdfs(a) for u, a in alis.items()}
+    lang, tm1 = corpus["lang"], tri_art["tm1"]
+    targets = {u: tm1.alignment_to_pdfs(a)
+               for u, a in tri_art["tri"]._final_alignments.items()}
     G = arpa_to_fst(corpus["arpa"], lang.words)
-    rec = HybridRecipe(lang, HybridRecipeOptions(**HYBRID_DNN_OPTS))
+    opts = dataclasses.replace(
+        hard_ladder.dnn_options(hard_ladder._Scale("full")),
+        max_iters=DNN_ITERS)
+    rec = HybridRecipe(lang, opts)
     times, undo = timed_methods(HybridRecipe, ["_sweep"])
     t0 = time.perf_counter()
     try:
@@ -4316,8 +4410,8 @@ def hybrid_dnn_part(corpus, art, workdir):
                         corpus["test_feats"], corpus["test_texts"],
                         grammar=G, work_dir=os.path.join(workdir, "hybrid",
                                                          "dnn"),
-                        bootstrap=(targets, tm0.num_pdfs, art["hclg0"],
-                                   art["lut0"]),
+                        bootstrap=(targets, tm1.num_pdfs, tri_art["hclg1"],
+                                   tri_art["lut1"]),
                         dev_feats=corpus["dev_feats"],
                         dev_texts=corpus["dev_texts"])
     finally:
@@ -4328,6 +4422,10 @@ def hybrid_dnn_part(corpus, art, workdir):
     losses = [e["train_loss"] for e in rec.epochs]
     if not np.isfinite(losses).all() or not losses[1] < losses[0]:
         raise RuntimeError(f"DNN training loss did not fall: {losses}")
+    lo, hi = TRI_WER_BAND
+    if not (lo < stats.wer < hi and lo < rec.last_dev_wer < hi):
+        raise RuntimeError(f"dnn WER test {stats.wer} dev {rec.last_dev_wer} "
+                           f"outside {TRI_WER_BAND}")
     # one minibatch's loss and gradients, card against CPU, from the
     # trained parameters
     cpu_net = copy.deepcopy(rec.net).to("cpu")
@@ -4338,7 +4436,7 @@ def hybrid_dnn_part(corpus, art, workdir):
         trainer = FrameTrainer(net, NnetTrainOptions(momentum=0.9))
         loss, _ = trainer.step(init_velocity(net),
                                upload_frames(batch, trainer.device),
-                               HYBRID_DNN_OPTS["learn_rate"])
+                               opts.learn_rate)
         got[name] = (float(loss), {k: p.grad.cpu()
                                    for k, p in net.named_parameters()})
     loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
@@ -4374,7 +4472,7 @@ def hybrid_dnn_part(corpus, art, workdir):
            "report": stats.report(), "pdfs": rec.num_pdfs,
            "input_dim": rec.net.nodes[0].input_dim,
            "train_frames": rec.epochs[0]["train_frames"],
-           "losses": losses, "align_s": align_s, "run_s": run_s,
+           "losses": losses, "run_s": run_s,
            "epoch_s": [e["seconds"] for e in rec.epochs],
            "decode_sweep_ms": times["_sweep"][0],
            "loss_rel_err": loss_rel, "grad_rel_err": grad_rel,
@@ -4382,6 +4480,309 @@ def hybrid_dnn_part(corpus, art, workdir):
            "epoch_ms": epoch_ms, "epoch_device_busy_share":
            device_ms / epoch_ms}
     log("hybrid_dnn", **out, card=smi_name_and_power())
+    return out
+
+
+def tri_options():
+    """The tri stage's options: the ladder's full preset
+    (kaldi_aslp_tpu/recipes/hard_ladder.py:124-126: 12 iterations, 4000
+    gaussians and 400 leaves asked, realigned on 2 4 6 8 10, tree_min_gain
+    20)."""
+    from kaldi_aslp_tpu_torch.recipes import hard_ladder
+
+    return hard_ladder._Scale("full").tri
+
+
+def tri_part(corpus, art, child, workdir):
+    """The ladder's tri stage on the card from phase 19's mono system
+    (``hard_ladder.train_tri`` at ``tri_options``, ``score_gmm_stage`` at
+    the full preset's K = 8192, beam 96): its WER in JAX's band; its tree,
+    training and decode triples and final alignments equal to the GMM CPU
+    process's; one realignment pass timed and profiled."""
+    from kaldi_aslp_tpu_torch.decoder.viterbi import PackedGraph
+    from kaldi_aslp_tpu_torch.fst import arpa_to_fst, expand_hmm_cd
+    from kaldi_aslp_tpu_torch.gmm.deltas import DeltasTrainer
+    from kaldi_aslp_tpu_torch.recipes import hard_ladder
+
+    lang = corpus["lang"]
+    feats, texts = corpus["train_feats"], corpus["train_texts"]
+    G = arpa_to_fst(corpus["arpa"], lang.words)
+    times, undo = timed_methods(DeltasTrainer, [
+        "build_tree_from_alignments", "train", "_align_all", "_reestimate"])
+    graph_ms = []
+    inner_graph = hard_ladder.make_cd_decode_graph
+
+    def graph(*a, **k):
+        t0 = time.perf_counter()
+        out = inner_graph(*a, **k)
+        graph_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    hard_ladder.make_cd_decode_graph = graph
+    t0 = time.perf_counter()
+    try:
+        tri_art = hard_ladder.train_tri(lang, G, art["mono"], art["am0"],
+                                        art["tm0"], feats, texts,
+                                        tri_options(), "cuda")
+    finally:
+        undo()
+        hard_ladder.make_cd_decode_graph = inner_graph
+    stage_s = time.perf_counter() - t0
+    tri, am1, tm1 = tri_art["tri"], tri_art["am1"], tri_art["tm1"]
+    hclg1 = tri_art["hclg1"]
+    t0 = time.perf_counter()
+    packed1 = PackedGraph.from_fst(hclg1)
+    wer, dev_wer, _, _ = hard_ladder.score_gmm_stage(
+        packed1, tri_art["lut1"], am1.pack("cuda"), corpus, art["refs"],
+        art["dev_refs"], hard_ladder.GMM_MAX_ACTIVE, "cuda")
+    decode_s = time.perf_counter() - t0
+    lo, hi = TRI_WER_BAND
+    if not (lo < wer < hi and lo < dev_wer < hi):
+        raise RuntimeError(f"tri WER test {wer} dev {dev_wer} outside "
+                           f"{TRI_WER_BAND}")
+    # the tree, the triples and the final alignments against the CPU's
+    t0 = time.perf_counter()
+    cpu = gmm_child_line(child, "tri")
+    child.wait(timeout=60)
+    cpu_wait_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise RuntimeError(f"the GMM CPU process exited {child.returncode}")
+    if tree_nodes(tri.tree) != cpu["tree"]:
+        raise RuntimeError("the tri tree differs from the CPU's")
+    if tm_triples(tm1) != cpu["train_triples"] or \
+            tm_triples(tri_art["tm1d"]) != cpu["decode_triples"]:
+        raise RuntimeError("the tri triples differ from the CPU's")
+    z = np.load(os.path.join(workdir, "hybrid", "tri_cpu.npz"))
+    card_ali = tri._final_alignments
+    if sorted(z.files) != sorted(card_ali):
+        raise RuntimeError("the CPU's tri run aligned other utterances")
+    differ = {u: int((z[u] != card_ali[u]).sum()) for u in z.files
+              if not np.array_equal(z[u], card_ali[u])}
+    if differ:
+        raise RuntimeError(f"tri alignments differ from the CPU's in "
+                           f"{len(differ)} utterances: {differ}")
+    # one realignment pass over the training graphs: launches, busy share
+    utts = sorted(card_ali)
+    graphs = {u: expand_hmm_cd(tri.compiler.compile_clg(texts[u]), tm1,
+                               tri.windows, tri.tree) for u in utts}
+    lut = tm1.alignment_to_pdfs(np.arange(tm1.num_transition_ids + 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = tri._align_all(am1, graphs, feats, utts, lut)
+    torch.cuda.synchronize()
+    align_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {}
+    by_kernel = device_ms_by_kernel(
+        lambda: tri._align_all(am1, graphs, feats, utts, lut), counts)
+    device_ms = sum(v for k, v in by_kernel.items()
+                    if not k.startswith(("Memcpy", "Memset")))
+    launches = sum(c for k, c in counts.items()
+                   if not k.startswith(("Memcpy", "Memset")))
+    T_max = max(len(feats[u]) for u in utts)
+    out = {"test_wer": wer, "dev_wer": dev_wer, "leaves": tri.tree.num_pdfs,
+           "leaves_asked": tri.opts.num_leaves,
+           "gaussians": int(am1.num_gauss_per_pdf.sum()),
+           "gaussians_asked": tri.opts.totgauss,
+           "max_gauss_per_pdf": am1.max_gauss,
+           "windows": len(tri.windows), "transition_ids":
+           tm1.num_transition_ids,
+           "decode_transition_ids": tri_art["tm1d"].num_transition_ids,
+           "hclg_states": packed1.num_states, "hclg_arcs": len(packed1.src),
+           "stage_s": stage_s, "tree_ms": times[
+               "build_tree_from_alignments"][0],
+           "train_ms": times["train"][0], "realign_ms": times["_align_all"],
+           "reestimate_ms": times["_reestimate"], "cd_graph_ms": graph_ms[0],
+           "decode_dev_test_s": decode_s, "max_active":
+           hard_ladder.GMM_MAX_ACTIVE, "beam": hard_ladder.GMM_BEAM,
+           "cpu_train_s": cpu["seconds"], "cpu_wait_s": cpu_wait_s,
+           "tree_equal_cpu": True, "triples_equal_cpu": True,
+           "alignments_equal_cpu": True,
+           "realign_same_as_final": all(np.array_equal(again[u],
+                                                       card_ali[u])
+                                        for u in utts),
+           "realign_pass_ms": align_ms,
+           "realign_launches_per_frame": launches / T_max,
+           "realign_device_busy_share": device_ms / align_ms}
+    log("tri", **out, card=smi_name_and_power())
+    return tri_art, out
+
+
+def sat_objective(trainer, am, feats, texts, transforms, utt2spk, device):
+    """The SAT objective: the features through their speakers'
+    transforms, realigned by the trainer, the aligned pdfs'
+    log-likelihood plus log |det A| a frame, per frame."""
+    from kaldi_aslp_tpu_torch.gmm.diag_gmm import corpus_loglikes
+    from kaldi_aslp_tpu_torch.gmm.sat import apply_speaker_transforms
+
+    adapted = apply_speaker_transforms(feats, transforms, utt2spk, device)
+    tm = trainer.trans_model
+    alis = trainer.align(am, adapted, texts)
+    lls = corpus_loglikes(adapted, sorted(alis), am.pack(device))
+    total = frames = 0.0
+    for u, a in alis.items():
+        pdfs = tm.alignment_to_pdfs(a)
+        A = transforms[utt2spk[u]][:, :-1].astype(np.float64)
+        total += float(lls[u][np.arange(len(pdfs)), pdfs].astype(
+            np.float64).sum()) + len(pdfs) * np.log(abs(np.linalg.det(A)))
+        frames += len(pdfs)
+    return total / frames
+
+
+def family_err(card, cpu):
+    """The largest difference against the CPU array's largest
+    magnitude."""
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    return float(np.abs(card - cpu).max() / max(np.abs(cpu).max(), 1e-30))
+
+
+def gmm_family_part(corpus, tri_art):
+    """The rest of the GMM family on the card against the CPU at the tri
+    system's size: LDA + MLLT from the tri alignments, one SAT outer
+    iteration over the tri system with the corpus's speakers, one EBW
+    update, full-GMM loglikes from ``from_diag`` of the tri model, a
+    global GMM's ``init_from_feats`` + EM, and the GMM VAD on phase 13's
+    two-burst signal; each timed on the card."""
+    import copy
+
+    from kaldi_aslp_tpu_torch.feats import transforms as tr
+    from kaldi_aslp_tpu_torch.feats.mel import MelBanksOptions
+    from kaldi_aslp_tpu_torch.feats.mfcc import Mfcc, MfccOptions
+    from kaldi_aslp_tpu_torch.feats.window import FrameExtractionOptions
+    from kaldi_aslp_tpu_torch.gmm import diag_gmm, ebw, full_gmm, global_gmm
+    from kaldi_aslp_tpu_torch.gmm.sat import SatOptions, SatTrainer
+    from kaldi_aslp_tpu_torch.vad import VadOptions, train_gmm_vad
+
+    tri, am1, tm1 = tri_art["tri"], tri_art["am1"], tri_art["tm1"]
+    feats, texts = corpus["train_feats"], corpus["train_texts"]
+    utts = sorted(tri._final_alignments)
+    pdfs = {u: tm1.alignment_to_pdfs(tri._final_alignments[u]) for u in utts}
+    F = np.concatenate([feats[u] for u in utts])
+    Pd = np.concatenate([pdfs[u] for u in utts])
+    D = F.shape[1]
+    errs, ms, out = {}, {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return res
+
+    # LDA over the tri pdfs, then MLLT from the tri model's gammas
+    lda_stats = tr.LdaStats(am1.num_pdfs, D)
+    lda_stats.accumulate(F, Pd)
+    lda = tr.estimate_lda(lda_stats, D)
+    y = timed("lda_apply", lambda: tr.apply_transform(F, lda, "cuda"))
+    errs["lda_apply"] = family_err(y.cpu(), tr.apply_transform(F, lda, "cpu"))
+    n = FAMILY_FRAMES
+    gam = {dev: tr.gmm_gammas_for_alignment(am1, F[:n], Pd[:n], dev)
+           for dev in ("cuda", "cpu")}
+    timed("gammas", lambda: tr.gmm_gammas_for_alignment(
+        am1, F[:n], Pd[:n], "cuda"))
+    errs["gammas"] = family_err(gam["cuda"][0], gam["cpu"][0])
+    mllt = {}
+    for dev, (g, mu, iv) in gam.items():
+        st = tr.MlltStats(D)
+        st.accumulate(F[:n], mu, iv, g)
+        mllt[dev] = tr.estimate_mllt(st)
+    errs["mllt"] = family_err(mllt["cuda"], mllt["cpu"])
+    errs["mllt_apply"] = family_err(
+        tr.apply_transform(F, mllt["cuda"], "cuda").cpu(),
+        tr.apply_transform(F, mllt["cuda"], "cpu"))
+    out["mllt_logdet"] = float(np.log(abs(np.linalg.det(mllt["cuda"]))))
+    # one SAT outer iteration with the corpus's speakers, card and CPU
+    utt2spk = corpus["train_utt2spk"]
+    cpu_tri = copy.copy(tri)
+    cpu_tri.device = torch.device("cpu")
+    sat = {}
+    for dev, base in (("cuda", tri), ("cpu", cpu_tri)):
+        t0 = time.perf_counter()
+        sat[dev] = SatTrainer(base, SatOptions(num_outer_iters=1)).train(
+            am1, feats, texts, utt2spk)
+        ms[f"sat_{dev}"] = 1e3 * (time.perf_counter() - t0)
+    spks = sorted(sat["cpu"][1])
+    errs["sat_transforms"] = max(family_err(sat["cuda"][1][k],
+                                            sat["cpu"][1][k]) for k in spks)
+    errs["sat_means"] = family_err(sat["cuda"][0].means, sat["cpu"][0].means)
+    identity = {k: np.eye(D, D + 1, dtype=np.float32) for k in spks}
+    before = sat_objective(tri, am1, feats, texts, identity, utt2spk, "cuda")
+    after = sat_objective(tri, sat["cuda"][0], feats, texts, sat["cuda"][1],
+                          utt2spk, "cuda")
+    if not after > before:
+        raise RuntimeError(f"SAT lowered the adapted likelihood: {before} "
+                           f"-> {after}")
+    out.update(sat_speakers=len(spks), sat_objective_before=before,
+               sat_objective_after=after)
+    # one EBW update on FAMILY_FRAMES frames
+    num = {dev: ebw.accumulate_numerator_stats(am1, F[:n], Pd[:n], dev)
+           for dev in ("cuda", "cpu")}
+    den = {dev: ebw.accumulate_denominator_stats(am1, F[:n], device=dev)
+           for dev in ("cuda", "cpu")}
+    timed("ebw_den", lambda: ebw.accumulate_denominator_stats(
+        am1, F[:n], device="cuda"))
+    errs["ebw_num"] = max(family_err(a, b) for a, b in zip(num["cuda"],
+                                                           num["cpu"]))
+    errs["ebw_den"] = max(family_err(a, b) for a, b in zip(den["cuda"],
+                                                           den["cpu"]))
+    new = {dev: ebw.ebw_update(am1, num[dev], den[dev])
+           for dev in ("cuda", "cpu")}
+    errs["ebw_means"] = family_err(new["cuda"].means, new["cpu"].means)
+    out["ebw_mean_change"] = float(np.abs(new["cuda"].means
+                                          - am1.means).max())
+    # full-GMM loglikes of the tri model, against its diagonal loglikes
+    full = full_gmm.AmFullGmm.from_diag(am1)
+    u = max(corpus["test_feats"], key=lambda k: len(corpus["test_feats"][k]))
+    x = corpus["test_feats"][u]
+    packed = {dev: full.pack(dev) for dev in ("cuda", "cpu")}
+    fl = timed("full_loglikes", lambda: full_gmm.full_gmm_loglikes(
+        x, *packed["cuda"])).cpu()
+    errs["full_loglikes"] = family_err(fl, full_gmm.full_gmm_loglikes(
+        x, *packed["cpu"]))
+    out["full_vs_diag"] = family_err(fl, diag_gmm.gmm_loglikes(
+        torch.from_numpy(x), *am1.pack("cpu")))
+    # a global GMM grown from the training frames, card and CPU
+    glob = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        glob[dev] = global_gmm.init_from_feats(F, GLOBAL_GAUSS,
+                                               num_iters=GLOBAL_ITERS,
+                                               device=dev)
+        ms[f"global_{dev}"] = 1e3 * (time.perf_counter() - t0)
+    if glob["cuda"].num_gauss != glob["cpu"].num_gauss:
+        raise RuntimeError("the global GMMs grew apart")
+    errs["global_means"] = family_err(glob["cuda"].means, glob["cpu"].means)
+    out["global_gauss"] = glob["cuda"].num_gauss
+    out["global_avg_loglike"] = global_gmm.avg_loglike(glob["cuda"], F,
+                                                       "cuda")
+    # the GMM VAD on the two-burst signal (tones at 1-1.5 s and 2.5-3 s)
+    mfcc = Mfcc(FrameExtractionOptions(samp_freq=SAMPLE_RATE, dither=0.0),
+                MelBanksOptions(num_bins=23), MfccOptions(), device="cpu")
+    vf = mfcc(two_bursts().astype(np.float32)).numpy()
+    t_mid = (np.arange(len(vf)) * 10 + 12.5) / 1000.0
+    targets = (((t_mid >= 1.0) & (t_mid < 1.5))
+               | ((t_mid >= 2.5) & (t_mid < 3.0))).astype(np.int32)
+    vad = {dev: train_gmm_vad(vf, targets, num_gauss=4, num_iters=8,
+                              opts=VadOptions(), device=dev)
+           for dev in ("cuda", "cpu")}
+    masks = {dev: v.detect(vf) for dev, v in vad.items()}
+    errs["vad_scores"] = family_err(vad["cuda"].frame_scores(vf),
+                                    vad["cpu"].frame_scores(vf))
+    if not np.array_equal(masks["cuda"], masks["cpu"]):
+        raise RuntimeError("the GMM VAD's masks differ card vs CPU")
+    m = masks["cuda"].astype(np.int8)
+    out.update(vad_frames=len(vf), vad_agree=float(
+        (masks["cuda"] == targets.astype(bool)).mean()),
+        vad_segments=int((np.diff(np.concatenate([[0], m, [0]])) == 1).sum()))
+    if out["vad_segments"] != 2 or out["vad_agree"] < 0.9:
+        raise RuntimeError(f"GMM VAD: {out['vad_segments']} segments, "
+                           f"{out['vad_agree']} of frames agree")
+    bad = {k: v for k, v in errs.items() if not v <= FAMILY_TOL}
+    if bad:
+        raise RuntimeError(f"GMM family card vs CPU beyond {FAMILY_TOL}: "
+                           f"{bad}")
+    out.update(errs=errs, tol=FAMILY_TOL, ms=ms, frames=n)
+    log("gmm_family", **out, card=smi_name_and_power())
     return out
 
 
@@ -4535,28 +4936,58 @@ def hybrid_cli_part(workdir):
 
 
 def hybrid_phase(corpus, workdir):
-    """Phase 19: the mono stage, the hybrid DNN on its alignments and the
-    frame trainer's CLI, with no hand kernel launched anywhere in it."""
+    """Phase 19: the mono stage and the frame trainer's CLI, with no hand
+    kernel launched anywhere in it.  Returns the ladder's artifacts and
+    the GMM CPU process, which goes on to the tri stage."""
     for w in hand_kernel_wrappers().values():
         w.launches = 0
     t0 = time.perf_counter()
-    art, mono = hybrid_mono_part(corpus, workdir)
-    dnn = hybrid_dnn_part(corpus, art, workdir)
+    art, child, mono = hybrid_mono_part(corpus, workdir)
     cli = hybrid_cli_part(workdir)
     launches = hand_kernel_launches()
     seconds = time.perf_counter() - t0
     log("hybrid", mono_test_wer=mono["test_wer"],
-        mono_dev_wer=mono["dev_wer"], dnn_test_wer=dnn["test_wer"],
-        dnn_dev_wer=dnn["dev_wer"],
+        mono_dev_wer=mono["dev_wer"],
         pruning=[mono["pruning_healthy"], mono["pruning_degraded"]],
-        mono_stage_s=mono["stage_s"], dnn_run_s=dnn["run_s"],
-        cli_train_s=cli["train_s"], dnn_step_ms=cli["step_split"]["step_ms"],
+        mono_stage_s=mono["stage_s"], cli_train_s=cli["train_s"],
+        dnn_step_ms=cli["step_split"]["step_ms"],
         realign_device_busy_share=mono["realign_device_busy_share"],
-        dnn_epoch_device_busy_share=dnn["epoch_device_busy_share"],
         hand_kernel_launches=launches, seconds=seconds,
         card=smi_name_and_power())
     if any(launches.values()):
         raise RuntimeError(f"the hybrid phase launched hand kernels: "
+                           f"{launches}")
+    return art, child
+
+
+def tri_phase(corpus, art, child, workdir):
+    """Phase 20: the ladder's tri stage on phase 19's mono system, its dnn
+    stage on the tri alignments and CD graph, and the rest of the GMM
+    family, with no hand kernel launched anywhere in it."""
+    for w in hand_kernel_wrappers().values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        tri_art, tri = tri_part(corpus, art, child, workdir)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    dnn = hybrid_dnn_part(corpus, tri_art, workdir)
+    family = gmm_family_part(corpus, tri_art)
+    launches = hand_kernel_launches()
+    seconds = time.perf_counter() - t0
+    log("tri_phase", tri_test_wer=tri["test_wer"], tri_dev_wer=tri["dev_wer"],
+        dnn_test_wer=dnn["test_wer"], dnn_dev_wer=dnn["dev_wer"],
+        leaves=tri["leaves"], gaussians=tri["gaussians"],
+        hclg=[tri["hclg_states"], tri["hclg_arcs"]], tri_stage_s=tri["stage_s"],
+        tri_decode_s=tri["decode_dev_test_s"], dnn_run_s=dnn["run_s"],
+        realign_device_busy_share=tri["realign_device_busy_share"],
+        dnn_epoch_device_busy_share=dnn["epoch_device_busy_share"],
+        family_ms=family["ms"], hand_kernel_launches=launches,
+        seconds=seconds, card=smi_name_and_power())
+    if any(launches.values()):
+        raise RuntimeError(f"the tri phase launched hand kernels: "
                            f"{launches}")
 
 
@@ -4660,7 +5091,8 @@ def main() -> int:
         t0 = time.perf_counter()
         lattice_score_phase(rec, corpus, workdir)
         log("lattice_score_phase", seconds=time.perf_counter() - t0)
-        hybrid_phase(corpus, workdir)
+        art, child = hybrid_phase(corpus, workdir)
+        tri_phase(corpus, art, child, workdir)
     serving_runs = {"serving": launches, "serve_batched": batched_launches,
                     "vad": vad_launches, "entry": entry_launches}
     records = kernel_records(serving_runs, runs, bptt_launches,

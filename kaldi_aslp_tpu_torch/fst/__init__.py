@@ -6,12 +6,19 @@ from kaldi_aslp_tpu_torch.fst.ctc_graph import (
     expand_ctc,
     make_ctc_decode_graph,
 )
-from kaldi_aslp_tpu_torch.fst.determinize import determinize, minimize_encoded
+from kaldi_aslp_tpu_torch.fst.context import ContextWindows, compose_context
+from kaldi_aslp_tpu_torch.fst.determinize import (
+    NonDeterminizableError,
+    determinize,
+    minimize_encoded,
+)
 from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst, SymbolTable
 from kaldi_aslp_tpu_torch.fst.hclg import (
     TrainingGraphCompiler,
     expand_hmm,
+    expand_hmm_cd,
     make_decode_graph,
+    triples_from_tree,
 )
 from kaldi_aslp_tpu_torch.fst.lang import (
     Lang,
@@ -28,4 +35,6 @@ __all__ = ["EPS", "Arc", "Fst", "SymbolTable", "Lang", "Lexicon",
            "arpa_to_fst", "determinize",
            "minimize_encoded", "ctc_lut", "expand_ctc",
            "make_ctc_decode_graph", "make_linear_acceptor", "expand_hmm",
-           "make_decode_graph", "TrainingGraphCompiler"]
+           "make_decode_graph", "TrainingGraphCompiler", "ContextWindows",
+           "compose_context", "expand_hmm_cd", "triples_from_tree",
+           "NonDeterminizableError"]

@@ -17,6 +17,13 @@ from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst
 INF = float("inf")
 
 
+class NonDeterminizableError(RuntimeError):
+    """The subset construction did not end within ``max_states`` or left a
+    residual at the start: the graph is not determinizable as built (a
+    rare G).  ``gmm/deltas.py:make_cd_decode_graph`` keeps the raw
+    compose on this error and on no other."""
+
+
 def _quantize(w: float, delta: float) -> int:
     return int(round(w / delta))
 
@@ -79,7 +86,7 @@ def determinize(fst: Fst, delta: float = 1e-4,
     def get_state(key) -> int:
         if key not in subset_id:
             if len(subset_id) >= max_states:
-                raise RuntimeError("determinize: state blowup")
+                raise NonDeterminizableError("determinize: state blowup")
             subset_id[key] = out.add_state()
         return subset_id[key]
 
@@ -103,7 +110,8 @@ def determinize(fst: Fst, delta: float = 1e-4,
     start = get_state(start_key)
     out.set_start(start)
     if w0 != 0.0 or p0:
-        raise RuntimeError("determinize: weighted/labeled start residual")
+        raise NonDeterminizableError(
+            "determinize: weighted/labeled start residual")
 
     queue = deque([start_key])
     done = {start_key}

@@ -102,12 +102,11 @@ def _gconst(weights: torch.Tensor, means: torch.Tensor,
                      + (mu * mu / var).sum(-1)))
 
 
-def gmm_loglikes(feats: torch.Tensor, weights: torch.Tensor,
-                 means: torch.Tensor, variances: torch.Tensor
-                 ) -> torch.Tensor:
-    """[T, D] -> [T, P] (float32): per-frame log-likelihood of every pdf
-    (reference: DiagGmm::LogLikelihoods looped per pdf,
-    decodable-am-diag-gmm.h per frame), two products over all P * M
+def component_loglikes(feats: torch.Tensor, weights: torch.Tensor,
+                       means: torch.Tensor, variances: torch.Tensor
+                       ) -> torch.Tensor:
+    """[T, D] -> [T, P, M] (float64): log weight + log N of every gaussian
+    of every pdf, -1e30 on empty slots; two products over all P * M
     gaussians on the tensors' device."""
     P, M, D = means.shape
     x = feats.to(means.device, torch.float64)
@@ -117,8 +116,17 @@ def gmm_loglikes(feats: torch.Tensor, weights: torch.Tensor,
     lin = x @ mean_iv.reshape(P * M, D).t()
     ll = (_gconst(weights, means, variances).reshape(1, P * M)
           - 0.5 * quad + lin).reshape(-1, P, M)
-    ll = torch.where(weights[None] > 0, ll, torch.full_like(ll, -1e30))
-    return torch.logsumexp(ll, dim=-1).float()
+    return torch.where(weights[None] > 0, ll, torch.full_like(ll, -1e30))
+
+
+def gmm_loglikes(feats: torch.Tensor, weights: torch.Tensor,
+                 means: torch.Tensor, variances: torch.Tensor
+                 ) -> torch.Tensor:
+    """[T, D] -> [T, P] (float32): per-frame log-likelihood of every pdf
+    (reference: DiagGmm::LogLikelihoods looped per pdf,
+    decodable-am-diag-gmm.h per frame)."""
+    return torch.logsumexp(
+        component_loglikes(feats, weights, means, variances), dim=-1).float()
 
 
 def corpus_loglikes(feats: Dict[str, np.ndarray], utts: Iterable[str],

@@ -9,7 +9,10 @@ The port's ``Nnet`` holds its components in ``nodes`` (an
 
 A GMM acoustic model crosses as its numpy arrays: the JAX
 ``AmDiagGmm``'s ``weights``, ``means`` and ``vars`` and its transition
-model's ``log_probs`` (``gmm_from_jax`` / ``gmm_to_jax``)."""
+model's ``log_probs`` (``gmm_from_jax`` / ``gmm_to_jax``); a full or
+global GMM as its arrays (``full_gmm_*``, ``global_gmm_*``); a decision
+tree (``ContextDependency``) node by node (``tree_from_jax`` /
+``tree_to_jax``)."""
 
 from __future__ import annotations
 
@@ -20,7 +23,10 @@ import torch
 
 if TYPE_CHECKING:
     from kaldi_aslp_tpu_torch.gmm.diag_gmm import AmDiagGmm
+    from kaldi_aslp_tpu_torch.gmm.full_gmm import AmFullGmm
+    from kaldi_aslp_tpu_torch.gmm.global_gmm import GlobalGmm
     from kaldi_aslp_tpu_torch.hmm.transition_model import TransitionModel
+    from kaldi_aslp_tpu_torch.tree.build_tree import ContextDependency
 
 PREFIX = "nodes"
 
@@ -83,3 +89,74 @@ def gmm_to_jax(am: "AmDiagGmm", trans_model: "TransitionModel"
     return {"weights": am.weights.copy(), "means": am.means.copy(),
             "vars": am.vars.copy(),
             "log_probs": trans_model.log_probs.copy()}
+
+
+FULL_GMM_FIELDS = ("weights", "means", "covars")
+GLOBAL_GMM_FIELDS = ("weights", "means", "vars")
+
+
+def full_gmm_from_jax(am: Any) -> "AmFullGmm":
+    """A JAX ``AmFullGmm`` (numpy ``weights`` [P, M], ``means`` [P, M, D],
+    ``covars`` [P, M, D, D]) -> the port's."""
+    from kaldi_aslp_tpu_torch.gmm.full_gmm import AmFullGmm
+
+    return AmFullGmm(*(np.array(getattr(am, k), np.float32)
+                       for k in FULL_GMM_FIELDS))
+
+
+def full_gmm_to_jax(am: "AmFullGmm") -> Dict[str, np.ndarray]:
+    """Copies of the port's full GMM arrays, the JAX ``AmFullGmm``'s
+    fields (``AmFullGmm(**full_gmm_to_jax(am))`` there)."""
+    return {k: getattr(am, k).copy() for k in FULL_GMM_FIELDS}
+
+
+def global_gmm_from_jax(gmm: Any) -> "GlobalGmm":
+    """A JAX ``GlobalGmm`` (numpy ``weights`` [M], ``means``, ``vars``
+    [M, D]) -> the port's."""
+    from kaldi_aslp_tpu_torch.gmm.global_gmm import GlobalGmm
+
+    return GlobalGmm(*(np.array(getattr(gmm, k), np.float32)
+                       for k in GLOBAL_GMM_FIELDS))
+
+
+def global_gmm_to_jax(gmm: "GlobalGmm") -> Dict[str, np.ndarray]:
+    """Copies of the port's global GMM arrays, the JAX ``GlobalGmm``'s
+    fields."""
+    return {k: getattr(gmm, k).copy() for k in GLOBAL_GMM_FIELDS}
+
+
+def _copy_node(node: Any, node_cls) -> Any:
+    if node.key_pos is None:
+        return node_cls(pdf=int(node.pdf))
+    return node_cls(pdf=int(node.pdf), key_pos=int(node.key_pos),
+                    question=frozenset(int(p) for p in node.question),
+                    yes=_copy_node(node.yes, node_cls),
+                    no=_copy_node(node.no, node_cls))
+
+
+def _copy_tree(tree: Any, tree_cls, node_cls) -> Any:
+    out = tree_cls(tree.context_width, tree.central_position)
+    out.num_pdfs = int(tree.num_pdfs)
+    out.roots = {(int(p), int(pc)): _copy_node(node, node_cls)
+                 for (p, pc), node in tree.roots.items()}
+    return out
+
+
+def tree_from_jax(tree: Any) -> "ContextDependency":
+    """A JAX ``ContextDependency`` (``context_width``,
+    ``central_position``, ``num_pdfs`` and ``roots``: (phone, pdf-class)
+    -> ``TreeNode`` with ``pdf``, ``key_pos``, ``question``, ``yes``,
+    ``no``) -> the port's, each node copied."""
+    from kaldi_aslp_tpu_torch.tree.build_tree import (
+        ContextDependency,
+        TreeNode,
+    )
+
+    return _copy_tree(tree, ContextDependency, TreeNode)
+
+
+def tree_to_jax(tree: "ContextDependency", tree_cls, node_cls) -> Any:
+    """The port's tree rebuilt node by node from the caller's classes:
+    the JAX package's ``ContextDependency`` and ``TreeNode`` (the port
+    imports nothing of that package)."""
+    return _copy_tree(tree, tree_cls, node_cls)

@@ -1,7 +1,6 @@
 """Voice activity detection (port of kaldi_aslp_tpu/vad/): the frame FSM,
-the energy and NN detectors and the frame-selection helpers.  The GMM
-detector waits for the GMM port; ROC, TextGrid and boundary tools for
-the VAD CLI."""
+the energy, NN and GMM detectors and the frame-selection helpers.  ROC,
+TextGrid and boundary tools wait for the VAD CLI."""
 
 from kaldi_aslp_tpu_torch.vad.vad import (
     Vad,
@@ -11,3 +10,4 @@ from kaldi_aslp_tpu_torch.vad.vad import (
     select_frames,
     ali_to_sil_targets,
 )
+from kaldi_aslp_tpu_torch.vad.gmm_vad import GmmVad, train_gmm_vad

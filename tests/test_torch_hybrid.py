@@ -393,6 +393,7 @@ def test_ladder_scales_keep_the_jax_ladders_gmm_options():
     for name in ("small", "medium", "full"):
         got, want = hard_ladder._Scale(name), jax_ladder._Scale(name)
         assert dataclasses.asdict(got.mono) == dataclasses.asdict(want.mono)
+        assert dataclasses.asdict(got.tri) == dataclasses.asdict(want.tri)
         for key in ("gmm_max_active", "dnn_hidden", "dnn_layers",
                     "dnn_iters"):
             assert getattr(got, key) == getattr(want, key), (name, key)

@@ -3,8 +3,9 @@ and its frontier-budget sweep (recipes/decode_budget_sweep.py) on the
 CPU, on a tiny injected corpus (the toy corpus of
 tests/test_torch_ctc_recipe.py with a dev set) and the ladder's CTC
 options cut to a one-layer model and two iterations: the stage's row
-carries a revision, a second run truncates the file, the unported
-stages raise, the sweep reads the recipe's dev-selected scale, and a
+carries a revision, a second run truncates the file, the tri and dnn
+stages (with the GMM chain cut to the toy task) give their rows, an
+unknown stage raises, the sweep reads the recipe's dev-selected scale, and a
 process with ``jax`` blocked runs ``main`` through the sweep without
 loading a module of the JAX package."""
 
@@ -119,16 +120,56 @@ def test_source_revision_without_git_is_a_digest_of_the_sources(
     assert hard_ladder.source_revision() == rev
 
 
-@pytest.mark.parametrize("stages,item", [
-    (["mono", "tri"], "item 10"), (["tri"], "item 10"), (["dnn"], "item 8"),
-    (None, "item 10"), (["ctc", "dnn"], "item 8")])
-def test_unported_stages_raise(tmp_path, stages, item):
-    """The tri and dnn stages raise before anything runs, naming their
-    ROADMAP items (the mono stage runs: tests/test_torch_hybrid.py)."""
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-        hard_ladder.run(str(tmp_path), scale="small", stages=stages,
-                        corpus=tiny_corpus(), device="cpu")
-    assert not os.path.exists(tmp_path / "results.jsonl")
+LADDER_SCALE = hard_ladder._Scale
+
+
+def tiny_scale(name):
+    """The ladder's preset with its GMM stages and its DNN cut to the toy
+    task."""
+    sc = LADDER_SCALE(name)
+    sc.mono = dataclasses.replace(sc.mono, num_iters=4, totgauss=30,
+                                  realign_iters="1 2 3")
+    sc.tri = dataclasses.replace(sc.tri, num_iters=4, totgauss=40,
+                                 num_leaves=12, realign_iters="2",
+                                 tree_min_gain=5.0)
+    sc.dnn_hidden, sc.dnn_layers, sc.dnn_iters = 16, 1, 2
+    return sc
+
+
+@pytest.mark.parametrize("stages,rows", [
+    (["mono", "tri"], ["mono", "tri"]), (["tri"], ["tri"]),
+    (["dnn"], ["dnn"]), (["ctc", "dnn"], ["dnn", "ctc"]),
+    (None, ["mono", "tri", "dnn", "ctc"]), (["mono", "trii"], None)])
+def test_gmm_stages_run_and_give_rows(tmp_path, tiny, monkeypatch, stages,
+                                      rows):
+    """The tri and dnn stages run (the default, every stage, too), each
+    giving its row with a revision in the ladder's order; an unknown
+    stage still raises before anything runs."""
+    monkeypatch.setattr(hard_ladder, "_Scale", tiny_scale)
+    root = str(tmp_path / "ladder")
+    if rows is None:
+        with pytest.raises(ValueError, match="unknown stage 'trii'"):
+            hard_ladder.run(root, scale="small", stages=stages, corpus=tiny,
+                            device="cpu")
+        assert not os.path.exists(os.path.join(root, "results.jsonl"))
+        return
+    results = hard_ladder.run(root, scale="small", stages=stages,
+                              corpus=tiny, device="cpu")
+    got = _rows(root)
+    assert [r["stage"] for r in got] == rows == list(results)
+    for r in got:
+        assert set(r) == ROW_KEYS and r["revision"] == \
+            hard_ladder.source_revision()
+        assert 0.0 <= r["test_wer"] == results[r["stage"]]
+        assert np.isfinite(r["dev_wer"])
+    art = hard_ladder.run.artifacts
+    assert ("hclg0" in art) == ("mono" in rows)
+    if "tri" in rows or "dnn" in rows:
+        tri = art["tri"]
+        assert tri.tree.num_pdfs == art["tm1"].num_pdfs > art["tm0"].num_pdfs
+        assert tri.trans_model is art["tm1d"]
+    if "dnn" in rows:
+        assert art["dnn_recipe"].num_pdfs == art["tm1"].num_pdfs
 
 
 def test_unknown_stage_and_scale_raise(tmp_path):
