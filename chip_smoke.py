@@ -268,6 +268,28 @@ exits nonzero:
                 from_diag(tri model); a global GMM's init_from_feats +
                 EM; the GMM VAD trained and run on (13)'s two-burst
                 signal (two segments).
+ 21. ls_synth - the LibriSpeech-shaped recipe's own run() on the card at
+                the flagship's full widths in bf16 (3 x BLSTMP, C=512,
+                P=320, 64 streams, bucket 192, LFR 3): the x-fused pair
+                3 launches each a training step and the CTC pair one a
+                loss evaluation, blstmp_forward 3 a posteriors call and
+                a CV batch, no per-step or wide kernel and no other hand
+                kernel; newbob accepts an iteration after the first and
+                the CV loss falls; one step's loss and gradients against
+                the CPU's plain versions (8 of its 64 streams), one
+                utterance's posteriors within CROSS_CHECK_ATOL, the first
+                test utterances' lattices equal to the CPU's decode of
+                the card's loglikes (40 of the 100 test utterances are
+                decoded and rescored); the LS_SYNTH numbers, one step
+                by part with its launches and device busy share;
+ 22. synth_recipes - the GMM-side recipes on the card at their small
+                sizes: rm_synth, timit_synth (kmeans), the GMM budget
+                sweep on (14)'s corpus at two K, yesno on 30 of its 60
+                utterances (its WER in JAX's band) and the data-dir
+                runner's hybrid pipeline on
+                yesno's data dirs, each timed; every monophone training
+                of the phase gives a CPU child's final alignments; no
+                hand kernel launches.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -882,6 +904,9 @@ def write_model_and_graph(workdir: str):
                                    lang.words))
     log("graph", states=tlg.num_states, arcs=tlg.num_arcs,
         build_s=time.perf_counter() - t0)
+    if (tlg.num_states, tlg.num_arcs) != SERVING_TLG:
+        raise RuntimeError(f"serving TLG {tlg.num_states} states, "
+                           f"{tlg.num_arcs} arcs; want {SERVING_TLG}")
     np.savetxt(paths[1], ctc_lut(TARGETS), fmt="%d")
     with open(paths[2], "w") as f:
         f.write(tlg.to_text())
@@ -4155,6 +4180,12 @@ GLOBAL_ITERS = 10
 SIMPLE_TARGETS = 64
 SIMPLE_ARGS = ["--minibatch-size=256", "--randomizer-size=32768",
                "--learn-rate=0.2", "--momentum=0.9"]
+# the graphs the recipes built before the graph builders caught only
+# NonDeterminizableError (this script's graph and hybrid_mono lines then,
+# on an NVIDIA H100 80GB HBM3 at 700 W): the serving TLG and phase 19's
+# mono HCLG, (states, arcs)
+SERVING_TLG = (1853, 8949)
+MONO_HCLG = (6851, 14989)
 
 
 def hand_kernel_launches():
@@ -4370,6 +4401,9 @@ def hybrid_mono_part(corpus, workdir):
            "graph_states": art["packed0"].num_states,
            "graph_arcs": len(art["packed0"].src)}
     log("hybrid_mono", **out, card=smi_name_and_power())
+    if (out["graph_states"], out["graph_arcs"]) != MONO_HCLG:
+        raise RuntimeError(f"mono HCLG {out['graph_states']} states, "
+                           f"{out['graph_arcs']} arcs; want {MONO_HCLG}")
     return art, child, out
 
 
@@ -4991,6 +5025,482 @@ def tri_phase(corpus, art, child, workdir):
                            f"{launches}")
 
 
+# -- phase 21: ls_synth ------------------------------------------------------
+
+# the recipe's default corpus and schedule at the flagship's widths
+# (kaldi_aslp_tpu/recipes/ls_synth.py:95-104); cut only in depth, in the
+# order decoded test utterances, newbob iterations, training utterances
+# (PERF.md section 4 lists each cut)
+# cut for the script's time: 20 of the 100 test utterances decoded and
+# rescored, then 24 of the 48 newbob iterations (a proof run took 1,146.8
+# s of the 1,200 with 40 decodes, 19.7 s, and 48 iterations, 35.2 s)
+LS_SYNTH = dict(num_words=1000, num_train=1200, num_test=100, max_iters=24)
+LS_DECODE_UTTS = 20      # test utterances decoded and rescored (by name)
+LS_LATTICE_UTTS = 3      # of them, decoded on the CPU too
+LS_SPLIT_REPS = 5
+
+
+def ls_synth_launches(art, calls, launches, counters):
+    """The launches a run of the recipe must make: the x-fused pair 3
+    times a training step, the CTC pair once a loss evaluation,
+    blstmp_forward 3 times a posteriors call and a CV batch; none else,
+    none per step or wide."""
+    epochs = len(art["epochs"])
+    steps, evals = (epochs * len(art[k]) for k in ("tr_batches",
+                                                    "cv_batches"))
+    layers = sum(1 for _ in art["net"].nodes) - 1
+    want = {"bilstmp_train_fwd": layers * steps,
+            "bilstmp_train_bwd": layers * steps,
+            "ctc_alpha_beta": steps + evals,
+            "blstmp_forward": layers * (evals + calls)}
+    got = {n: launches[n] for n in want}
+    stray = {n: k for n, k in launches.items() if k and n not in want}
+    if got != want or stray or any(counters.values()):
+        raise RuntimeError(f"ls_synth launches {got}, want {want}; other "
+                           f"kernels {stray}; per-step or wide {counters}")
+    return dict(train_steps=steps, cv_evaluations=evals,
+                posteriors_calls=calls, layers=layers)
+
+
+def ls_synth_check(art):
+    """The run's net on the card and on the CPU (plain versions, bf16
+    as on the card) from the same parameters: one training step on the
+    whole first batch (64 streams, 192 frames: the x-fused pair at D = 40
+    and 640 and the CTC pair at the shapes the run gave them), one test
+    utterance's posteriors; then the first LS_LATTICE_UTTS test
+    utterances' loglikes decoded on the card again (the run's lattices)
+    and on the CPU (the same decodes)."""
+    from kaldi_aslp_tpu_torch.decoder.beam import BeamSearchDecoder, CsrGraph
+    from kaldi_aslp_tpu_torch.fst import ctc_lut
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.recipes import ls_synth
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    net = art["net"]
+    state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    batch = art["tr_batches"][0]
+    utt = sorted(art["test_feats"])[0]
+    V = len(art["lang"].phones) + 1
+    cell = net.nodes[0].fwd
+    out, step_s = {}, {}
+    for device, dev in (("card", art["trainer"].device),
+                        ("cpu", torch.device("cpu"))):
+        copy = ls_synth.build_net(net.nodes[0].input_dim, V, len(net.nodes) - 1,
+                                  cell.proj_dim, cell.cell_dim, bf16=True)
+        copy.load_state_dict(state)
+        copy.to(dev).train()
+        t0 = time.perf_counter()
+        feats, labels, in_lens, lab_lens, mask = upload(batch, dev)
+        y, _ = copy(feats, mask=mask)
+        loss, _ = ctc_batch_loss(y, labels, in_lens, lab_lens)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_s[device] = time.perf_counter() - t0
+        post = ls_synth.make_posteriors(copy, ls_synth.BUCKET_T, 3, dev)(
+            art["test_feats"][utt])
+        out[device] = (float(loss.detach()), {
+            k: p.grad.cpu() for k, p in copy.named_parameters()}, post)
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = {k: rel_err(g, out["cpu"][1][k])
+                for k, g in out["card"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    post_err = float(np.abs(out["card"][2] - out["cpu"][2]).max())
+    run_post_err = float(np.abs(art["posteriors"](art["test_feats"][utt])
+                                - out["cpu"][2]).max())
+    if (loss_rel > CROSS_LOSS_RTOL or grad_rel[worst] > CROSS_GRAD_RTOL
+            or max(post_err, run_post_err) > CROSS_CHECK_ATOL):
+        raise RuntimeError(f"ls_synth card vs CPU: loss {loss_rel}, {worst} "
+                           f"{grad_rel[worst]}, posteriors {post_err} "
+                           f"{run_post_err}")
+    # lattices: the card's decoder again (the run's lattices) and the
+    # CPU's, on the card's loglikes
+    utts = sorted(art["test_ll"])[:LS_LATTICE_UTTS]
+    cpu_dec = BeamSearchDecoder(CsrGraph.from_packed(art["packed"]),
+                                ctc_lut(V), acoustic_scale=1.0, beam=14.0,
+                                max_active=2048, chunk=128, device="cpu")
+    card, cpu = [], []
+    t0 = time.perf_counter()
+    for u in utts:
+        got = art["decoder"].decode_lattice(art["test_ll"][u],
+                                            lattice_beam=8.0)
+        if lattice_arcs(got[3]) != lattice_arcs(art["lats"][u]):
+            raise RuntimeError(f"{u}: decoding again changed the lattice")
+        card.append(decode_summary(*got))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for u in utts:
+        cpu.append(decode_summary(*cpu_dec.decode_lattice(
+            art["test_ll"][u], lattice_beam=8.0)))
+    cpu_s = time.perf_counter() - t0
+    if card != cpu:
+        raise RuntimeError(f"ls_synth lattices: card {card[:1]} CPU "
+                           f"{cpu[:1]}")
+    log("ls_synth_check", streams=int(batch.feats.shape[0]),
+        T=int(batch.feats.shape[1]), U=int(batch.labels.shape[1]),
+        card_step_s=step_s["card"], cpu_step_s=step_s["cpu"],
+        loss_cuda=out["card"][0], loss_cpu=out["cpu"][0], loss_rel=loss_rel,
+        worst_grad=worst, worst_grad_rel=grad_rel[worst],
+        posteriors_frames=int(out["cpu"][2].shape[0]),
+        posteriors_max_abs_err=post_err,
+        run_posteriors_max_abs_err=run_post_err,
+        lattice_utts=len(utts), lattice_arcs=[d["arcs"] for d in card],
+        card_lattices_equal_cpu=True, card_decode_s=card_s,
+        cpu_decode_s=cpu_s,
+        tol={"loss": CROSS_LOSS_RTOL, "grad": CROSS_GRAD_RTOL,
+             "posteriors": CROSS_CHECK_ATOL})
+
+
+def ls_step_process():
+    """The process ls_synth_step_split takes its step in, started before
+    the recipe's run so that its imports and the card's context are ready
+    when the step's job comes."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.ls_step_child()"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def ls_synth_step_split(art, workdir, child):
+    """One training step of the run's net at its first batch (64 streams,
+    192 frames), in the fresh process ``child`` (late in this one the
+    profiler dropped kernels of the step): its parts by CUDA events, its
+    kernel launches and device busy share by torch.profiler."""
+    job = os.path.join(workdir, "ls_step.pt")
+    net = art["net"]
+    cell = net.nodes[0].fwd
+    torch.save(dict(
+        state={k: v.detach().cpu() for k, v in net.state_dict().items()},
+        batch=art["tr_batches"][0], lr=art["epochs"][-1]["learn_rate"],
+        dims=(net.nodes[0].input_dim, len(art["lang"].phones) + 1,
+              len(net.nodes) - 1, cell.proj_dim, cell.cell_dim)), job)
+    t0 = time.perf_counter()
+    stdout, stderr = child.communicate(job + "\n", timeout=300)
+    if child.returncode != 0:
+        raise RuntimeError(f"step process failed: {stderr[-2000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    log("ls_synth_step_split", **out, process_s=time.perf_counter() - t0)
+    return out
+
+
+def ls_step_child():
+    """In a fresh process: the card's context, the kernels' libraries and
+    the profiler made ready, then the step of ls_synth_step_split on the
+    net, batch and learning rate of the job named on standard input,
+    printed as one JSON line.  The profile must hold each layer's two
+    sweeps and the CTC pair's kernel, else it is taken again (at most 3
+    times) and then refused."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.ops import bilstmp_train, ctc_alpha_beta
+    from kaldi_aslp_tpu_torch.recipes import ls_synth
+    from kaldi_aslp_tpu_torch.train import (
+        CtcTrainer,
+        NnetTrainOptions,
+        init_velocity,
+    )
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    for m in (bilstmp_train, ctc_alpha_beta):
+        m.build()
+    ones = torch.ones(64, 64, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        ones.matmul(ones)
+        torch.cuda.synchronize()
+    job = sys.stdin.readline().strip()
+    spec = torch.load(job, weights_only=False)
+    dim, V, layers, proj, cell = spec["dims"]
+    net = ls_synth.build_net(dim, V, layers, proj, cell, bf16=True)
+    net.load_state_dict(spec["state"])
+    net.to("cuda")
+    trainer = CtcTrainer(net, NnetTrainOptions(momentum=0.9))
+    batch, lr = spec["batch"], spec["lr"]
+    feats, labels, in_lens, lab_lens, mask = dev_batch = upload(
+        batch, trainer.device)
+    velocity = init_velocity(net)
+    trainer.step(velocity, dev_batch, lr)
+    torch.cuda.synchronize()
+    splits = []
+    for _ in range(LS_SPLIT_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for p in net.parameters():
+            p.grad = None
+        net.train()
+        t0 = time.perf_counter()
+        ev[0].record()
+        y, _ = net(feats, mask=mask)
+        ev[1].record()
+        loss, _ = ctc_batch_loss(y, labels, in_lens, lab_lens)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        trainer._update(velocity, lr)
+        ev[4].record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+                      + [1e3 * host_s])
+    med = np.median(np.asarray(splits), axis=0)
+    step_ms = float(med[:4].sum())
+    want = {"fwd_sweep_kernel": layers, "bwd_sweep_kernel": layers,
+            "ctc_warp_kernel": 1}
+    for profile in range(1, 4):
+        counts = {}
+        by_kernel = device_ms_by_kernel(
+            lambda: trainer.step(velocity, dev_batch, lr), counts)
+        seen = {w: sum(c for k, c in counts.items() if w in k)
+                for w in want}
+        if seen == want:
+            break
+    else:
+        raise RuntimeError(f"the step's profile holds {seen} of the "
+                           f"kernels, want {want}")
+    kernels = {k: c for k, c in counts.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    device_ms = sum(v for k, v in by_kernel.items() if k in kernels)
+    S, T, D = batch.feats.shape
+    print(json.dumps(dict(
+        S=S, T=T, D=D, U=int(batch.labels.shape[1]),
+        forward_ms=float(med[0]), loss_ms=float(med[1]),
+        backward_ms=float(med[2]), update_ms=float(med[3]),
+        step_ms=step_ms, host_step_ms=float(med[4]),
+        audio_s_per_s=float(batch.input_lengths.sum()) * 0.01 * 3
+        / (step_ms / 1e3),
+        kernel_launches_per_step=sum(kernels.values()),
+        device_busy_ms=device_ms, device_busy_share=device_ms / step_ms,
+        profiles_taken=profile, sweeps_and_ctc_in_profile=seen,
+        top_kernels=dict(sorted(kernels.items(),
+                                key=lambda kv: -kv[1])[:6]),
+        reps=LS_SPLIT_REPS)), flush=True)
+
+
+def ls_synth_phase(workdir):
+    """The recipe's run() on the card (LS_SYNTH, the first LS_DECODE_UTTS
+    test utterances decoded), its launches counted from 0 just before it
+    and read just after; then its checks and one step by part.  Returns
+    the x-fused pair's and the CTC pair's launches by name, and
+    blstmp_forward's."""
+    from kaldi_aslp_tpu_torch.recipes import ls_synth
+
+    wrappers = hand_kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "per_step"):
+            w.per_step = 0
+    wrappers["ctc_alpha_beta"].wide = 0
+    calls = [0]
+    inner = ls_synth.make_posteriors
+
+    def counted(*a, **k):
+        fn = inner(*a, **k)
+
+        def posteriors(feats):
+            calls[0] += 1
+            return fn(feats)
+        return posteriors
+    ls_synth.make_posteriors = counted
+    child = ls_step_process()
+    try:
+        return ls_synth_run_and_check(workdir, wrappers, calls, child)
+    finally:
+        ls_synth.make_posteriors = inner
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def ls_synth_run_and_check(workdir, wrappers, calls, child):
+    """ls_synth_phase's run, its launches read, its checks and its step
+    in ``child``."""
+    from kaldi_aslp_tpu_torch.recipes import ls_synth
+
+    t0 = time.perf_counter()
+    out = ls_synth.run(os.path.join(workdir, "ls_synth"),
+                       num_decode=LS_DECODE_UTTS, device="cuda", **LS_SYNTH)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    counters = {f"{n}.per_step": w.per_step for n, w in wrappers.items()
+                if hasattr(w, "per_step")}
+    counters["ctc_alpha_beta.wide"] = wrappers["ctc_alpha_beta"].wide
+    art = ls_synth.run.artifacts
+    counts = ls_synth_launches(art, calls[0], launches, counters)
+    epochs = art["epochs"]
+    for e in epochs:
+        log("ls_synth_epoch", **e)
+    accepted = [e for e in epochs[1:] if e["decision"] == "ACCEPT"]
+    best_cv = min(e["cv_loss"] for e in epochs if e["decision"] == "ACCEPT")
+    if not accepted or not best_cv < epochs[0]["cv_loss"]:
+        raise RuntimeError(f"newbob accepted {len(accepted)} iterations "
+                           f"after the first; CV {epochs[0]['cv_loss']} -> "
+                           f"{best_cv}")
+    # a lattice the rescoring could not determinize within its budget
+    # keeps the small LM's best path: from a trained model, a sign of a
+    # lattice fault
+    if art["skipped"]:
+        raise RuntimeError(f"ls_synth rescoring skipped {art['skipped']}")
+    log("ls_synth", **out, **counts, launches={
+        n: k for n, k in launches.items() if k},
+        epochs=len(epochs), accepted_after_first=len(accepted),
+        cv_first=epochs[0]["cv_loss"], cv_best=best_cv,
+        train_batches=len(art["tr_batches"]),
+        cv_batches=len(art["cv_batches"]),
+        decoded_utts=len(art["test_ll"]), best_lmwt=art["best_lmwt"],
+        best_lmwt_large=art["best_big"],
+        tlg=[art["tlg"].num_states, art["tlg"].num_arcs],
+        train_audio_s=art["train_audio_s"], features_s=art["feats_s"],
+        train_s=art["train_s"], decode_s=art["decode_s"],
+        rescore_s=art["rescore_s"], run_s=run_s, **LS_SYNTH,
+        decode_utts_asked=LS_DECODE_UTTS, card=smi_name_and_power())
+    ls_synth_check(art)
+    ls_synth_step_split(art, workdir, child)
+    return ({n: launches[n] for n in train_counts()},
+            launches["blstmp_forward"])
+
+
+# -- phase 22: synth_recipes -------------------------------------------------
+
+# JAX's recorded rows beside the port's (STATUS.md): the timit medium
+# kmeans row, the mono budget sweep at medium; yesno's band is JAX's own
+# __main__ check (kaldi_aslp_tpu/recipes/yesno.py:238-239)
+YESNO_WER_BAND = (0.0, 5.0)
+# cut for the script's time: yesno on 20 of its 60 utterances (10 test;
+# the whole recipe took 39.8 s in a first card call, most of it decoding,
+# and 26.8 s on 30), rm_synth on 10 of its 15 test utterances
+YESNO_UTTS = 20
+RM_TEST_UTTS = 10
+JAX_ROWS = {"timit_kmeans_medium_test_wer": 43.49,
+            "budget_sweep_medium_dev_wer": {"2048": 32.32, "256": 40.78}}
+SYNTH_BUDGETS = [2048, 256]
+
+
+def synth_mono_child(job):
+    """In a process of its own: one monophone training on the CPU from
+    the job's pickled inputs, its final alignments into the job's npz."""
+    import pickle
+
+    from kaldi_aslp_tpu_torch.gmm.mono import MonophoneTrainer
+
+    torch.set_num_threads(1)
+    with open(job, "rb") as f:
+        spec = pickle.load(f)
+    t0 = time.perf_counter()
+    mono = MonophoneTrainer(spec["lang"], topo=spec["topo"],
+                            opts=spec["opts"], device="cpu")
+    mono.train(spec["feats"], spec["texts"])
+    np.savez(spec["out"], **mono._final_alignments)
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+
+
+def synth_recipes_phase(corpus, workdir):
+    """rm_synth, timit_synth, the GMM budget sweep on (14)'s corpus,
+    yesno and the data-dir runner's hybrid pipeline on the card, each
+    timed; every monophone training also runs on the CPU in a child
+    process started as the card's ends, and its final alignments must
+    equal the card's; no hand kernel may launch."""
+    import pickle
+
+    from kaldi_aslp_tpu_torch.gmm.mono import MonophoneTrainer
+    from kaldi_aslp_tpu_torch.recipes import corpus as corpus_recipe
+    from kaldi_aslp_tpu_torch.recipes import (
+        decode_budget_sweep,
+        rm_synth,
+        timit_synth,
+        yesno,
+    )
+
+    work = os.path.join(workdir, "synth")
+    os.makedirs(work)
+    wrappers = hand_kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    monos = []
+    recipe = [None]
+    inner_train = MonophoneTrainer.train
+
+    def train(self, feats, texts):
+        out = inner_train(self, feats, texts)
+        k = len(monos)
+        job = os.path.join(work, f"mono{k}.pkl")
+        with open(job, "wb") as f:
+            pickle.dump({"lang": self.lang, "topo": self.topo,
+                         "opts": self.opts, "feats": feats, "texts": texts,
+                         "out": os.path.join(work, f"mono{k}.npz")}, f)
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.synth_mono_child({job!r})"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        monos.append((recipe[0], dict(self._final_alignments), child,
+                       os.path.join(work, f"mono{k}.npz")))
+        return out
+
+    results, seconds = {}, {}
+
+    def timed(name, fn):
+        recipe[0] = name
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+
+    MonophoneTrainer.train = train
+    try:
+        timed("rm_synth", lambda: rm_synth.run(
+            os.path.join(work, "rm"), num_words=20, num_train=40,
+            num_test=RM_TEST_UTTS, device="cuda"))
+        timed("timit_synth", lambda: timit_synth.run(
+            os.path.join(work, "timit"), scale="small", methods=["kmeans"],
+            device="cuda"))
+        timed("budget_sweep", lambda: decode_budget_sweep.run(
+            "small", list(SYNTH_BUDGETS), corpus=corpus, device="cuda"))
+        timed("yesno", lambda: yesno.run(os.path.join(work, "yesno"),
+                                         num_utts=YESNO_UTTS, device="cuda"))
+        dirs = yesno.run.artifacts["dirs"]
+        lexicon = os.path.join(work, "yesno_lexicon.txt")
+        with open(lexicon, "w") as f:
+            f.write(yesno.load_task_inputs()[0])
+        timed("corpus_hybrid", lambda: corpus_recipe.run_corpus(
+            dirs["train_yesno"].path, dirs["test_yesno"].path,
+            os.path.join(work, "corpus"), corpus_recipe.CorpusRecipeOptions(
+                pipeline="hybrid", lexicon=lexicon, num_mel_bins=23,
+                device="cuda")).wer)
+    finally:
+        MonophoneTrainer.train = inner_train
+    launched = {n: w.launches for n, w in wrappers.items() if w.launches}
+    if launched:
+        raise RuntimeError(f"the GMM-side recipes launched {launched}")
+    lo, hi = YESNO_WER_BAND
+    if not lo <= results["yesno"] < hi:
+        raise RuntimeError(f"yesno WER {results['yesno']} outside "
+                           f"{YESNO_WER_BAND}")
+    t0 = time.perf_counter()
+    alignments = {}
+    for name, card, child, path in monos:
+        out, err = child.communicate(timeout=900)
+        if child.returncode != 0:
+            raise RuntimeError(f"{name}'s CPU mono failed: {err[-3000:]}")
+        cpu = dict(np.load(path))
+        if sorted(cpu) != sorted(card) or any(
+                not np.array_equal(cpu[u], card[u]) for u in card):
+            raise RuntimeError(f"{name}: the card's mono alignments are not "
+                               "the CPU's")
+        alignments.setdefault(name, []).append(len(card))
+    log("synth_recipes", wer={k: (v if isinstance(v, float) else
+                                  {str(a): b for a, b in v.items()})
+                              for k, v in results.items()},
+        seconds=seconds, jax_rows=JAX_ROWS, yesno_band=YESNO_WER_BAND,
+        budgets=SYNTH_BUDGETS, budget_sweep_s={
+            str(k): v for k, v in decode_budget_sweep.run.seconds.items()},
+        mono_trainings=alignments, mono_alignments_equal_cpu=True,
+        cpu_wait_s=time.perf_counter() - t0, hand_kernel_launches=0,
+        card=smi_name_and_power())
+
+
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
@@ -5093,8 +5603,15 @@ def main() -> int:
         log("lattice_score_phase", seconds=time.perf_counter() - t0)
         art, child = hybrid_phase(corpus, workdir)
         tri_phase(corpus, art, child, workdir)
+        t0 = time.perf_counter()
+        runs["ls_synth"], ls_synth_forward = ls_synth_phase(workdir)
+        log("ls_synth_phase", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        synth_recipes_phase(corpus, workdir)
+        log("synth_recipes_phase", seconds=time.perf_counter() - t0)
     serving_runs = {"serving": launches, "serve_batched": batched_launches,
-                    "vad": vad_launches, "entry": entry_launches}
+                    "vad": vad_launches, "entry": entry_launches,
+                    "ls_synth": ls_synth_forward}
     records = kernel_records(serving_runs, runs, bptt_launches,
                              kernel_results, train_results, xg_results,
                              lstm_results, recipe_wide, recipe_ctc,

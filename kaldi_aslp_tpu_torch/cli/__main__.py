@@ -2,10 +2,12 @@
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
 reference binaries; the port has the online servers and their client, the
-frame trainer, the CTC trainer, the BPTT trainer, the network forward, the lattice
-generator and lattice tools, and compute-wer so far.  As in the JAX
-package, the BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are
-one trainer and the forward's -skip / -blstm-lc variants one forward:
+frame trainer, the CTC trainer, the BPTT trainer, the network forward, the
+lattice generator and lattice tools, the CD-phone tree tools and
+compute-wer so far.  As in the JAX package, the BLSTM, LC-BLSTM, skip and
+per-utterance BPTT binaries are one trainer, the warp-ctc and per-utterance
+CTC binaries the CTC trainer, and the forward's -skip / -blstm-lc variants
+one forward:
 the architecture lives in the model file, and a model with a component
 the port lacks fails at load with the registry's error."""
 
@@ -18,6 +20,7 @@ from kaldi_aslp_tpu_torch.cli import (
     nnet_tools,
     online_tools,
     train_tools,
+    tree_tools,
 )
 
 TOOLS = {
@@ -30,6 +33,9 @@ TOOLS = {
     "aslp-nnet-train-mse": train_tools.nnet_train_simple,
     "aslp-nnet-train-frame": train_tools.nnet_train_simple,
     "aslp-nnet-train-ctc-streams": train_tools.nnet_train_ctc_streams,
+    # warp-ctc role is folded into the one CTC loss, as in the JAX package
+    "aslp-nnet-train-warp-ctc-streams": train_tools.nnet_train_ctc_streams,
+    "aslp-nnet-train-ctc": train_tools.nnet_train_ctc_streams,
     "aslp-nnet-train-lstm-streams": train_tools.nnet_train_lstm_streams,
     "aslp-nnet-train-lstm-streams-skip": train_tools.nnet_train_lstm_streams,
     "aslp-nnet-train-blstm-streams": train_tools.nnet_train_lstm_streams,
@@ -49,6 +55,25 @@ TOOLS = {
     "latgen-faster-mapped": lat_tools.latgen_faster_mapped_cli,
     "aslp-latgen-faster-rtf": lat_tools.latgen_faster_rtf_cli,
     "compute-wer": nnet_tools.compute_wer,
+    # aslp-bin CD-phone prep family
+    "aslp-acc-tree-stats-cd-phone-equal":
+        tree_tools.acc_tree_stats_cd_phone_equal,
+    "aslp-acc-tree-stats-cd-phone-kmeans":
+        tree_tools.acc_tree_stats_cd_phone_kmeans,
+    "aslp-acc-tree-stats-cd-phone-viterbi":
+        tree_tools.acc_tree_stats_cd_phone_viterbi,
+    "aslp-acc-tree-stats-phone-mean": tree_tools.acc_tree_stats_phone_mean,
+    "aslp-acc-tree-stats-phone-mean-per-frame":
+        tree_tools.acc_tree_stats_phone_mean_per_frame,
+    "aslp-acc-tree-stats-phone-median":
+        tree_tools.acc_tree_stats_phone_median,
+    "aslp-compile-questions-phone": tree_tools.compile_questions_phone_cli,
+    "aslp-tree-bind-info": tree_tools.tree_bind_info_cli,
+    "aslp-cluster-kmeans-cd-phone-test":
+        tree_tools.cluster_kmeans_cd_phone_test_cli,
+    "aslp-convert-ali": tree_tools.convert_ali_cli,
+    "aslp-make-ctc-transducer": tree_tools.make_ctc_transducer_cli,
+    "aslp-make-h3-transducer": tree_tools.make_h3_transducer_cli,
 }
 
 

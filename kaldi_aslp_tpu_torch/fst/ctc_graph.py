@@ -12,7 +12,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from kaldi_aslp_tpu_torch.fst.determinize import determinize, minimize_encoded
+from kaldi_aslp_tpu_torch.fst.determinize import (
+    determinize,
+    keep_raw_compose,
+    minimize_encoded,
+)
 from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst
 from kaldi_aslp_tpu_torch.fst.lang import Lang, make_lexicon_fst
 
@@ -115,8 +119,6 @@ def make_ctc_decode_graph(lang: Lang, G: Fst,
     # graph: each labeling then has one path, which sum-based lattice
     # and MBR posteriors need
     lg = L.compose(G).remove_epsilon()
-    try:
+    with keep_raw_compose("the TLG"):
         lg = minimize_encoded(determinize(lg))
-    except RuntimeError:
-        pass
     return expand_ctc(lg, phone_to_output)

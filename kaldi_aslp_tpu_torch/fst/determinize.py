@@ -10,9 +10,13 @@ L o G before the CTC token expansion."""
 from __future__ import annotations
 
 from collections import defaultdict, deque
+from contextlib import contextmanager
 from typing import Dict, List, Tuple
 
 from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst
+from kaldi_aslp_tpu_torch.utils.log import get_logger
+
+logger = get_logger("determinize")
 
 INF = float("inf")
 
@@ -20,8 +24,22 @@ INF = float("inf")
 class NonDeterminizableError(RuntimeError):
     """The subset construction did not end within ``max_states`` or left a
     residual at the start: the graph is not determinizable as built (a
-    rare G).  ``gmm/deltas.py:make_cd_decode_graph`` keeps the raw
-    compose on this error and on no other."""
+    rare G).  The decode-graph builders keep the raw compose on this
+    error and on no other (:func:`keep_raw_compose`)."""
+
+
+@contextmanager
+def keep_raw_compose(graph: str):
+    """Around a builder's det+min of L o G: a ``NonDeterminizableError``
+    is logged as a warning that names it and ``graph``, and the builder
+    goes on with the raw compose it holds; every other error passes
+    through (the JAX builders swallow every ``RuntimeError`` in
+    silence)."""
+    try:
+        yield
+    except NonDeterminizableError as err:
+        logger.warning("L o G is not determinizable (%s): %s keeps the raw "
+                       "compose", err, graph)
 
 
 def _quantize(w: float, delta: float) -> int:

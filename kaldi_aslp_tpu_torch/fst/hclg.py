@@ -17,7 +17,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
-from kaldi_aslp_tpu_torch.fst.determinize import determinize, minimize_encoded
+from kaldi_aslp_tpu_torch.fst.determinize import (
+    determinize,
+    keep_raw_compose,
+    minimize_encoded,
+)
 from kaldi_aslp_tpu_torch.fst.fst import EPS, Arc, Fst
 from kaldi_aslp_tpu_torch.fst.lang import (
     Lang,
@@ -69,10 +73,8 @@ def make_decode_graph(lang: Lang, G: Fst, trans_model: TransitionModel,
     L = make_lexicon_fst(lang, sil_prob=sil_prob).arc_sort("olabel")
     lg = L.compose(G)
     if optimize:
-        try:
+        with keep_raw_compose("the decode graph"):
             lg = minimize_encoded(determinize(lg.remove_epsilon()))
-        except RuntimeError:
-            pass  # non-determinizable G (rare): keep the raw compose
     return expand_hmm(lg, trans_model)
 
 

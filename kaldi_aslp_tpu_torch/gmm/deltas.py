@@ -39,8 +39,8 @@ import torch
 from kaldi_aslp_tpu_torch.decoder.viterbi import PackedGraph, align_batched
 from kaldi_aslp_tpu_torch.fst.context import ContextWindows, compose_context
 from kaldi_aslp_tpu_torch.fst.determinize import (
-    NonDeterminizableError,
     determinize,
+    keep_raw_compose,
     minimize_encoded,
 )
 from kaldi_aslp_tpu_torch.fst.fst import Fst
@@ -316,11 +316,8 @@ def make_cd_decode_graph(lang: Lang, G: Fst, trainer: DeltasTrainer,
     L = make_lexicon_fst(lang, sil_prob=sil_prob).arc_sort("olabel")
     lg = L.compose(G)
     if optimize:
-        try:
+        with keep_raw_compose("the CD graph"):
             lg = minimize_encoded(determinize(lg.remove_epsilon()))
-        except NonDeterminizableError as err:
-            logger.warning("L o G is not determinizable (%s): the CD graph "
-                           "keeps the raw compose", err)
     clg, _ = compose_context_shared(lg, trainer.windows)
     tm = trainer.make_transition_model()
     if trained_tm is not None:

@@ -1,8 +1,20 @@
-"""Kaldi ark/scp tables of matrices, integer vectors and lattices
-(port of the part of kaldi_aslp_tpu/io/ the trainers, the decoders and
-the lattice tools use)."""
+"""Kaldi ark/scp tables of matrices, vectors, integer vectors,
+posteriors and lattices, wave and HTK files and data dirs (port of
+kaldi_aslp_tpu/io/)."""
 
-from kaldi_aslp_tpu_torch.io.kaldi_io import KaldiIOError
+from kaldi_aslp_tpu_torch.io.datadir import DataDir, split_data_dir
+from kaldi_aslp_tpu_torch.io.htk import HtkHeader, read_htk, write_htk
+from kaldi_aslp_tpu_torch.io.kaldi_io import (
+    KaldiIOError,
+    read_int_vector,
+    read_matrix,
+    read_posterior,
+    read_vector,
+    write_int_vector,
+    write_matrix,
+    write_posterior,
+    write_vector,
+)
 from kaldi_aslp_tpu_torch.io.lattice_io import (
     compact_lattice_writer,
     lattice_writer,
@@ -10,8 +22,20 @@ from kaldi_aslp_tpu_torch.io.lattice_io import (
     sequential_lattice_reader,
 )
 from kaldi_aslp_tpu_torch.io.table import (
+    RandomAccessTableReader,
+    SequentialTableReader,
+    TableWriter,
     int_vector_writer,
     matrix_writer,
+    posterior_writer,
     random_access_int_vector_reader,
+    random_access_matrix_reader,
+    random_access_posterior_reader,
+    random_access_vector_reader,
+    sequential_int_vector_reader,
     sequential_matrix_reader,
+    sequential_posterior_reader,
+    sequential_vector_reader,
+    vector_writer,
 )
+from kaldi_aslp_tpu_torch.io.wave import WaveData, read_wave, write_wave

@@ -1,26 +1,29 @@
-"""Kaldi binary/text object I/O: the part the CTC trainer reads and writes.
+"""Kaldi binary/text object I/O.
 
-Copy of the matrix and integer-vector primitives of
-kaldi_aslp_tpu/io/kaldi_io.py (reference: src/base/io-funcs.h,
+Copy of kaldi_aslp_tpu/io/kaldi_io.py (reference: src/base/io-funcs.h,
 src/matrix/kaldi-matrix.cc Matrix::Read/Write,
-src/matrix/compressed-matrix.cc).  That module imports only numpy, but
-its package's ``__init__`` pulls in the lattice I/O and through it JAX,
-so the port keeps its own copy.  tests/test_torch_train.py holds the
-copy to the JAX package's bytes both ways.
+src/matrix/compressed-matrix.cc, src/matrix/kaldi-vector.cc
+Vector::Read/Write, src/hmm/posterior.cc WritePosterior).  That module
+imports only numpy, but its package's ``__init__`` pulls in the lattice
+I/O and through it JAX, so the port keeps its own copy.
+tests/test_torch_train.py and tests/test_torch_io_rest.py hold the copy
+to the JAX package's bytes both ways.
 
 Formats:
   - binary stream marker: b"\\0B"
   - token: ASCII token + b" "
-  - basic type: size byte 4 + raw little-endian int32
+  - basic type: size byte (4 or 8) + raw little-endian value
   - float matrix "FM " / "DM ": int32 rows, int32 cols, row-major data
   - compressed matrix "CM "/"CM2 "/"CM3 " (read only)
+  - float vector "FV " / "DV ": int32 size, then the data
+  - posterior: nested int32/float basic types
   - integer vector: size byte 4, int32 n, raw int32 data
 """
 
 from __future__ import annotations
 
 import struct
-from typing import BinaryIO
+from typing import BinaryIO, List, Tuple
 
 import numpy as np
 
@@ -61,6 +64,19 @@ def read_basic_int32(f: BinaryIO) -> int:
 
 def write_basic_int32(f: BinaryIO, value: int) -> None:
     f.write(b"\x04" + struct.pack("<i", value))
+
+
+def read_basic_float(f: BinaryIO) -> float:
+    size = f.read(1)
+    if size == b"\x04":
+        return struct.unpack("<f", f.read(4))[0]
+    if size == b"\x08":
+        return struct.unpack("<d", f.read(8))[0]
+    raise KaldiIOError(f"expected float size byte, got {size!r}")
+
+
+def write_basic_float(f: BinaryIO, value: float) -> None:
+    f.write(b"\x04" + struct.pack("<f", value))
 
 
 def _read_compressed_matrix(f: BinaryIO, fmt: int) -> np.ndarray:
@@ -164,6 +180,41 @@ def read_text_matrix_lines(text: str) -> np.ndarray:
     return np.array(rows, dtype=np.float32)
 
 
+def read_vector(f: BinaryIO, binary: bool = True) -> np.ndarray:
+    """Read Vector<float/double> as float32 (reference: kaldi-vector.cc
+    Vector::Read)."""
+    if not binary:
+        toks = []
+        tok = read_token(f)
+        if tok != "[":
+            raise KaldiIOError(f"expected '[' for text vector, got {tok!r}")
+        while True:
+            tok = read_token(f)
+            if tok == "]":
+                break
+            toks.append(float(tok))
+        return np.array(toks, dtype=np.float32)
+    token = read_token(f)
+    if token not in ("FV", "DV"):
+        raise KaldiIOError(f"unexpected vector token {token!r}")
+    size = read_basic_int32(f)
+    dtype, itemsize = ("<f4", 4) if token == "FV" else ("<f8", 8)
+    data = np.frombuffer(f.read(size * itemsize), dtype=dtype)
+    return data.astype(np.float32)
+
+
+def write_vector(f: BinaryIO, vec: np.ndarray, binary: bool = True) -> None:
+    """Write a Vector<float> ("FV"; the text form is "[ v0 v1 ... ]")."""
+    vec = np.asarray(vec).reshape(-1)
+    if not binary:
+        f.write(b" [ " + " ".join(repr(float(v)) for v in vec).encode()
+                + b" ]\n")
+        return
+    write_token(f, "FV")
+    write_basic_int32(f, vec.shape[0])
+    f.write(np.ascontiguousarray(vec, dtype="<f4").tobytes())
+
+
 def read_int_vector(f: BinaryIO, binary: bool = True) -> np.ndarray:
     """ReadIntegerVector<int32> (reference: src/base/io-funcs-inl.h); the
     text form is one line of integers."""
@@ -200,3 +251,49 @@ def write_int_vector(f: BinaryIO, vec: np.ndarray,
         return
     f.write(b"\x04" + struct.pack("<i", vec.shape[0]))
     f.write(np.ascontiguousarray(vec, dtype="<i4").tobytes())
+
+
+Posterior = List[List[Tuple[int, float]]]
+
+
+def read_posterior(f: BinaryIO, binary: bool = True) -> Posterior:
+    """ReadPosterior (reference: src/hmm/posterior.cc); the text form is
+    one line of "[ id p id p ... ]" frames."""
+    if not binary:
+        line = f.readline().decode()
+        post: Posterior = []
+        toks = line.replace("]", " ] ").replace("[", " [ ").split()
+        frame: List[Tuple[int, float]] = []
+        i = 0
+        while i < len(toks):
+            if toks[i] == "[":
+                frame = []
+            elif toks[i] == "]":
+                post.append(frame)
+            else:
+                frame.append((int(toks[i]), float(toks[i + 1])))
+                i += 1
+            i += 1
+        return post
+    num_frames = read_basic_int32(f)
+    post = []
+    for _ in range(num_frames):
+        n = read_basic_int32(f)
+        post.append([(read_basic_int32(f), read_basic_float(f))
+                     for _ in range(n)])
+    return post
+
+
+def write_posterior(f: BinaryIO, post: Posterior,
+                    binary: bool = True) -> None:
+    if not binary:
+        parts = ["[ " + " ".join(f"{i} {v}" for i, v in frame) + " ]"
+                 for frame in post]
+        f.write((" ".join(parts) + "\n").encode())
+        return
+    write_basic_int32(f, len(post))
+    for frame in post:
+        write_basic_int32(f, len(frame))
+        for idx, val in frame:
+            write_basic_int32(f, int(idx))
+            write_basic_float(f, float(val))

@@ -1,10 +1,10 @@
-"""Kaldi Table I/O: the ark/scp readers and writers the CTC trainer uses.
+"""Kaldi Table I/O: ark/scp readers and writers.
 
 Copy of kaldi_aslp_tpu/io/table.py (reference: src/util/kaldi-table.h,
-kaldi-holder.h), cut to matrices and integer vectors: sequential and
-random-access readers over ``ark:``, ``ark,t:``, ``scp:`` and piped
-``ark:cmd |`` rspecifiers, and writers over ``ark:``, ``ark,t:`` and
-``ark,scp:`` wspecifiers.  The JAX package's ``io/__init__`` loads JAX
+kaldi-holder.h) for matrices, float vectors, integer vectors and
+posteriors: sequential and random-access readers over ``ark:``,
+``ark,t:``, ``scp:`` and piped ``ark:cmd |`` rspecifiers, and writers
+over ``ark:``, ``ark,t:`` and ``ark,scp:`` wspecifiers.  The JAX package's ``io/__init__`` loads JAX
 (through its lattice I/O), so the port keeps this copy."""
 
 from __future__ import annotations
@@ -139,6 +139,20 @@ class MatrixHolder(Holder):
         kaldi_io.write_matrix(f, np.asarray(value), binary)
 
 
+class VectorHolder(Holder):
+    def read(self, f, binary):
+        if binary:
+            return kaldi_io.read_vector(f, True)
+        return _read_text_through_bracket(
+            f, lambda s: np.array(s.strip("[] \n").split(),
+                                  dtype=np.float32))
+
+    def write(self, f, value, binary):
+        if binary:
+            f.write(BINARY_MARKER)
+        kaldi_io.write_vector(f, np.asarray(value), binary)
+
+
 class IntVectorHolder(Holder):
     def read(self, f, binary):
         return kaldi_io.read_int_vector(f, binary)
@@ -148,6 +162,16 @@ class IntVectorHolder(Holder):
             f.write(BINARY_MARKER)
         kaldi_io.write_int_vector(f, np.asarray(value, dtype=np.int32),
                                   binary)
+
+
+class PosteriorHolder(Holder):
+    def read(self, f, binary):
+        return kaldi_io.read_posterior(f, binary)
+
+    def write(self, f, value, binary):
+        if binary:
+            f.write(BINARY_MARKER)
+        kaldi_io.write_posterior(f, value, binary)
 
 
 def _seekable(f) -> bool:
@@ -289,13 +313,45 @@ def sequential_matrix_reader(rspec: str) -> SequentialTableReader:
     return SequentialTableReader(rspec, MatrixHolder())
 
 
+def sequential_vector_reader(rspec: str) -> SequentialTableReader:
+    return SequentialTableReader(rspec, VectorHolder())
+
+
+def sequential_int_vector_reader(rspec: str) -> SequentialTableReader:
+    return SequentialTableReader(rspec, IntVectorHolder())
+
+
+def sequential_posterior_reader(rspec: str) -> SequentialTableReader:
+    return SequentialTableReader(rspec, PosteriorHolder())
+
+
+def random_access_matrix_reader(rspec: str) -> RandomAccessTableReader:
+    return RandomAccessTableReader(rspec, MatrixHolder())
+
+
+def random_access_vector_reader(rspec: str) -> RandomAccessTableReader:
+    return RandomAccessTableReader(rspec, VectorHolder())
+
+
 def random_access_int_vector_reader(rspec: str) -> RandomAccessTableReader:
     return RandomAccessTableReader(rspec, IntVectorHolder())
+
+
+def random_access_posterior_reader(rspec: str) -> RandomAccessTableReader:
+    return RandomAccessTableReader(rspec, PosteriorHolder())
 
 
 def matrix_writer(wspec: str) -> TableWriter:
     return TableWriter(wspec, MatrixHolder())
 
 
+def vector_writer(wspec: str) -> TableWriter:
+    return TableWriter(wspec, VectorHolder())
+
+
 def int_vector_writer(wspec: str) -> TableWriter:
     return TableWriter(wspec, IntVectorHolder())
+
+
+def posterior_writer(wspec: str) -> TableWriter:
+    return TableWriter(wspec, PosteriorHolder())

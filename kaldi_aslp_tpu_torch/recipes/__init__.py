@@ -1,8 +1,10 @@
 """Recipes (port of kaldi_aslp_tpu/recipes/): the phone-CTC recipe, the
 hybrid NN-HMM recipe (``hybrid``), the hard synthetic corpus they train
-on, the hard ladder's mono and CTC stages (``hard_ladder``,
-``decode_budget_sweep``) and the lattice decode-and-score helper
-(``score_util``)."""
+on, the hard ladder's stages and the frontier-budget sweeps
+(``hard_ladder``, ``decode_budget_sweep``), the lattice decode-and-score
+helper (``score_util``), the synthetic-corpus recipes (``ls_synth``,
+``rm_synth``, ``timit_synth``, ``yesno``) and the runner for Kaldi data
+dirs (``corpus``)."""
 
 from kaldi_aslp_tpu_torch.recipes.ctc import CtcRecipe, CtcRecipeOptions
 from kaldi_aslp_tpu_torch.recipes.hard_corpus import (

@@ -6,12 +6,15 @@ minimize, and the OpenFst text formats both ways.  Graph building is
 exact integer and float32 bookkeeping, so everything is compared for
 equality."""
 
+import logging
+
 import numpy as np
 import pytest
 
 from kaldi_aslp_tpu import fst as jfst
 from kaldi_aslp_tpu.fst.ctc_graph import make_ctc_decode_graph as jax_tlg
 from kaldi_aslp_tpu_torch import fst as pfst
+from kaldi_aslp_tpu_torch.fst import ctc_graph as pctc_graph
 from kaldi_aslp_tpu_torch.fst.ctc_graph import make_ctc_decode_graph
 
 LEXICON = ("YES Y EH S\nNO N OW\nYO Y OW\nSEE S IY\nNOSE N OW Z\n"
@@ -115,3 +118,31 @@ def test_text_formats_round_trip_both_ways():
     assert [table.sym(i) for i in range(len(table))] == [
         lang.words.sym(i) for i in range(len(lang.words))]
     assert table.id("NOSE") == lang.words.id("NOSE") and "YO" in table
+
+
+def test_ctc_decode_graph_keeps_the_raw_compose_with_a_warning(monkeypatch,
+                                                               caplog):
+    """Determinize's own error keeps the raw L o G with a warning that
+    names it (the TLG then holds more than one path a labeling, and the
+    warning says so in the log); any other error passes through (the
+    JAX builder swallows every ``RuntimeError`` in silence,
+    kaldi_aslp_tpu/fst/ctc_graph.py:129-132)."""
+    lang = _lang(pfst)
+    G = pfst.make_unigram_grammar(PROBS, lang.words)
+    L = pfst.make_lexicon_fst(lang, sil_prob=1e-7).arc_sort("olabel")
+    raw = pfst.expand_ctc(L.compose(G).remove_epsilon(), lambda ph: ph)
+
+    def blowup(fst, *a, **k):
+        raise pfst.NonDeterminizableError("determinize: state blowup")
+    monkeypatch.setattr(pctc_graph, "determinize", blowup)
+    with caplog.at_level(logging.WARNING):
+        got = make_ctc_decode_graph(lang, G)
+    assert any("not determinizable" in r.getMessage()
+               and "state blowup" in r.getMessage() for r in caplog.records)
+    _assert_same(got, raw)
+
+    def fault(fst, *a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access")
+    monkeypatch.setattr(pctc_graph, "determinize", fault)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        make_ctc_decode_graph(lang, G)

@@ -5,6 +5,8 @@ training graphs (TrainingGraphCompiler.compile) and the HCLG decode graph
 five-word lexicon give the same states and arcs, the weights within 1e-6,
 from transition models with the same (trained) log-probabilities."""
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from kaldi_aslp_tpu.fst.hclg import TrainingGraphCompiler as JaxCompiler
 from kaldi_aslp_tpu.fst.hclg import make_decode_graph as jax_hclg
 from kaldi_aslp_tpu.gmm.mono import MonophoneTrainer as JaxMono
 from kaldi_aslp_tpu_torch import fst as pfst
+from kaldi_aslp_tpu_torch.fst import hclg as phclg
 from kaldi_aslp_tpu_torch.fst.hclg import TrainingGraphCompiler
 from kaldi_aslp_tpu_torch.gmm.mono import MonophoneTrainer
 
@@ -85,3 +88,28 @@ def test_linear_acceptor_matches_jax():
     ids = [3, 1, 4, 1, 5]
     _assert_same(pfst.make_linear_acceptor(ids),
                  jfst.lang.make_linear_acceptor(ids))
+
+
+def test_decode_graph_keeps_the_raw_compose_with_a_warning(monkeypatch,
+                                                           caplog):
+    """Determinize's own error (a non-determinizable G) keeps the raw
+    L o G and logs a warning that names it; any other error passes
+    through (the JAX builder swallows every ``RuntimeError`` in silence,
+    kaldi_aslp_tpu/fst/hclg.py:78-81)."""
+    lang, tm, _, _ = _models("five", trained=True)
+    G = pfst.make_unigram_grammar({"YES": 0.5, "NO": 0.5}, lang.words)
+
+    def blowup(fst, *a, **k):
+        raise pfst.NonDeterminizableError("determinize: state blowup")
+    monkeypatch.setattr(phclg, "determinize", blowup)
+    with caplog.at_level(logging.WARNING):
+        got = phclg.make_decode_graph(lang, G, tm)
+    assert any("not determinizable" in r.getMessage()
+               and "state blowup" in r.getMessage() for r in caplog.records)
+    _assert_same(got, phclg.make_decode_graph(lang, G, tm, optimize=False))
+
+    def fault(fst, *a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access")
+    monkeypatch.setattr(phclg, "determinize", fault)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        phclg.make_decode_graph(lang, G, tm)
