@@ -182,7 +182,7 @@ exits nonzero:
                 corpus's longest batch split by CUDA events with its
                 kernel launches by torch.profiler; that step and one
                 utterance's posteriors on the card against the CPU;
- 15. beam     - the recipe's dev and test sets decoded by the beam
+ 15. beam     - the recipe's dev and test sets (BEAM_SETS) decoded by the beam
                 decoder at the ladder's settings (beam 32, K=2048) on the
                 card, each utterance held to the same decode on the CPU
                 (the same words and alignment, the score within 1e-3
@@ -191,7 +191,8 @@ exits nonzero:
                 on the card, both timed; one utterance's kernel launches
                 a frame and device time by torch.profiler; no hand kernel
                 may launch;
- 15b. batched-decode - the beam phase's utterances in batches of 8
+ 15b. batched-decode - DECODE_BATCH_UTTS of the beam phase's utterances
+                in batches of 8
                 through BatchedBeamDecoder (beam 32, K=2048) and
                 BatchedViterbiDecoder on the card, each utterance held to
                 its single decode (words, alignment, score 1e-3), each
@@ -225,7 +226,8 @@ exits nonzero:
                 launched in the whole phase: (a) the ladder's mono stage
                 (hard_ladder --stages=mono at the small scale: 8
                 iterations, 400 gaussians, realigned on 1 2 3 4 6) on
-                phase 14's corpus, its test and dev WER in JAX's band
+                phase 14's corpus (GMM_SETS of its test set, here and in
+                20), its test and dev WER in JAX's band
                 (10, 95), pruning_sensitivity on the first PRUNING_UTTS
                 test utterances degraded >= healthy + 1, its final
                 alignments equal frame for frame to the same run on the
@@ -276,20 +278,38 @@ exits nonzero:
                 a CV batch, no per-step or wide kernel and no other hand
                 kernel; newbob accepts an iteration after the first and
                 the CV loss falls; one step's loss and gradients against
-                the CPU's plain versions (8 of its 64 streams), one
+                the CPU's plain versions (the whole first batch), one
                 utterance's posteriors within CROSS_CHECK_ATOL, the first
                 test utterances' lattices equal to the CPU's decode of
-                the card's loglikes (40 of the 100 test utterances are
-                decoded and rescored); the LS_SYNTH numbers, one step
+                the card's loglikes (LS_DECODE_UTTS of the 100 test
+                utterances are decoded and rescored, LS_SYNTH's newbob
+                iterations of 48); the LS_SYNTH numbers, one step
                 by part with its launches and device busy share;
  22. synth_recipes - the GMM-side recipes on the card at their small
-                sizes: rm_synth, timit_synth (kmeans), the GMM budget
-                sweep on (14)'s corpus at two K, yesno on 30 of its 60
-                utterances (its WER in JAX's band) and the data-dir
+                sizes: rm_synth, timit_synth (kmeans, TIMIT_TEST_UTTS test
+                utterances), the GMM budget sweep on (14)'s corpus
+                (SWEEP_SETS) at two K, yesno on YESNO_UTTS of
+                its 60 utterances (its WER in JAX's band), rm_synth on
+                RM_TEST_UTTS of its 15 test utterances, and the data-dir
                 runner's hybrid pipeline on
                 yesno's data dirs, each timed; every monophone training
                 of the phase gives a CPU child's final alignments; no
                 hand kernel launches.
+ 23. hkust_frontend - (a) the tonal syllable-CTC recipe's run() on the
+                card at the medium preset's widths (1000 words, 24
+                training speakers, harmonic source, MFCC + pitch + deltas
+                = 48 inputs, a BLSTM of 160 cells a direction in 3
+                layers, stock torch ops), cut in depth (HKUST): the CTC
+                pair once a loss evaluation and no other hand kernel; its
+                units, TLG, WER, greedy SER and seconds by part; (b) the
+                first training utterances' features, one step on the
+                whole first batch (loss 1e-4, gradients 1e-3) and
+                compute_pitch_batched, Plp, Spectrogram, FeaturePipeline
+                and sliding_window_cmn on corpus waves, card against CPU;
+                (c) the feature CLI chain (MFCC, CMVN stats, CMVN,
+                deltas, splice, feat-to-dim, fbank, copy, pitch,
+                spectrum) on the card against --device=cpu; one step by
+                part in a process started before the run.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -304,6 +324,7 @@ import asyncio
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -471,8 +492,9 @@ DET_FRAMES = 6
 LATTICE_BEAM = 8.0
 LMWT_RANGE = range(4, 16)
 # utterances of each set (by name) the lattice-score phase decodes: 8 of
-# dev's 12 and of test's 20 (all of them cut for phase 20's time)
-SCORE_UTTS = 8
+# dev's 12 and of test's 20 (all of them cut for phase 20's time), then 4
+# for phase 23's
+SCORE_UTTS = 4
 # card vs CPU: MFCC + deltas + CMVN as the fbank tests hold them; a
 # training step's loss relative and gradients relative to each
 # parameter's largest |gradient| (float32, TF32 off); log posteriors
@@ -4018,10 +4040,37 @@ def punctuation_phase(vad_paths):
 # -- batched-decode: lock-step batches on the card ----------------------------
 
 DECODE_BATCH = 8
+# of the beam phase's utterances, those batched (by name; 32 until phase
+# 23 needed the time)
+DECODE_BATCH_UTTS = 16
+# the sets later phases decode, cut to their first utterances by name for
+# phase 23's time: the beam phase (and so the batched decode) 6 of phase
+# 14's 12 dev and 10 of its 20 test utterances; the GMM and DNN stages of
+# phases 19-20 10 test utterances (all 12 dev, for their LMWT choice);
+# phase 22's GMM budget sweep 6 dev utterances and timit_synth 10 of its
+# 20 test utterances
+BEAM_SETS = dict(dev=6, test=10)
+GMM_SETS = dict(test=10)
+SWEEP_SETS = dict(dev=6)
+TIMIT_TEST_UTTS = 10
+
+
+def first_utts(corpus, **sizes):
+    """``corpus`` with each named set ({split: n}) cut to its first n
+    utterances by name; every other entry as it is."""
+    out = dict(corpus)
+    for split, n in sizes.items():
+        keep = sorted(corpus[f"{split}_feats"])[:n]
+        for key in ("feats", "texts", "utt2spk"):
+            if f"{split}_{key}" in corpus:
+                out[f"{split}_{key}"] = {u: corpus[f"{split}_{key}"][u]
+                                         for u in keep}
+    return out
 
 
 def batched_decode_phase(rec, loglikes, singles):
-    """The beam phase's utterances in batches of 8 through
+    """The first DECODE_BATCH_UTTS of the beam phase's utterances (by
+    name) in batches of 8 through
     ``BatchedBeamDecoder`` (beam 32, K=2048) and ``BatchedViterbiDecoder``
     on the card, each utterance held to its single decode on the card (the
     beam phase's, ``singles``; the dense decoder's here), each batch timed
@@ -4043,7 +4092,8 @@ def batched_decode_phase(rec, loglikes, singles):
     lut = ctc_lut(rec.num_outputs)
     settings = dict(beam=RECIPE_OPTS["decode_beam"],
                     max_active=RECIPE_OPTS["decode_max_active"])
-    keys = [k for k in loglikes if singles[k] is not None]
+    keys = [k for k in sorted(loglikes)
+            if singles[k] is not None][:DECODE_BATCH_UTTS]
     batches = [keys[i:i + DECODE_BATCH]
                for i in range(0, len(keys), DECODE_BATCH)]
     on_card = {k: torch.from_numpy(np.asarray(loglikes[k], np.float32)).cuda()
@@ -4165,8 +4215,9 @@ HYBRID_TOL = 1e-4
 # 4 x 1024 Sigmoid, 3019 pdfs) on SIMPLE_UTTS utterances of frame
 # targets, the tool's default minibatch and pool
 SIMPLE_UTTS = 64
-# test utterances the pruning sensitivity decodes twice (of the 20)
-PRUNING_UTTS = 8
+# test utterances the pruning sensitivity decodes twice (of the 20; 8
+# until phase 23 needed the time)
+PRUNING_UTTS = 4
 # phase 20 (tri): JAX's WER band again; the GMM family's card-vs-CPU holds
 # against each array's largest magnitude (float64 on both sides, float32
 # out; the fMLLR and MLLT row solves and EM's iterations amplify rounding),
@@ -5033,9 +5084,10 @@ def tri_phase(corpus, art, child, workdir):
 # (PERF.md section 4 lists each cut)
 # cut for the script's time: 20 of the 100 test utterances decoded and
 # rescored, then 24 of the 48 newbob iterations (a proof run took 1,146.8
-# s of the 1,200 with 40 decodes, 19.7 s, and 48 iterations, 35.2 s)
-LS_SYNTH = dict(num_words=1000, num_train=1200, num_test=100, max_iters=24)
-LS_DECODE_UTTS = 20      # test utterances decoded and rescored (by name)
+# s of the 1,200 with 40 decodes, 19.7 s, and 48 iterations, 35.2 s);
+# then, for phase 23's room, 10 decodes and 12 iterations
+LS_SYNTH = dict(num_words=1000, num_train=1200, num_test=100, max_iters=12)
+LS_DECODE_UTTS = 10      # test utterances decoded and rescored (by name)
 LS_LATTICE_UTTS = 3      # of them, decoded on the CPU too
 LS_SPLIT_REPS = 5
 
@@ -5369,9 +5421,10 @@ def ls_synth_run_and_check(workdir, wrappers, calls, child):
 YESNO_WER_BAND = (0.0, 5.0)
 # cut for the script's time: yesno on 20 of its 60 utterances (10 test;
 # the whole recipe took 39.8 s in a first card call, most of it decoding,
-# and 26.8 s on 30), rm_synth on 10 of its 15 test utterances
+# and 26.8 s on 30), rm_synth on 10 of its 15 test utterances, then for
+# phase 23's room on 5
 YESNO_UTTS = 20
-RM_TEST_UTTS = 10
+RM_TEST_UTTS = 5
 JAX_ROWS = {"timit_kmeans_medium_test_wer": 43.49,
             "budget_sweep_medium_dev_wer": {"2048": 32.32, "256": 40.78}}
 SYNTH_BUDGETS = [2048, 256]
@@ -5448,16 +5501,28 @@ def synth_recipes_phase(corpus, workdir):
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
 
+    timit_scale = timit_synth._Scale
+
+    class TimitCut(timit_scale):
+        """timit_synth's preset with TIMIT_TEST_UTTS test utterances."""
+
+        def __init__(self, name):
+            super().__init__(name)
+            self.num_test = TIMIT_TEST_UTTS
+
     MonophoneTrainer.train = train
     try:
         timed("rm_synth", lambda: rm_synth.run(
             os.path.join(work, "rm"), num_words=20, num_train=40,
             num_test=RM_TEST_UTTS, device="cuda"))
+        timit_synth._Scale = TimitCut
         timed("timit_synth", lambda: timit_synth.run(
             os.path.join(work, "timit"), scale="small", methods=["kmeans"],
             device="cuda"))
+        timit_synth._Scale = timit_scale
         timed("budget_sweep", lambda: decode_budget_sweep.run(
-            "small", list(SYNTH_BUDGETS), corpus=corpus, device="cuda"))
+            "small", list(SYNTH_BUDGETS),
+            corpus=first_utts(corpus, **SWEEP_SETS), device="cuda"))
         timed("yesno", lambda: yesno.run(os.path.join(work, "yesno"),
                                          num_utts=YESNO_UTTS, device="cuda"))
         dirs = yesno.run.artifacts["dirs"]
@@ -5471,6 +5536,7 @@ def synth_recipes_phase(corpus, workdir):
                 device="cuda")).wer)
     finally:
         MonophoneTrainer.train = inner_train
+        timit_synth._Scale = timit_scale
     launched = {n: w.launches for n, w in wrappers.items() if w.launches}
     if launched:
         raise RuntimeError(f"the GMM-side recipes launched {launched}")
@@ -5499,6 +5565,599 @@ def synth_recipes_phase(corpus, workdir):
         mono_trainings=alignments, mono_alignments_equal_cpu=True,
         cpu_wait_s=time.perf_counter() - t0, hand_kernel_launches=0,
         card=smi_name_and_power())
+
+
+# -- phase 23: hkust_frontend -------------------------------------------------
+
+# hkust_synth at its default (medium) preset's widths: 1000 words, 24
+# training speakers, a BLSTM of 160 cells a direction in 3 layers on 48
+# MFCC + pitch inputs.  Depth cut for the script's time (PERF.md §4): the
+# newbob iterations (80 in the preset), the decoded test utterances (100)
+# and the training utterances (500).
+HKUST = dict(max_iters=2, num_decode=10, num_train=160)
+HKUST_FEAT_UTTS = 16     # training utterances' features, card vs CPU
+HKUST_WAVES = 4          # corpus waves for the front-end and CLI checks
+HKUST_SPLIT_REPS = 3
+PITCH_TOL = dict(nccf=1e-5, score_rtol=1e-5, pov=1e-5, logp=1e-6)
+
+
+def log_spectra_close(card, cpu) -> bool:
+    """Spectrogram rows [log energy, log power bins] card against CPU: the
+    energy within 1e-4, each bin within 1e-4 plus twice the float32 FFT's
+    error bound in the log domain, 2 eps log2(nfft) sqrt(the frame's
+    power / the bin's), as the CPU tests hold it against JAX."""
+    power = np.exp(cpu[:, 1:].astype(np.float64))
+    allowed = 1e-4 + 1e-4 * np.abs(cpu)
+    allowed[:, 1:] += 4 * float(np.finfo(np.float32).eps) * np.log2(
+        2 * (cpu.shape[1] - 1)) * np.sqrt(power.sum(1, keepdims=True) / power)
+    return bool((np.abs(card - cpu) <= allowed).all())
+
+
+def pitch_path_check(card, cpu, local, cost, lags, samp_freq):
+    """The pitch contract, card against CPU on one utterance: the lag
+    path equal on every frame, or where a frame differs both paths' total
+    scores under the CPU's local grid within 1e-5 relative; POV within
+    1e-5 and log-pitch within 1e-6 on equal frames.  Returns the frames
+    that differ."""
+    table = np.log(samp_freq / lags.astype(np.float64))
+
+    def path(f):
+        return np.abs(f[:, 1:2].astype(np.float64) - table[None]).argmin(1)
+    got, want = path(card), path(cpu)
+    differ = got != want
+    if differ.any():
+        loc, c = np.asarray(local, np.float64), np.asarray(cost, np.float64)
+
+        def score(p):
+            return loc[np.arange(len(p)), p].sum() - c[p[:-1], p[1:]].sum()
+        if abs(score(got) - score(want)) > PITCH_TOL["score_rtol"] * abs(
+                score(want)):
+            raise RuntimeError(f"pitch paths part: {int(differ.sum())} "
+                               f"frames, scores {score(got)} {score(want)}")
+    eq = ~differ
+    err = (float(np.abs(card[eq, 0] - cpu[eq, 0]).max(initial=0.0)),
+           float(np.abs(card[eq, 1] - cpu[eq, 1]).max(initial=0.0)))
+    if err[0] > PITCH_TOL["pov"] or err[1] > PITCH_TOL["logp"]:
+        raise RuntimeError(f"pitch POV / log-pitch card vs CPU {err}")
+    return int(differ.sum()), err
+
+
+def hkust_frontend_check(waves, workdir):
+    """The front end's modules on the card against the CPU on a few
+    corpus waves (8 kHz): compute_pitch_batched (the path contract),
+    Plp, Spectrogram, FeaturePipeline (fbank, MFCC) and
+    sliding_window_cmn; each card call timed beside the CPU's, and the
+    lag-Viterbi's frames and the batched call's launches."""
+    from kaldi_aslp_tpu_torch.feats import pitch as tp
+    from kaldi_aslp_tpu_torch.feats.functions import (
+        SlidingWindowCmnOptions,
+        acc_cmvn_stats,
+        sliding_window_cmn,
+    )
+    from kaldi_aslp_tpu_torch.feats.pipeline import (
+        FeaturePipeline,
+        FeaturePipelineOptions,
+    )
+    from kaldi_aslp_tpu_torch.feats.plp import Plp, Spectrogram
+    from kaldi_aslp_tpu_torch.feats.window import FrameExtractionOptions
+
+    sr = 8000.0
+    opts = tp.PitchOptions(samp_freq=sr)
+    g = tp._Geometry(opts)
+    out, seconds = {}, {}
+
+    def timed(name, fn):
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name, dev] = fn(dev)
+            torch.cuda.synchronize()
+            seconds[f"{name}_{dev}_s"] = time.perf_counter() - t0
+
+    frames0 = tp.lag_viterbi.frames
+    timed("pitch", lambda d: {u: f.cpu().numpy() for u, f in
+                              tp.compute_pitch_batched(waves, opts,
+                                                       device=d).items()})
+    viterbi_frames = (tp.lag_viterbi.frames - frames0) // 2
+    cost = opts.penalty_factor * np.asarray(
+        (g.log_lags[:, None] - g.log_lags[None]) ** 2, np.float32)
+    differ, pitch_err = {}, [0.0, 0.0]
+    for u, w in waves.items():
+        n = -(-len(w) // int(sr)) * int(sr)
+        arr = np.zeros((1, n), np.float32)
+        arr[0, :len(w)] = w
+        local = tp._local_score(tp.batched_nccf(
+            torch.from_numpy(arr), torch.tensor([float(len(w))]), opts),
+            g, opts)[0].numpy()
+        T = len(out["pitch", "cpu"][u])
+        differ[u], err = pitch_path_check(
+            out["pitch", "cuda"][u], out["pitch", "cpu"][u], local[:T], cost,
+            g.lags, sr)
+        pitch_err = [max(a, b) for a, b in zip(pitch_err, err)]
+    frame = FrameExtractionOptions(samp_freq=sr, dither=0.0)
+    errs = {}
+    timed("plp", lambda d: [Plp(frame, device=d)(w) for w in waves.values()])
+    timed("spectrogram", lambda d: [Spectrogram(frame, device=d)(w).cpu()
+                                    .numpy() for w in waves.values()])
+    for kind in ("fbank", "mfcc"):
+        popts = FeaturePipelineOptions(feature_type=kind, samp_freq=sr,
+                                       num_bins=23, delta_order=2,
+                                       splice_left=2, splice_right=2)
+
+        def pipe(d):
+            p = FeaturePipeline(popts, device=d)
+            base = {u: p.compute_base(w) for u, w in waves.items()}
+            return [p.post_process(base[u], acc_cmvn_stats(base[u]))
+                    .cpu().numpy() for u in waves]
+        timed(f"pipeline_{kind}", pipe)
+    feats = [f for f in out["pipeline_mfcc", "cpu"]]
+    cmn_opts = SlidingWindowCmnOptions(cmn_window=100, min_window=20,
+                                       normalize_variance=True)
+    timed("sliding_cmn", lambda d: [sliding_window_cmn(
+        torch.from_numpy(f).to(d), cmn_opts).cpu().numpy() for f in feats])
+    for name in ("plp", "pipeline_fbank", "pipeline_mfcc", "sliding_cmn"):
+        for a, b in zip(out[name, "cuda"], out[name, "cpu"]):
+            if not np.allclose(a, b, **RECIPE_FEAT_TOL):
+                raise RuntimeError(f"{name} card vs CPU "
+                                   f"{np.abs(a - b).max()}")
+        errs[name] = max(float(np.abs(a - b).max()) for a, b in
+                         zip(out[name, "cuda"], out[name, "cpu"]))
+    for a, b in zip(out["spectrogram", "cuda"], out["spectrogram", "cpu"]):
+        if not log_spectra_close(a, b):
+            raise RuntimeError("spectrogram card vs CPU "
+                               f"{np.abs(a - b).max()}")
+    errs["spectrogram"] = max(float(np.abs(a - b).max()) for a, b in
+                              zip(out["spectrogram", "cuda"],
+                                  out["spectrogram", "cpu"]))
+    # one batched pitch call's launches on the card
+    counts = {}
+    device_ms = sum(device_ms_by_kernel(
+        lambda: tp.compute_pitch_batched(waves, opts, device="cuda"),
+        counts).values())
+    return dict(pitch_frames_differ=differ, pitch_max_err=pitch_err,
+                pitch_viterbi_frames=viterbi_frames,
+                pitch_call_launches=sum(c for k, c in counts.items()
+                                        if not k.startswith("Mem")),
+                pitch_call_device_ms=device_ms, max_abs_err=errs,
+                seconds=seconds)
+
+
+def hkust_cli_check(waves, workdir):
+    """The feature CLI on a wav.scp of corpus waves, on the card and with
+    --device=cpu: compute-mfcc-feats -> compute-cmvn-stats -> apply-cmvn ->
+    add-deltas -> splice-feats -> feat-to-dim, compute-fbank-feats,
+    copy-feats, compute-kaldi-pitch-feats (the pitch contract on its raw
+    output, the post-processed output within 1e-4 where no path parts)
+    and aslp-compute-spectrum-feats.  Each card tool reads the CPU
+    chain's input and its table is held against the CPU tool's: within
+    1e-4 (the MFCCs before liftering; the CMVN stats 1e-5 relative), the
+    copies equal, the spectrogram as the CPU tests hold it."""
+    from kaldi_aslp_tpu_torch.cli.__main__ import main as cli
+    from kaldi_aslp_tpu_torch.feats import pitch as tp
+    from kaldi_aslp_tpu_torch.feats.mfcc import lifter_coeffs
+    from kaldi_aslp_tpu_torch.io import (
+        WaveData,
+        sequential_matrix_reader,
+        write_wave,
+    )
+
+    d = os.path.join(workdir, "hkust_cli")
+    os.makedirs(d)
+    scp = os.path.join(d, "wav.scp")
+    with open(scp, "w") as f:
+        for u, w in waves.items():
+            write_wave(os.path.join(d, f"{u}.wav"), WaveData(8000.0, w[None]))
+            f.write(f"{u} {os.path.join(d, u + '.wav')}\n")
+    sr = "--sample-frequency=8000"
+    chain = [("mfcc", ["compute-mfcc-feats", sr, f"scp:{scp}"]),
+             ("fbank", ["compute-fbank-feats", sr, f"scp:{scp}"]),
+             ("stats", ["compute-cmvn-stats", "ark:{mfcc}"]),
+             ("cmvn", ["apply-cmvn", "--norm-vars=true", "ark:{stats}",
+                       "ark:{mfcc}"]),
+             ("deltas", ["add-deltas", "ark:{cmvn}"]),
+             ("splice", ["splice-feats", "ark:{deltas}"]),
+             ("copy", ["copy-feats", "ark:{splice}"]),
+             ("pitch_raw", ["compute-kaldi-pitch-feats",
+                            "--post-process=false", f"scp:{scp}"]),
+             ("pitch", ["compute-kaldi-pitch-feats", f"scp:{scp}"]),
+             ("spectrum", ["aslp-compute-spectrum-feats", f"scp:{scp}"])]
+    tables, seconds, inputs = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        paths = {}
+        t0 = time.perf_counter()
+        for name, argv in chain:
+            paths[name] = os.path.join(d, f"{name}_{dev}.ark")
+            # each card tool reads the CPU chain's input, as the CPU tool
+            args = [a.format(**(inputs or paths)) for a in argv[1:]]
+            if cli([argv[0], f"--device={dev}", *args,
+                    f"ark:{paths[name]}"]) != 0:
+                raise RuntimeError(f"{argv[0]} --device={dev} failed")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(["feat-to-dim", f"--device={dev}",
+                 f"ark:{(inputs or paths)['splice']}"])
+        seconds[dev] = time.perf_counter() - t0
+        tables[dev] = {n: dict(sequential_matrix_reader(f"ark:{p}"))
+                       for n, p in paths.items()}
+        tables[dev]["dim"] = int(buf.getvalue().split()[0])
+        inputs = dict(paths)
+    card, cpu = tables["cuda"], tables["cpu"]
+    if card["dim"] != cpu["dim"] or card["dim"] != 13 * 3 * 9:
+        raise RuntimeError(f"feat-to-dim {card['dim']} {cpu['dim']}")
+    errs, differ = {}, {}
+    opts = tp.PitchOptions(samp_freq=8000.0)
+    g = tp._Geometry(opts)
+    ll = g.log_lags.astype(np.float32)
+    cost = np.float32(opts.penalty_factor) * (ll[:, None] - ll[None]) ** 2
+    for u, w in waves.items():
+        local = tp._local_score(tp.nccf_grid(torch.from_numpy(w), opts)[0],
+                                g, opts).numpy()
+        differ[u], _ = pitch_path_check(card["pitch_raw"][u],
+                                        cpu["pitch_raw"][u], local, cost,
+                                        g.lags, 8000.0)
+    # the cepstra before liftering (the lifter multiplies c11, c12 by
+    # about 12; a quiet frame's float32 log-mel rounding moved c12 by
+    # 2.1e-4 in a first card call)
+    lifter = lifter_coeffs(22.0, 13)
+    for name in ("mfcc", "fbank", "stats", "cmvn", "deltas", "splice",
+                 "copy", "pitch", "spectrum"):
+        if name == "pitch" and any(differ.values()):
+            continue
+        for u in cpu[name]:
+            a, b = card[name][u], cpu[name][u]
+            if name == "spectrum":
+                ok = log_spectra_close(a, b)
+            elif name in ("splice", "copy"):
+                ok = np.array_equal(a, b)
+            else:
+                if name == "mfcc":
+                    a, b = a / lifter, b / lifter
+                ok = a.shape == b.shape and np.allclose(
+                    a, b, rtol=1e-5 if name == "stats" else 1e-4,
+                    atol=0.0 if name == "stats" else 1e-4)
+            if not ok:
+                raise RuntimeError(f"{name} {u}: card vs CPU "
+                                   f"{np.abs(a - b).max()}")
+        errs[name] = max(float(np.abs(card[name][u] - cpu[name][u]).max())
+                         for u in cpu[name])
+    return dict(tools=[c[1][0] for c in chain] + ["feat-to-dim"],
+                utts=len(waves), dim=card["dim"], max_abs_err=errs,
+                pitch_frames_differ=differ, card_s=seconds["cuda"],
+                cpu_s=seconds["cpu"])
+
+
+def hkust_step_process():
+    """The process hkust_step_split takes its step in, started before the
+    recipe's run."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.hkust_step_child()"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def hkust_step_child():
+    """In a fresh process: the CTC pair's library and the profiler made
+    ready, then one training step of the recipe's BLSTM (stock torch ops)
+    on the job's batch, by part with CUDA events, its kernel launches and
+    device busy share by torch.profiler, printed as one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta
+    from kaldi_aslp_tpu_torch.recipes.ctc import CtcRecipe, CtcRecipeOptions
+    from kaldi_aslp_tpu_torch.train import (
+        CtcTrainer,
+        NnetTrainOptions,
+        init_velocity,
+    )
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    ctc_alpha_beta.build()
+    ones = torch.ones(64, 64, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        ones.matmul(ones)
+        torch.cuda.synchronize()
+    spec = torch.load(sys.stdin.readline().strip(), weights_only=False)
+    rec = CtcRecipe.__new__(CtcRecipe)
+    rec.opts = CtcRecipeOptions(**spec["opts"])
+    net = rec._build_net(spec["dim"], spec["V"])
+    net.load_state_dict(spec["state"])
+    net.to("cuda")
+    trainer = CtcTrainer(net, NnetTrainOptions(momentum=0.9))
+    batch, lr = spec["batch"], spec["lr"]
+    feats, labels, in_lens, lab_lens, mask = dev_batch = upload(
+        batch, trainer.device)
+    velocity = init_velocity(net)
+    trainer.step(velocity, dev_batch, lr)
+    torch.cuda.synchronize()
+    splits = []
+    for _ in range(HKUST_SPLIT_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for p in net.parameters():
+            p.grad = None
+        net.train()
+        t0 = time.perf_counter()
+        ev[0].record()
+        y, _ = net(feats, mask=mask)
+        ev[1].record()
+        loss, _ = ctc_batch_loss(y, labels, in_lens, lab_lens)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        trainer._update(velocity, lr)
+        ev[4].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+                      + [1e3 * (time.perf_counter() - t0)])
+    med = np.median(np.asarray(splits), axis=0)
+    for attempt in range(1, 4):
+        counts = {}
+        by_kernel = device_ms_by_kernel(
+            lambda: trainer.step(velocity, dev_batch, lr), counts)
+        if any("ctc_warp_kernel" in k for k in counts):
+            break
+    else:
+        raise RuntimeError("the hkust step's profile holds no CTC pair")
+    kernels = {k: c for k, c in counts.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    device_ms = sum(v for k, v in by_kernel.items() if k in kernels)
+    S, T, D = batch.feats.shape
+    print(json.dumps(dict(
+        S=S, T=T, D=D, U=int(batch.labels.shape[1]),
+        forward_ms=float(med[0]), loss_ms=float(med[1]),
+        backward_ms=float(med[2]), update_ms=float(med[3]),
+        step_ms=float(med[:4].sum()), host_step_ms=float(med[4]),
+        kernel_launches_per_step=sum(kernels.values()),
+        device_busy_ms=device_ms,
+        device_busy_share=device_ms / float(med[:4].sum()),
+        profiles_taken=attempt,
+        top_kernels={k[:72]: c for k, c in sorted(
+            kernels.items(), key=lambda kv: -kv[1])[:6]},
+        reps=HKUST_SPLIT_REPS)), flush=True)
+
+
+def hkust_step_send(rec, batch, workdir, child):
+    """Hand ``child`` its job: one training step of the recipe's net at
+    its first batch, from the recipe's initial parameters (a step of
+    stock ops does the same work whatever their values)."""
+    job = os.path.join(workdir, "hkust_step.pt")
+    net = rec._build_net(int(batch.feats.shape[2]), rec.num_outputs)
+    rec._init_params(net)
+    torch.save(dict(state=net.state_dict(), batch=batch,
+                    lr=rec.opts.learn_rate,
+                    opts=dataclasses.asdict(rec.opts),
+                    dim=int(batch.feats.shape[2]), V=rec.num_outputs), job)
+    child.stdin.write(job + "\n")
+    child.stdin.flush()
+    return time.perf_counter()
+
+
+def hkust_step_split(child, sent):
+    """The step's parts, launches and busy share from ``child``."""
+    stdout, stderr = child.communicate(timeout=300)
+    if child.returncode != 0:
+        raise RuntimeError(f"hkust step process failed: {stderr[-2000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    log("hkust_step_split", **out, process_s=time.perf_counter() - sent)
+    return out
+
+
+def hkust_step_check(rec, batch):
+    """One training step on the whole first batch on the card and on the
+    CPU from the same parameters: the loss within 1e-4 relative and each
+    gradient within 1e-3 of its tensor's largest magnitude (PERF.md §2's
+    float32 BPTT rows)."""
+    from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
+    from kaldi_aslp_tpu_torch.train.trainer import upload
+
+    out, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        net = rec._build_net(batch.feats.shape[2], rec.num_outputs).to(dev)
+        net.load_state_dict(rec.best_params)
+        net.train()
+        t0 = time.perf_counter()
+        feats, labels, in_lens, lab_lens, mask = upload(batch, dev)
+        y, _ = net(feats, mask=mask)
+        loss, _ = ctc_batch_loss(y, labels, in_lens, lab_lens)
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds[device] = time.perf_counter() - t0
+        out[device] = (float(loss.detach()), {
+            n: p.grad.cpu() for n, p in net.named_parameters()})
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = {n: rel_err(g, out["cpu"][1][n])
+                for n, g in out["cuda"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    if loss_rel > RECIPE_LOSS_RTOL or grad_rel[worst] > RECIPE_GRAD_RTOL:
+        raise RuntimeError(f"hkust step card vs CPU: loss {loss_rel}, "
+                           f"{worst} {grad_rel[worst]}")
+    return dict(S=int(batch.feats.shape[0]), T=int(batch.feats.shape[1]),
+                U=int(batch.labels.shape[1]), loss_cuda=out["cuda"][0],
+                loss_cpu=out["cpu"][0], loss_rel=loss_rel, worst_grad=worst,
+                worst_grad_rel=grad_rel[worst], card_step_s=seconds["cuda"],
+                cpu_step_s=seconds["cpu"],
+                tol={"loss": RECIPE_LOSS_RTOL, "grad": RECIPE_GRAD_RTOL})
+
+
+def hkust_phase(workdir):
+    """(a) hkust_synth's run() on the card at the medium preset's widths
+    (HKUST's cuts), its launches counted from 0 just before it and read
+    just after: the CTC pair once a loss evaluation, no other hand kernel
+    and no wide kernel; its corpus, feature, pitch, training, decode and
+    total seconds, its units and TLG; (b) the first HKUST_FEAT_UTTS
+    training utterances' MFCC + pitch features, one step on the whole
+    first batch and the front end's modules, card against CPU; (c) the
+    feature CLI on the card against --device=cpu; and one step by part in
+    a fresh process, its job handed over while the run builds its TLG on
+    the host (the card is idle then).  Returns the training kernels'
+    launches in the run, by name."""
+    from kaldi_aslp_tpu_torch.feats import pitch as tp
+    from kaldi_aslp_tpu_torch.recipes import ctc as ctc_recipe
+    from kaldi_aslp_tpu_torch.recipes import hard_corpus as hc
+    from kaldi_aslp_tpu_torch.recipes import hkust_synth as hk
+
+    wrappers = hand_kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "per_step"):
+            w.per_step = 0
+    wrappers["ctc_alpha_beta"].wide = 0
+    seconds = {"corpus": 0.0, "features": 0.0, "pitch": 0.0, "tlg": 0.0,
+               "units_and_g": 0.0}
+    captured = {}
+    inner = {"extract": hc.extract_mfcc_deltas_cmvn,
+             "pitch": hc.compute_pitch_batched,
+             "tlg": ctc_recipe.make_ctc_decode_graph,
+             "corpus": hk.build_hkust_corpus,
+             "units": hk.prepare_syllable_units, "g": hk.arpa_to_fst}
+
+    def extract(waves, utt2spk, *a, **k):
+        captured.setdefault("waves", {}).update(waves)
+        captured.setdefault("utt2spk", {}).update(utt2spk)
+        t0 = time.perf_counter()
+        out = inner["extract"](waves, utt2spk, *a, **k)
+        seconds["features"] += time.perf_counter() - t0
+        return out
+
+    def pitch(*a, **k):
+        t0 = time.perf_counter()
+        out = inner["pitch"](*a, **k)
+        torch.cuda.synchronize()
+        seconds["pitch"] += time.perf_counter() - t0
+        return out
+
+    def timer(name, key):
+        def fn(*a, **k):
+            t0 = time.perf_counter()
+            out = inner[name](*a, **k)
+            seconds[key] += time.perf_counter() - t0
+            return out
+        return fn
+
+    def batches(rec, *a, **k):
+        captured["rec"] = rec
+        captured["batches"] = inner["batches"](rec, *a, **k)
+        return captured["batches"]
+
+    def tlg(*a, **k):
+        # the TLG is host work: the step's process takes the card now
+        captured["sent"] = hkust_step_send(
+            captured["rec"], captured["batches"][0][0], workdir, child)
+        return timer("tlg", "tlg")(*a, **k)
+
+    child = hkust_step_process()
+    inner["batches"] = ctc_recipe.CtcRecipe.batches
+    ctc_recipe.CtcRecipe.batches = batches
+    hc.extract_mfcc_deltas_cmvn, hc.compute_pitch_batched = extract, pitch
+    ctc_recipe.make_ctc_decode_graph = tlg
+    hk.build_hkust_corpus = timer("corpus", "corpus")
+    hk.prepare_syllable_units = timer("units", "units_and_g")
+    hk.arpa_to_fst = timer("g", "units_and_g")
+    frames0 = tp.lag_viterbi.frames
+    try:
+        t0 = time.perf_counter()
+        out = hk.run(os.path.join(workdir, "hkust"), "medium", device="cuda",
+                     **HKUST)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in wrappers.items()}
+        counters = {f"{n}.per_step": w.per_step for n, w in wrappers.items()
+                    if hasattr(w, "per_step")}
+        counters["ctc_alpha_beta.wide"] = wrappers["ctc_alpha_beta"].wide
+    finally:
+        hc.extract_mfcc_deltas_cmvn = inner["extract"]
+        hc.compute_pitch_batched = inner["pitch"]
+        ctc_recipe.make_ctc_decode_graph = inner["tlg"]
+        ctc_recipe.CtcRecipe.batches = inner["batches"]
+        hk.build_hkust_corpus = inner["corpus"]
+        hk.prepare_syllable_units, hk.arpa_to_fst = inner["units"], inner["g"]
+    try:
+        return hkust_run_and_check(out, run_s, launches, counters, seconds,
+                                   captured, tp.lag_viterbi.frames - frames0,
+                                   workdir, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def hkust_run_and_check(out, run_s, launches, counters, seconds, captured,
+                        viterbi_frames, workdir, child):
+    """hkust_phase's checks of the run, then (b), (c) and the step."""
+    from kaldi_aslp_tpu_torch.recipes import hard_corpus as hc
+    from kaldi_aslp_tpu_torch.recipes import hkust_synth as hk
+
+    art = hk.run.artifacts
+    rec, corpus = art["recipe"], art["corpus"]
+    tr_batches, cv_batches = rec.batches(corpus["train_feats"],
+                                         corpus["train_texts"])
+    epochs = rec.epochs
+    steps, evals = (len(epochs) * len(b) for b in (tr_batches, cv_batches))
+    stray = {n: k for n, k in launches.items()
+             if k and n != "ctc_alpha_beta"}
+    if launches["ctc_alpha_beta"] != steps + evals or stray or any(
+            counters.values()):
+        raise RuntimeError(f"hkust launches {launches}, want "
+                           f"{steps + evals} CTC pair; per-step or wide "
+                           f"{counters}")
+    if not np.isfinite(out["ctc"]) or not all(
+            np.isfinite(e["cv_loss"]) for e in epochs):
+        raise RuntimeError(f"hkust run not finite: {out}")
+    dims = {f.shape[1] for f in corpus["train_feats"].values()}
+    if dims != {48}:
+        raise RuntimeError(f"hkust features of dims {dims}, want 48")
+    train_s = sum(e["seconds"] for e in epochs)
+    for e in epochs:
+        log("hkust_epoch", **e)
+    log("hkust", wer=out["ctc"], greedy_ser=out["greedy_ser"],
+        units=len(art["units"].syllable_ids),
+        raw_syllables=len(art["units"].syllable_table),
+        tone_bound=art["n_bound"], words=len(corpus["words"]),
+        train_utts=len(corpus["train_feats"]),
+        test_utts=len(corpus["test_feats"]), decoded_utts=len(art["test_utts"]),
+        train_audio_s=corpus["train_audio_s"], feat_dim=48,
+        tlg=[rec.tlg.num_states, rec.tlg.num_arcs],
+        model=dict(type="blstm", hidden=rec.opts.hidden_dim,
+                   layers=rec.opts.num_layers, lfr=rec.opts.lfr_skip,
+                   outputs=rec.num_outputs),
+        epochs=len(epochs), train_batches=len(tr_batches),
+        cv_batches=len(cv_batches), ctc_pair_launches=steps + evals,
+        launches={n: k for n, k in launches.items() if k},
+        corpus_s=seconds["corpus"],
+        synthesis_s=seconds["corpus"] - seconds["features"],
+        features_s=seconds["features"], pitch_s=seconds["pitch"],
+        pitch_viterbi_frames=viterbi_frames,
+        units_and_g_s=seconds["units_and_g"], train_s=train_s,
+        tlg_s=seconds["tlg"],
+        decode_s=run_s - seconds["corpus"] - seconds["units_and_g"]
+        - train_s - seconds["tlg"],
+        run_s=run_s, cuts=HKUST, card=smi_name_and_power())
+    # (b) the first training utterances' features, card vs CPU
+    utts = sorted(u for u in captured["waves"] if u.startswith("tr"))[
+        :HKUST_FEAT_UTTS]
+    waves = {u: captured["waves"][u] for u in utts}
+    u2s = {u: captured["utt2spk"][u] for u in utts}
+    feats = {d: hc.extract_mfcc_deltas_cmvn(waves, u2s, use_pitch=True,
+                                            device=d) for d in ("cuda", "cpu")}
+    feat_err = max(float(np.abs(feats["cuda"][u] - feats["cpu"][u]).max())
+                   for u in utts)
+    for u in utts:
+        if not np.allclose(feats["cuda"][u], feats["cpu"][u],
+                           **RECIPE_FEAT_TOL):
+            raise RuntimeError(f"hkust features {u} card vs CPU {feat_err}")
+    step = hkust_step_check(rec, tr_batches[0])
+    few = {u: waves[u] for u in utts[:HKUST_WAVES]}
+    frontend = hkust_frontend_check(few, workdir)
+    cli = hkust_cli_check(few, workdir)
+    log("hkust_check", feature_utts=len(utts), feature_max_abs_err=feat_err,
+        feature_tol=RECIPE_FEAT_TOL, step=step, frontend=frontend, cli=cli,
+        pitch_tol=PITCH_TOL)
+    hkust_step_split(child, captured["sent"])
+    return {n: launches[n] for n in train_counts()}
 
 
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
@@ -5590,7 +6249,7 @@ def main() -> int:
         bptt_step_split(model, dev)
         (runs["ctc_recipe"], recipe_wide, recipe_ctc, rec,
          corpus) = ctc_recipe_phase(workdir)
-        loglikes, singles = beam_phase(rec, corpus)
+        loglikes, singles = beam_phase(rec, first_utts(corpus, **BEAM_SETS))
         t0 = time.perf_counter()
         batched_decode_phase(rec, loglikes, singles)
         log("batched_decode_phase", seconds=time.perf_counter() - t0)
@@ -5601,14 +6260,18 @@ def main() -> int:
         t0 = time.perf_counter()
         lattice_score_phase(rec, corpus, workdir)
         log("lattice_score_phase", seconds=time.perf_counter() - t0)
-        art, child = hybrid_phase(corpus, workdir)
-        tri_phase(corpus, art, child, workdir)
+        gmm_corpus = first_utts(corpus, **GMM_SETS)
+        art, child = hybrid_phase(gmm_corpus, workdir)
+        tri_phase(gmm_corpus, art, child, workdir)
         t0 = time.perf_counter()
         runs["ls_synth"], ls_synth_forward = ls_synth_phase(workdir)
         log("ls_synth_phase", seconds=time.perf_counter() - t0)
         t0 = time.perf_counter()
         synth_recipes_phase(corpus, workdir)
         log("synth_recipes_phase", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        runs["hkust"] = hkust_phase(workdir)
+        log("hkust_phase", seconds=time.perf_counter() - t0)
     serving_runs = {"serving": launches, "serve_batched": batched_launches,
                     "vad": vad_launches, "entry": entry_launches,
                     "ls_synth": ls_synth_forward}

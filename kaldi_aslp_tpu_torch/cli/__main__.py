@@ -3,8 +3,9 @@
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
 reference binaries; the port has the online servers and their client, the
 frame trainer, the CTC trainer, the BPTT trainer, the network forward, the
-lattice generator and lattice tools, the CD-phone tree tools and
-compute-wer so far.  As in the JAX package, the BLSTM, LC-BLSTM, skip and
+lattice generator and lattice tools, the CD-phone tree tools, the feature
+tools (with pitch and spectrum), the syllable-prep tools, noise
+augmentation and compute-wer so far.  As in the JAX package, the BLSTM, LC-BLSTM, skip and
 per-utterance BPTT binaries are one trainer, the warp-ctc and per-utterance
 CTC binaries the CTC trainer, and the forward's -skip / -blstm-lc variants
 one forward:
@@ -16,14 +17,37 @@ from __future__ import annotations
 import sys
 
 from kaldi_aslp_tpu_torch.cli import (
+    feat_tools,
     lat_tools,
     nnet_tools,
     online_tools,
+    script_tools,
     train_tools,
     tree_tools,
+    vad_tools,
 )
 
 TOOLS = {
+    # featbin
+    "compute-mfcc-feats": feat_tools.compute_mfcc_feats,
+    "compute-fbank-feats": feat_tools.compute_fbank_feats,
+    "copy-feats": feat_tools.copy_feats,
+    "compute-cmvn-stats": feat_tools.compute_cmvn_stats,
+    "apply-cmvn": feat_tools.apply_cmvn_cli,
+    "add-deltas": feat_tools.add_deltas_cli,
+    "splice-feats": feat_tools.splice_feats,
+    "feat-to-dim": feat_tools.feat_to_dim,
+    # pitch, aslp-vadbin spectrum
+    "compute-kaldi-pitch-feats": vad_tools.compute_pitch_cli,
+    "aslp-compute-spectrum-feats": vad_tools.compute_spectrum_feats,
+    # aslp_scripts/syllable
+    "aslp-convert-lexicon-to-syllable":
+        script_tools.convert_lexicon_to_syllable,
+    "aslp-bind-syllable": script_tools.bind_syllable_cli,
+    "aslp-bind-lexicon": script_tools.bind_lexicon_cli,
+    "aslp-ali-to-syllable": script_tools.ali_to_syllable_cli,
+    # aslp-bin augmentation
+    "aslp-wav-noise": nnet_tools.wav_noise,
     # aslp-onlinebin server + client
     "aslp-online-nnet-vad-server": online_tools.online_nnet_vad_server,
     "aslp-online-energy-vad-server": online_tools.online_energy_vad_server,

@@ -1,11 +1,14 @@
-"""NN CLI mains: the network forward and WER scoring.
+"""NN CLI mains: the network forward, WER scoring and noise
+augmentation.
 
-Port of ``nnet_forward_cli`` and ``compute_wer`` from
+Port of ``nnet_forward_cli``, ``compute_wer`` and ``wav_noise`` from
 kaldi_aslp_tpu/cli/nnet_tools.py (reference:
-src/aslp-nnetbin/aslp-nnet-forward.cc, src/bin/compute-wer.cc):
+src/aslp-nnetbin/aslp-nnet-forward.cc, src/bin/compute-wer.cc,
+src/aslp-bin/aslp-wav-noise.cc):
 
     aslp-nnet-forward [--device=cuda] model feats-rspec loglikes-wspec
     compute-wer [--mode=present] ark:ref.txt ark:hyp.txt
+    aslp-wav-noise [--snr-db=20] [--seed=777] scp:wav.scp out_dir
 
 ``aslp-nnet-forward`` loads the JAX package's model zip and writes
 log-posteriors (minus the log prior of ``--class-frame-counts``, scaled
@@ -13,7 +16,10 @@ by ``--prior-scale``) for every utterance, computed on ``--device``
 (default ``cuda``; without CUDA it raises rather than run on the CPU).
 As in the JAX package, the ``-skip`` and ``-blstm-lc`` binaries are the
 same main: the frame skip is ``--skip-width``, the architecture lives in
-the model file."""
+the model file.  ``aslp-wav-noise`` is host numpy, as in the JAX
+package: white noise from a ``RandomState(seed)`` mixed in at
+``--snr-db`` by feats/resample.py's ``add_noise``, one wav an
+utterance in ``out_dir``."""
 
 from __future__ import annotations
 
@@ -80,4 +86,38 @@ def compute_wer(argv) -> int:
     print(stats.report())
     print(f"%SER {stats.ser:.2f} [ {stats.num_wrong_sentences} / "
           f"{stats.num_sentences} ]")
+    return 0
+
+
+def wav_noise(argv) -> int:
+    """Additive noise augmentation of wav files (reference:
+    aslp-bin/aslp-wav-noise.cc)."""
+    import os
+
+    from kaldi_aslp_tpu_torch.feats.resample import add_noise
+    from kaldi_aslp_tpu_torch.io import WaveData, read_wave, write_wave
+
+    @dataclasses.dataclass
+    class Flags(Config):
+        snr_db: float = 20.0
+        seed: int = 777
+
+    flags = Flags()
+    args = parse_options(
+        argv, [flags], "aslp-wav-noise scp:wav.scp out_dir", 2, 2)
+    _, path = args[0].split(":", 1)
+    os.makedirs(args[1], exist_ok=True)
+    rng = np.random.RandomState(flags.seed)
+    with open(path) as f:
+        for line in f:
+            toks = line.split()
+            if len(toks) < 2:
+                continue
+            utt, wav_path = toks[0], toks[1]
+            wav = read_wave(wav_path)
+            noise = rng.randn(len(wav.data[0])).astype(np.float32)
+            noisy = add_noise(wav.data[0], noise, snr_db=flags.snr_db)
+            write_wave(os.path.join(args[1], f"{utt}.wav"),
+                       WaveData(wav.samp_freq,
+                                noisy[None, :].astype(np.float32)))
     return 0

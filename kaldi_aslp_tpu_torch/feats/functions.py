@@ -1,10 +1,11 @@
-"""Post-processing feature transforms: deltas, splicing and CMVN.
+"""Post-processing feature transforms: deltas, splicing, CMVN and
+sliding-window CMN.
 
-Port of the parts of kaldi_aslp_tpu/feats/functions.py the hard corpus
-and the hybrid DNN need (``DeltaFeaturesOptions``, ``delta_scales``,
-``add_deltas``, ``splice_frames``, ``acc_cmvn_stats``, ``apply_cmvn``;
-reference: src/feat/feature-functions.{h,cc} DeltaFeatures and
-SpliceFrames, src/transform/cmvn.{h,cc}).
+Port of kaldi_aslp_tpu/feats/functions.py (``DeltaFeaturesOptions``,
+``delta_scales``, ``add_deltas``, ``splice_frames``, ``acc_cmvn_stats``,
+``apply_cmvn``, ``SlidingWindowCmnOptions``, ``sliding_window_cmn``;
+reference: src/feat/feature-functions.{h,cc} DeltaFeatures,
+SpliceFrames and SlidingWindowCmn, src/transform/cmvn.{h,cc}).
 Deltas are gathers and weighted sums over a fixed context on the
 features' device; CMVN stats keep the reference's 2 x (dim+1)
 accumulator layout in float64, on the features' device."""
@@ -110,4 +111,42 @@ def apply_cmvn(feats: torch.Tensor, stats: torch.Tensor,
         var = stats[1, :dim] / count - mean * mean
         out = out * (1.0 / torch.sqrt(torch.clamp(var, min=1e-20))
                      ).to(feats.dtype)
+    return out
+
+
+@dataclasses.dataclass
+class SlidingWindowCmnOptions(Config):
+    cmn_window: int = 600
+    min_window: int = 100
+    normalize_variance: bool = False
+    center: bool = False
+
+
+def sliding_window_cmn(feats: torch.Tensor,
+                       opts: Optional[SlidingWindowCmnOptions] = None
+                       ) -> torch.Tensor:
+    """Sliding-window CMN (reference: feature-functions.cc:311) on the
+    features' device: each frame's window [s, e) mean is a difference of
+    prefix sums, as in the JAX package, not the reference's per-frame
+    window loop."""
+    opts = opts or SlidingWindowCmnOptions()
+    T, D = feats.shape
+    zero = feats.new_zeros((1, D))
+    csum = torch.cumsum(torch.cat([zero, feats]), dim=0)
+    t = torch.arange(T, device=feats.device)
+    if opts.center:
+        s = torch.clamp(t - opts.cmn_window // 2, min=0)
+        e = torch.clamp(s + opts.cmn_window, max=T)
+        s = torch.clamp(torch.minimum(s, e - opts.cmn_window), min=0)
+    else:
+        # trailing window, but at least min_window frames at the start
+        s = torch.clamp(t + 1 - opts.cmn_window, min=0)
+        e = torch.clamp(t + 1, min=min(opts.min_window, T))
+    counts = (e - s).to(feats.dtype)[:, None]
+    means = (csum[e] - csum[s]) / counts
+    out = feats - means
+    if opts.normalize_variance:
+        csum2 = torch.cumsum(torch.cat([zero, feats ** 2]), dim=0)
+        var = (csum2[e] - csum2[s]) / counts - means ** 2
+        out = out / torch.sqrt(torch.clamp(var, min=1e-10))
     return out

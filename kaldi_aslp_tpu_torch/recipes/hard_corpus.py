@@ -29,9 +29,9 @@ ladder ordering AND the benchmark's sensitivity).
 
 Port of kaldi_aslp_tpu/recipes/hard_corpus.py: the synthesis is a numpy
 copy with the same seeds, so it gives the same waves bit for bit; the
-front end (MFCC, deltas, per-speaker CMVN) runs on the port's feats/ on
-a device, the card unless the caller asks for the CPU.  Pitch features
-are not ported (ROADMAP queue 1 item 5): ``use_pitch=True`` raises."""
+front end (MFCC, optional pitch, deltas, per-speaker CMVN) runs on the
+port's feats/ on a device, the card unless the caller asks for the
+CPU."""
 
 from __future__ import annotations
 
@@ -49,6 +49,11 @@ from kaldi_aslp_tpu_torch.feats.functions import (
 )
 from kaldi_aslp_tpu_torch.feats.mel import MelBanksOptions
 from kaldi_aslp_tpu_torch.feats.mfcc import Mfcc, MfccOptions
+from kaldi_aslp_tpu_torch.feats.pitch import (
+    PitchOptions,
+    compute_pitch_batched,
+    postprocess_pitch,
+)
 from kaldi_aslp_tpu_torch.feats.window import FrameExtractionOptions
 from kaldi_aslp_tpu_torch.fst.lang import Lang, Lexicon
 from kaldi_aslp_tpu_torch.utils.config import Config
@@ -318,19 +323,35 @@ def extract_mfcc_deltas_cmvn(
     compute_cmvn_stats.sh --per-speaker; per-speaker normalization is
     what makes the warped clusters learnable at all), on ``device``.
 
-    The MFCCs come from the bucketed batch extractor (feats/batch.py),
-    the deltas and the CMVN stats from feats/functions.py on the same
-    device; the features return to the host as float32 numpy arrays.
-    ``use_pitch`` (the make_mfcc_pitch.sh protocol of the JAX package)
-    raises: pitch is not ported (ROADMAP queue 1 item 5)."""
-    if use_pitch:
-        raise NotImplementedError(
-            "use_pitch: pitch features are not ported yet (ROADMAP "
-            "queue 1 item 5)")
+    ``use_pitch`` pastes 3-dim processed pitch (pov, mean-subtracted
+    log-pitch, delta log-pitch) onto the MFCCs before deltas — the
+    make_mfcc_pitch.sh protocol the reference's Mandarin recipes use
+    (egs/hkust/s5/run.sh); cepstra discard f0, so tonal inventories
+    are unlearnable without it.
+
+    The MFCCs come from the bucketed batch extractor (feats/batch.py)
+    and the raw pitch from ``compute_pitch_batched`` on the same device,
+    post-processed on the host as in the JAX package; the deltas and the
+    CMVN stats from feats/functions.py on the device; the features
+    return to the host as float32 numpy arrays."""
     mfcc = Mfcc(FrameExtractionOptions(samp_freq=SAMP_FREQ, dither=0.0),
                 MelBanksOptions(num_bins=23), MfccOptions(), device=device)
-    raw = {u: add_deltas(f)
-           for u, f in compute_batched(mfcc, waves).items()}
+    base = compute_batched(mfcc, waves)
+    if use_pitch:
+        raw_pitch = compute_pitch_batched(
+            waves, PitchOptions(samp_freq=SAMP_FREQ), device=device)
+        for u, f in base.items():
+            p = postprocess_pitch(raw_pitch[u])
+            T = len(f)
+            if len(p) < T:      # pitch needs max_lag lookahead, so it
+                # runs a couple of frames short; hold the last value
+                pad = np.repeat(p[-1:] if len(p) else
+                                np.zeros((1, 3), np.float32),
+                                T - len(p), axis=0)
+                p = np.concatenate([p, pad], axis=0)
+            base[u] = torch.cat([f, torch.from_numpy(p[:T]).to(f.device)],
+                                dim=1)
+    raw = {u: add_deltas(f) for u, f in base.items()}
     stats: Dict[str, torch.Tensor] = {}
     for u in sorted(raw):
         spk = utt2spk[u]

@@ -262,7 +262,17 @@ def test_synthesize_corpus_is_build_corpus_before_its_features():
 
 
 def test_pitch_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        hc.extract_mfcc_deltas_cmvn({"u": np.zeros(800, np.float32)},
-                                    {"u": "s"}, use_pitch=True,
-                                    device="cpu")
+    """The name is kept from before the port had pitch, when
+    ``use_pitch=True`` raised.  Pitch is ported now: on an utterance too
+    short for the pitch's lookahead (6 pitch frames for 8 MFCC frames,
+    the last pitch value held) the features are JAX's 48 columns.  Mean
+    normalization only: 8 frames' variance of a near-constant pitch
+    column is ill-conditioned in float32 (tests/test_torch_frontend.py
+    holds the variance-normalized features on whole utterances)."""
+    waves, u2s = {"u": _wave(1, 800, 8000)}, {"u": "s"}
+    got = hc.extract_mfcc_deltas_cmvn(waves, u2s, norm_vars=False,
+                                      use_pitch=True, device="cpu")
+    want = jax_hc.extract_mfcc_deltas_cmvn(waves, u2s, norm_vars=False,
+                                           use_pitch=True)
+    assert got["u"].shape == want["u"].shape == (8, 48)
+    np.testing.assert_allclose(got["u"], want["u"], **TOL)
