@@ -310,6 +310,25 @@ exits nonzero:
                 deltas, splice, feat-to-dim, fbank, copy, pitch,
                 spectrum) on the card against --device=cpu; one step by
                 part in a process started before the run.
+ 24. nnet-zoo - the latency-controlled BLSTM hybrid at the flagship's
+                widths (3 x BLstmProjectedStreamsLC, C=512, P=320, chunk
+                64, 40 inputs, float32, 3019 pdfs) from a proto through
+                aslp-nnet-init, about 10 BPTT steps of
+                aslp-nnet-train-blstm-streams-lc at the reader's 100
+                streams x 20 frames (each step 6 lstmp_train_fwd and 6
+                lstmp_train_bwd launches, per_step 0; a falling, finite
+                loss; the model reloads), one step's loss and gradients
+                against the CPU (the reader's first chunk), one step by
+                part with its launches and busy share, and again with
+                every layer's chunk at T (the same outputs without the
+                backward direction's 44 pad frames: the padding's cost)
+                (in a process started at the phase's start), and
+                aslp-nnet-forward-blstm-lc on LC_FORWARD_UTTS utterances
+                (6 lstmp_forward launches each, per_step 0, within
+                LC_LL_ATOL of --device=cpu, ms an utterance); then a DAG
+                of every other new component (zoo_net) forward and
+                backward against the CPU and 2 steps of
+                aslp-nnet-train-frame-mimo on it, with finite losses.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -4046,11 +4065,11 @@ DECODE_BATCH_UTTS = 16
 # the sets later phases decode, cut to their first utterances by name for
 # phase 23's time: the beam phase (and so the batched decode) 6 of phase
 # 14's 12 dev and 10 of its 20 test utterances; the GMM and DNN stages of
-# phases 19-20 10 test utterances (all 12 dev, for their LMWT choice);
-# phase 22's GMM budget sweep 6 dev utterances and timit_synth 10 of its
-# 20 test utterances
+# phases 19-20 6 test utterances (10 until phase 24 needed the time; all
+# 12 dev, for their LMWT choice); phase 22's GMM budget sweep 6 dev
+# utterances and timit_synth 10 of its 20 test utterances
 BEAM_SETS = dict(dev=6, test=10)
-GMM_SETS = dict(test=10)
+GMM_SETS = dict(test=6)
 SWEEP_SETS = dict(dev=6)
 TIMIT_TEST_UTTS = 10
 
@@ -5574,7 +5593,7 @@ def synth_recipes_phase(corpus, workdir):
 # MFCC + pitch inputs.  Depth cut for the script's time (PERF.md §4): the
 # newbob iterations (80 in the preset), the decoded test utterances (100)
 # and the training utterances (500).
-HKUST = dict(max_iters=2, num_decode=10, num_train=160)
+HKUST = dict(max_iters=2, num_decode=6, num_train=160)
 HKUST_FEAT_UTTS = 16     # training utterances' features, card vs CPU
 HKUST_WAVES = 4          # corpus waves for the front-end and CLI checks
 HKUST_SPLIT_REPS = 3
@@ -6160,6 +6179,552 @@ def hkust_run_and_check(out, run_s, launches, counters, seconds, captured,
     return {n: launches[n] for n in train_counts()}
 
 
+# -- phase 24: the nnet zoo ----------------------------------------------------
+
+LC_CHUNK = 64            # kaldi_aslp_tpu/models/recurrent.py:541-543
+# the sequence reader's defaults (reference: data-reader.h:58-60)
+LC_STREAMS, LC_FRAMES = 100, 20
+LC_UTTS = 64             # of 224-400 frames: about 20 steps at 100 x 20
+LC_ARGS = [f"--num-streams={LC_STREAMS}", f"--batch-size={LC_FRAMES}",
+           "--targets-delay=5", "--momentum=0.9"]
+LC_FORWARD_UTTS = 4      # of 200-400 frames through the forward CLI
+LC_LL_ATOL = 1e-4        # log-likelihoods, card vs --device=cpu
+LC_SPLIT_REPS = 5
+ZOO_TOL = 1e-4           # the zoo net's outputs and gradients, card vs CPU
+ZOO_MIMO_BATCH = 256     # the MIMO trainer's minibatch: 2 steps
+ZOO_STREAMS, ZOO_FRAMES = 8, 64
+
+
+def lc_proto() -> str:
+    """The LC-BLSTM hybrid: the flagship's BLSTMP stack (3 layers, C=512,
+    P=320 a direction, 40 inputs) with the latency-controlled layer, then
+    the LSTM hybrid's 3019-pdf output layer, float32."""
+    lines, din = ["<NnetProto>"], FEAT_DIM
+    for _ in range(LAYERS):
+        lines.append(f"<BLstmProjectedStreamsLC> <InputDim> {din} "
+                     f"<OutputDim> {2 * P} <CellDim> {C} "
+                     f"<ChunkSize> {LC_CHUNK}")
+        din = 2 * P
+    lines.append(f"<AffineTransform> <InputDim> {din} <OutputDim> "
+                 f"{HYBRID_PDFS} <ParamStddev> 0.04 <BiasMean> 0.0 "
+                 "<BiasRange> 0.0")
+    return "\n".join(lines + ["</NnetProto>"]) + "\n"
+
+
+def write_lc_files(workdir: str):
+    """The LC proto and a corpus of LC_UTTS utterances whose frame targets
+    are one of 32 pdfs, picked by the argmax of a fixed projection of the
+    frame (write_bptt_files's), plus LC_FORWARD_UTTS test utterances."""
+    from kaldi_aslp_tpu_torch.io import int_vector_writer, matrix_writer
+
+    rs = np.random.RandomState(1357)
+    proto = f"{workdir}/lc.proto"
+    with open(proto, "w") as f:
+        f.write(lc_proto())
+    proj = rs.randn(FEAT_DIM, 32)
+    pdfs = rs.choice(HYBRID_PDFS, 32, replace=False).astype(np.int32)
+    with matrix_writer(f"ark,scp:{workdir}/lc_feats.ark,"
+                       f"{workdir}/lc_feats.scp") as fw, \
+            int_vector_writer(f"ark:{workdir}/lc_ali.ark") as tw:
+        for i in range(LC_UTTS):
+            feats = rs.randn(rs.randint(224, 401), FEAT_DIM).astype(
+                np.float32)
+            fw[f"utt{i:02d}"] = feats
+            tw[f"utt{i:02d}"] = pdfs[np.argmax(feats @ proj, axis=1)]
+    with matrix_writer(f"ark:{workdir}/lc_test.ark") as fw:
+        for i in range(LC_FORWARD_UTTS):
+            fw[f"test{i}"] = rs.randn(rs.randint(200, 401), FEAT_DIM).astype(
+                np.float32)
+    return (proto, f"scp:{workdir}/lc_feats.scp", f"ark:{workdir}/lc_ali.ark",
+            f"ark:{workdir}/lc_test.ark")
+
+
+def lc_train_run(model, feats, targets, out):
+    """aslp-nnet-train-blstm-streams-lc on the card, its launches counted
+    from 0 just before it and read just after, and each step's."""
+    from kaldi_aslp_tpu_torch.train.trainer import LstmStreamsTrainer
+
+    wrappers = bptt_counts()
+    want = {"lstmp_train_fwd": 2 * LAYERS, "lstmp_train_bwd": 2 * LAYERS,
+            "lstmp_forward": 0}
+    steps = []
+    inner_step = LstmStreamsTrainer.step
+
+    def step(self, velocity, states, chunk, learn_rate):
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        states, loss, aux = inner_step(self, velocity, states, chunk,
+                                       learn_rate)
+        loss = float(loss)   # syncs the card
+        steps.append({"loss": loss, "s": time.perf_counter() - t0,
+                      "launches": {n: w.launches - before[n]
+                                   for n, w in wrappers.items()}})
+        return states, torch.tensor(loss), aux
+
+    LstmStreamsTrainer.step = step
+    try:
+        for w in wrappers.values():
+            w.launches = w.per_step = 0
+        t0 = time.perf_counter()
+        rc, printed = run_cli(["aslp-nnet-train-blstm-streams-lc",
+                               "--device=cuda", *LC_ARGS, feats, targets,
+                               model, out])
+        seconds = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in wrappers.items()}
+        per_step = {n: w.per_step for n, w in wrappers.items()}
+    finally:
+        LstmStreamsTrainer.step = inner_step
+    losses = [st["loss"] for st in steps]
+    if rc != 0 or len(steps) < 8 or "FRAME_ACCURACY" not in printed:
+        raise RuntimeError(f"LC trainer exit {rc}, {len(steps)} steps")
+    for st in steps:
+        if st["launches"] != want:
+            raise RuntimeError(f"an LC step launched {st['launches']}, "
+                               f"want {want}")
+    if any(per_step.values()):
+        raise RuntimeError(f"the LC run took the per-step kernels: "
+                           f"{per_step}")
+    q = max(len(losses) // 4, 1)
+    first, last = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
+    if not np.isfinite(losses).all() or not last < first:
+        raise RuntimeError(f"the LC loss did not fall: {losses}")
+    return {"steps": len(steps), "losses": losses, "seconds": seconds,
+            "step_s": [st["s"] for st in steps], "launches": launches,
+            "first_quarter_loss": first, "last_quarter_loss": last}
+
+
+def lc_train_check(model, feats, targets):
+    """One LC step's loss and parameter gradients on the card against the
+    CPU's plain versions, on the reader's first chunk at the tool's
+    LC_STREAMS x LC_FRAMES (the backward direction's kernels at
+    S = LC_STREAMS x n_chunks), from a nonzero carried state."""
+    from kaldi_aslp_tpu_torch.cli.train_tools import frame_source
+    from kaldi_aslp_tpu_torch.data.sequence import (
+        SequenceDataReader,
+        SequenceReaderOptions,
+    )
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.models.losses import xent_loss
+    from kaldi_aslp_tpu_torch.train.trainer import upload_chunk
+
+    chunk = next(iter(SequenceDataReader(
+        frame_source(feats, targets),
+        SequenceReaderOptions(num_streams=LC_STREAMS,
+                              batch_size=LC_FRAMES))))
+    rs = np.random.RandomState(5)
+    carried = {str(i): {"fwd": {
+        "c": uniform(rs, LC_STREAMS, C, scale=0.5),
+        "r": uniform(rs, LC_STREAMS, P, scale=0.5)}}
+        for i in range(LAYERS)}
+    out = {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        net, _ = Nnet.load(model, dev)
+        x, tgt, mask, _ = upload_chunk(chunk, dev)
+        states = {k: {"fwd": {kk: torch.from_numpy(vv).to(dev)
+                              for kk, vv in v["fwd"].items()}}
+                  for k, v in carried.items()}
+        net.train()
+        t0 = time.perf_counter()
+        y, _ = net(x, states, mask=mask)
+        loss, _ = xent_loss(y, tgt, mask)
+        loss.backward()
+        out[device] = (float(loss.detach()),
+                       {n: p.grad.cpu() for n, p in net.named_parameters()},
+                       time.perf_counter() - t0)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = {n: rel_err(g, out["cpu"][1][n])
+                for n, g in out["cuda"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    result = dict(streams=LC_STREAMS,
+                  frames=int(chunk.frame_mask.sum()),
+                  loss_cuda=out["cuda"][0], loss_cpu=out["cpu"][0],
+                  loss_rel=loss_rel, worst_grad=worst,
+                  worst_grad_rel=grad_rel[worst], cpu_step_s=out["cpu"][2],
+                  tol={"loss": BPTT_LOSS_RTOL, "grad": BPTT_GRAD_RTOL})
+    if loss_rel > BPTT_LOSS_RTOL or grad_rel[worst] > BPTT_GRAD_RTOL:
+        raise RuntimeError(f"LC step card vs CPU: {result}")
+    return result
+
+
+def lc_forward_run(model, test):
+    """aslp-nnet-forward-blstm-lc with --device=cuda, each utterance's
+    launches and ms, then the same tool with --device=cpu: the
+    log-likelihoods within LC_LL_ATOL."""
+    from kaldi_aslp_tpu_torch.decoder import decodable
+    from kaldi_aslp_tpu_torch.io import sequential_matrix_reader
+    from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
+
+    calls = []
+    inner = decodable.nnet_forward
+
+    def timed(net, feats, opts=None, prior=None):
+        before = lstmp_forward.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(net, feats, opts, prior)
+        calls.append({"frames": len(feats),
+                      "ms": 1e3 * (time.perf_counter() - t0),
+                      "launches": lstmp_forward.launches - before})
+        return out
+
+    lls = {}
+    for device in ("cuda", "cpu"):
+        lstmp_forward.launches = lstmp_forward.per_step = 0
+        decodable.nnet_forward = timed if device == "cuda" else inner
+        try:
+            ll = model.replace(".zip", f"_{device}.ark")
+            t0 = time.perf_counter()
+            rc, _ = run_cli(["aslp-nnet-forward-blstm-lc",
+                             f"--device={device}", model, test, f"ark:{ll}"])
+            seconds = time.perf_counter() - t0
+        finally:
+            decodable.nnet_forward = inner
+        if rc != 0:
+            raise RuntimeError(f"forward CLI --device={device}: exit {rc}")
+        lls[device] = (dict(sequential_matrix_reader(f"ark:{ll}")), seconds)
+        if device == "cuda":
+            launches, per_step = lstmp_forward.launches, \
+                lstmp_forward.per_step
+    cuda, cpu = lls["cuda"][0], lls["cpu"][0]
+    err = max(float(np.abs(cuda[u] - cpu[u]).max()) for u in cpu)
+    result = dict(utterances=len(calls), frames=[c["frames"] for c in calls],
+                  ms=[c["ms"] for c in calls],
+                  ms_per_utterance=float(np.median([c["ms"] for c in
+                                                    calls])),
+                  launches_per_utterance=[c["launches"] for c in calls],
+                  launches=launches, per_step=per_step, max_abs_err=err,
+                  cuda_s=lls["cuda"][1], cpu_s=lls["cpu"][1],
+                  finite=all(np.isfinite(v).all() for v in cuda.values()))
+    if (len(calls) != LC_FORWARD_UTTS or sorted(cuda) != sorted(cpu)
+            or any(c["launches"] != 2 * LAYERS for c in calls) or per_step
+            or err > LC_LL_ATOL or not result["finite"]):
+        raise RuntimeError(f"LC forward: {result}")
+    return result
+
+
+def zoo_step_process():
+    """The process zoo_step_split takes its step in, started at the
+    phase's start so that its imports are done when the job comes (late
+    in this process the profiler dropped kernels, PERF.md section 6)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.zoo_step_child()"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def zoo_step_child():
+    """In a fresh process: one LC-BLSTM hybrid step at S=100, T=20 on the
+    model named on standard input, by part with CUDA events, then its
+    kernel launches and device busy share by torch.profiler (the profile
+    must hold 6 forward and 6 backward LSTMP sweeps, else it is taken
+    again, at most 3 times), then the padding's cost: at T = 20 below the
+    chunk the backward direction sweeps 64 frames, 44 of them masked
+    no-ops, and with every layer's chunk set to T the same outputs come
+    without them (held equal here); printed as one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kaldi_aslp_tpu_torch.models import BLstmProjectedStreamsLC, Nnet
+    from kaldi_aslp_tpu_torch.models.losses import xent_loss
+    from kaldi_aslp_tpu_torch.ops import lstmp_train
+    from kaldi_aslp_tpu_torch.train import LstmStreamsTrainer, init_velocity
+    from kaldi_aslp_tpu_torch.train.sgd import NnetTrainOptions
+
+    lstmp_train.build()
+    ones = torch.ones(64, 64, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        ones.matmul(ones)
+        torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = sys.stdin.readline().strip()
+    dev = torch.device("cuda")
+    S, T = LC_STREAMS, LC_FRAMES
+    rs = np.random.RandomState(0)
+    feats = torch.from_numpy(rs.randn(S, T, FEAT_DIM).astype(np.float32)
+                             ).to(dev)
+    targets = torch.from_numpy(
+        rs.randint(0, HYBRID_PDFS, (S, T)).astype(np.int64)).to(dev)
+    mask = torch.ones((S, T), device=dev)
+    flags = torch.zeros((S,), dtype=torch.int32, device=dev)
+    net, _ = Nnet.load(model, dev)
+    trainer = LstmStreamsTrainer(net, NnetTrainOptions(learn_rate=1e-4,
+                                                       momentum=0.9))
+    velocity = init_velocity(net)
+    states = trainer.init_state(S)
+    batch = (feats, targets, mask, flags)
+    states, _, _ = trainer.step(velocity, states, batch, 1e-4)
+    torch.cuda.synchronize()
+
+    def split():
+        """The step's parts (ms, median of LC_SPLIT_REPS) and its host
+        ms, from the carried states; no update of the parameters' values
+        between the two layouts' splits changes their shapes."""
+        rows = []
+        for _ in range(LC_SPLIT_REPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            for p in net.parameters():
+                p.grad = None
+            t0 = time.perf_counter()
+            ev[0].record()
+            y, _ = net(feats, states, mask=mask)
+            ev[1].record()
+            loss, _ = xent_loss(y, targets, mask)
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            trainer._update(velocity, 1e-4)
+            ev[4].record()
+            torch.cuda.synchronize()
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+                        + [1e3 * (time.perf_counter() - t0)])
+        return np.median(np.asarray(rows), axis=0)
+
+    med = split()
+    step_ms = float(med[:4].sum())
+    want = {"lstmp_fwd_sweep_kernel": 2 * LAYERS,
+            "lstmp_bwd_sweep_kernel": 2 * LAYERS}
+    for taken in range(1, 4):
+        counts = {}
+        by_kernel = device_ms_by_kernel(
+            lambda: trainer.step(velocity, states, batch, 1e-4), counts)
+        seen = {w: sum(c for k, c in counts.items() if w in k)
+                for w in want}
+        if seen == want:
+            break
+    else:
+        raise RuntimeError(f"the LC step's profile holds {seen} of the "
+                           f"sweeps, want {want}")
+    kernels = {k: c for k, c in counts.items()
+               if not k.startswith(("Memcpy", "Memset"))}
+    device_ms = sum(v for k, v in by_kernel.items() if k in kernels)
+    sweep_ms = sum(v for k, v in by_kernel.items()
+                   if any(w in k for w in want))
+
+    layers = [c for c in net.nodes if isinstance(c, BLstmProjectedStreamsLC)]
+    with torch.no_grad():
+        padded, _ = net(feats, states, mask=mask)
+        for comp in layers:
+            comp.chunk_size = T
+        unpadded, _ = net(feats, states, mask=mask)
+    pad_err = float((padded - unpadded).abs().max())
+    if pad_err > BPTT_EVAL_RTOL * float(padded.abs().max()):
+        raise RuntimeError(f"chunk {T} parts from chunk {LC_CHUNK} at T = "
+                           f"{T} by {pad_err}")
+    med_unpadded = split()
+    unpadded_ms = float(med_unpadded[:4].sum())
+    print(json.dumps(dict(
+        S=S, T=T, C=C, P=P, chunk=LC_CHUNK, pdfs=HYBRID_PDFS,
+        forward_ms=float(med[0]), loss_ms=float(med[1]),
+        backward_ms=float(med[2]), update_ms=float(med[3]),
+        step_ms=step_ms, host_step_ms=float(med[4]),
+        frames_per_s=S * T / (step_ms / 1e3),
+        kernel_launches_per_step=sum(kernels.values()),
+        device_busy_ms=device_ms, device_busy_share=device_ms / step_ms,
+        sweep_device_ms=sweep_ms, profiles_taken=taken, sweeps=seen,
+        top_kernels=dict(sorted(kernels.items(),
+                                key=lambda kv: -kv[1])[:6]),
+        unpadded_step_ms=unpadded_ms,
+        unpadded_forward_ms=float(med_unpadded[0]),
+        unpadded_backward_ms=float(med_unpadded[2]),
+        padding_ms=step_ms - unpadded_ms,
+        padding_share=(step_ms - unpadded_ms) / step_ms,
+        unpadded_max_abs_diff=pad_err, reps=LC_SPLIT_REPS)), flush=True)
+
+
+def zoo_net(retention: float = 0.8):
+    """A two-input, two-output DAG of every new component besides the LC
+    layer: a 40-wide fbank and a 3-wide pitch stream joined in a BN,
+    spliced (-1..1) into a frequency CNN (8 patches of 8 bins every 5, 8
+    filters), max-pooled, a projection, cFSMN and RowConvolution
+    memories, CIFG and GRU branches added, shift, scale, Tanh, a Pnorm and
+    a Maxout half spliced and copied back, LengthNorm, ReLU, Dropout,
+    Transmit, Sigmoid, and two heads: a BlockSoftmax over 4:6 and a plain
+    output of 7."""
+    from kaldi_aslp_tpu_torch import models as M
+
+    net = M.Nnet(num_inputs=2)
+    # BN first: after a biased layer it would cancel that bias's gradient
+    # to rounding noise, which no two summation orders agree on
+    bn = net.add(M.BatchNormalization(43, 43), [("in:0", 0), ("in:1", 40)])
+    sp = net.add(M.Splice(43, 129, build_vector="-1:1"), [(bn, 0)])
+    cv = net.add(M.ConvolutionalComponent(
+        129, 64, patch_dim=8, patch_step=5, patch_stride=43,
+        param_stddev=0.05), [(sp, 0)])
+    mp = net.add(M.MaxPoolingComponent(64, 32, pool_size=2, pool_step=2,
+                                       pool_stride=8), [(cv, 0)])
+    lin = net.add(M.LinearTransform(32, 64), [(mp, 0)])
+    fs = net.add(M.CompactFsmn(64, 64, l_order=6, r_order=3, l_stride=2),
+                 [(lin, 0)])
+    rc = net.add(M.RowConvolution(64, 64, future_ctx=2), [(fs, 0)])
+    cf = net.add(M.LstmCifgProjectedStreams(64, 48, cell_dim=96), [(rc, 0)])
+    gr = net.add(M.GruStreams(64, 48), [(rc, 0)])
+    sh = net.add(M.AddShift(48, 48), [(cf, 0), (gr, 0)])
+    sc = net.add(M.Rescale(48, 48), [(sh, 0)])
+    th = net.add(M.Tanh(48, 48), [(sc, 0)])
+    pn = net.add(M.Pnorm(48, 24, p=2.0), [(th, 0)])
+    mx = net.add(M.Maxout(48, 24), [(th, 0)])
+    cp = net.add(M.CopyComponent(48, 48, build_vector="24:47 0:23"),
+                 [(pn, 0), (mx, 24)])
+    ln = net.add(M.LengthNorm(48, 48), [(cp, 0)])
+    rl = net.add(M.ReLU(48, 48), [(ln, 0)])
+    dr = net.add(M.Dropout(48, 48, dropout_retention=retention), [(rl, 0)])
+    tr = net.add(M.Transmit(48, 48), [(dr, 0)])
+    sg = net.add(M.Sigmoid(48, 48), [(tr, 0)])
+    head = net.add(M.AffineTransform(48, 10), [(sg, 0)])
+    net.add(M.BlockSoftmax(10, 10, block_dims="4:6"), [(head, 0)])
+    net.add(M.AffineTransform(48, 7), [(tr, 0)])
+    g = torch.Generator().manual_seed(24)
+    net.reset_parameters(g)
+    with torch.no_grad():
+        # off the constant inits (shift 0, scale 1, gamma 1, beta 0)
+        for p in net.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    return net
+
+
+def xent_heads(net):
+    """``zoo_net``'s components with the BlockSoftmax head's logits as
+    the first output, as a frame trainer's xent takes them."""
+    from kaldi_aslp_tpu_torch.models import Nnet
+
+    out = Nnet(num_inputs=2, output_ids=[len(net.nodes) - 3,
+                                         len(net.nodes) - 1])
+    for comp, edges in zip(net.nodes, net.node_inputs):
+        out.add(comp, edges)
+    return out
+
+
+def zoo_check(workdir):
+    """The zoo net's forward (eval and train) and backward on the card
+    against the CPU, then 2 steps of aslp-nnet-train-frame-mimo on the
+    card (the BlockSoftmax head's logits and the plain head, xent and
+    mse) with finite losses."""
+    from kaldi_aslp_tpu_torch.io import (
+        int_vector_writer,
+        matrix_writer,
+    )
+    from kaldi_aslp_tpu_torch.models import Nnet, simple
+
+    rs = np.random.RandomState(24)
+    S, T = ZOO_STREAMS, ZOO_FRAMES
+    xs = [rs.randn(S, T, 40).astype(np.float32),
+          rs.randn(S, T, 3).astype(np.float32)]
+    lens = rs.randint(T // 4, T + 1, S)
+    lens[0] = T
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    cots = [rs.randn(S, T, 10).astype(np.float32),
+            rs.randn(S, T, 7).astype(np.float32)]
+    net = zoo_net()
+    # training's Dropout keeps one mask, drawn here, on both devices: the
+    # card's generator draws other masks than the CPU's
+    keep = torch.from_numpy(np.random.RandomState(25).rand(S, T, 48) < 0.8)
+    draw = simple.dropout_keep
+    simple.dropout_keep = lambda shape, ret, gen, dev: keep.to(dev)
+    try:
+        errs = {}
+        for train in (False, True):
+            runs = {}
+            for device in ("cuda", "cpu"):
+                net.to(device).train(train)
+                net.zero_grad()
+                t = [torch.from_numpy(x).to(device).requires_grad_(True)
+                     for x in xs]
+                ys, _ = net(t, mask=torch.from_numpy(mask).to(device),
+                            generator=torch.Generator(device))
+                sum((y * torch.from_numpy(c).to(device)).sum()
+                    for y, c in zip(ys, cots)).backward()
+                got = {f"y{i}": y.detach().cpu() for i, y in enumerate(ys)}
+                got.update({n: p.grad.cpu() for n, p in net.named_parameters()
+                            if p.grad is not None})
+                got.update({f"dx{i}": x.grad.cpu() for i, x in enumerate(t)})
+                runs[device] = got
+            mode = "train" if train else "eval"
+            errs[mode] = {k: rel_err(v, runs["cpu"][k])
+                          for k, v in runs["cuda"].items()}
+            if not all(torch.isfinite(v).all() for v in runs["cuda"].values()):
+                raise RuntimeError(f"zoo net ({mode}) not finite on the card")
+    finally:
+        simple.dropout_keep = draw
+    worst = {m: max(e, key=e.get) for m, e in errs.items()}
+    result = dict(components=len(net.nodes),
+                  tokens=sorted({c.token for c in net.nodes}),
+                  worst={m: [w, errs[m][w]] for m, w in worst.items()},
+                  tol=ZOO_TOL)
+    if any(errs[m][w] > ZOO_TOL for m, w in worst.items()):
+        raise RuntimeError(f"zoo net card vs CPU: {result}")
+
+    model = f"{workdir}/zoo.zip"
+    xent_heads(net.cpu()).save(model)
+    frames = 2 * ZOO_MIMO_BATCH
+    names = [f"{workdir}/zoo_{n}.ark" for n in ("f1", "f2", "t1", "t2")]
+    with matrix_writer(f"ark:{names[0]}") as w1, \
+            matrix_writer(f"ark:{names[1]}") as w2, \
+            int_vector_writer(f"ark:{names[2]}") as wt1, \
+            matrix_writer(f"ark:{names[3]}") as wt2:
+        for u, n in enumerate((frames // 2, frames - frames // 2)):
+            w1[f"u{u}"] = rs.randn(n, 40).astype(np.float32)
+            w2[f"u{u}"] = rs.randn(n, 3).astype(np.float32)
+            wt1[f"u{u}"] = rs.randint(0, 10, n).astype(np.int32)
+            wt2[f"u{u}"] = rs.randn(n, 7).astype(np.float32)
+    t0 = time.perf_counter()
+    rc, printed = run_cli(["aslp-nnet-train-frame-mimo", "--device=cuda",
+                           "--objective-function=xent:mse",
+                           f"--minibatch-size={ZOO_MIMO_BATCH}",
+                           "--learn-rate=0.01",
+                           *[f"ark:{n}" for n in names], model,
+                           f"{workdir}/zoo_trained.zip"])
+    losses = [float(ln.split()[3]) for ln in printed.splitlines()
+              if "AvgLoss" in ln]
+    trained, _ = Nnet.load(f"{workdir}/zoo_trained.zip", "cpu")
+    result.update(mimo_steps=frames // ZOO_MIMO_BATCH, mimo_losses=losses,
+                  mimo_s=time.perf_counter() - t0)
+    if rc != 0 or len(losses) != 2 or not np.isfinite(losses).all() or \
+            not all(torch.isfinite(p).all() for p in trained.parameters()):
+        raise RuntimeError(f"MIMO trainer on the card: exit {rc}, {result}")
+    return result
+
+
+def zoo_phase(workdir):
+    """Phase 24: the LC-BLSTM hybrid at the flagship's widths through
+    aslp-nnet-init, -train-blstm-streams-lc and -forward-blstm-lc on the
+    card, its step against the CPU and by part, and the rest of the zoo.
+    Returns {kernel wrapper: launches} of the training and forward runs."""
+    t_phase = time.perf_counter()
+    child = zoo_step_process()
+    proto, feats, targets, test = write_lc_files(workdir)
+    model = f"{workdir}/lc.zip"
+    rc, _ = run_cli(["aslp-nnet-init", "--device=cuda", proto, model])
+    if rc != 0:
+        raise RuntimeError(f"aslp-nnet-init: exit {rc}")
+    t0 = time.perf_counter()
+    out = f"{workdir}/lc_trained.zip"
+    train = lc_train_run(model, feats, targets, out)
+    from kaldi_aslp_tpu_torch.models import Nnet
+    trained, _ = Nnet.load(out, "cpu")
+    if not all(torch.isfinite(p).all() for p in trained.parameters()):
+        raise RuntimeError("the trained LC model is not finite")
+    log("lc_train", **{k: v for k, v in train.items()},
+        reloads=True, train_s=time.perf_counter() - t0)
+    stdout, stderr = child.communicate(model + "\n", timeout=300)
+    if child.returncode != 0:
+        raise RuntimeError(f"LC step process failed: {stderr[-2000:]}")
+    split = json.loads(stdout.strip().splitlines()[-1])
+    log("lc_step_split", **split)
+    check = lc_train_check(model, feats, targets)
+    log("lc_check", **check)
+    forward = lc_forward_run(out, test)
+    log("lc_forward", **forward)
+    zoo = zoo_check(workdir)
+    log("zoo", **zoo)
+    log("zoo_phase", seconds=time.perf_counter() - t_phase, smi=smi_name_and_power(),
+        train_s=train["seconds"], step_ms=split["step_ms"],
+        ms_per_utterance=forward["ms_per_utterance"])
+    return {"lc_train": train["launches"],
+            "lc_forward": {"lstmp_forward": forward["launches"]}}
+
+
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
@@ -6272,13 +6837,14 @@ def main() -> int:
         t0 = time.perf_counter()
         runs["hkust"] = hkust_phase(workdir)
         log("hkust_phase", seconds=time.perf_counter() - t0)
+        zoo_launches = zoo_phase(workdir)
     serving_runs = {"serving": launches, "serve_batched": batched_launches,
                     "vad": vad_launches, "entry": entry_launches,
                     "ls_synth": ls_synth_forward}
     records = kernel_records(serving_runs, runs, bptt_launches,
                              kernel_results, train_results, xg_results,
                              lstm_results, recipe_wide, recipe_ctc,
-                             latgen_launches, batched_timings)
+                             latgen_launches, batched_timings, zoo_launches)
     log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
@@ -6290,7 +6856,8 @@ def main() -> int:
 
 def kernel_records(serving_runs, runs, bptt_launches, kernel_results,
                    train_results, xg_results, lstm_results, recipe_wide,
-                   recipe_ctc, latgen_launches, batched_timings):
+                   recipe_ctc, latgen_launches, batched_timings,
+                   zoo_launches):
     """The ten kernels' JSON entries from the phases' results."""
     def launched(name):
         return {run: n[name] for run, n in runs.items() if n[name]}
@@ -6326,7 +6893,9 @@ def kernel_records(serving_runs, runs, bptt_launches, kernel_results,
                       "lstm_pallas.py:43",
                       {**serving_runs,
                        "bptt_cv": bptt_launches["lstmp_forward_cv"],
-                       "latgen": latgen_launches},
+                       "latgen": latgen_launches,
+                       "lc_forward":
+                           zoo_launches["lc_forward"]["lstmp_forward"]},
                       kernel_results, served[2],
                       (served[2]["bound_ms"], served[2]["bound_by"]),
                       timed_at="S, T = 1, 16, both directions of a BLSTMP "
@@ -6371,7 +6940,9 @@ def kernel_records(serving_runs, runs, bptt_launches, kernel_results,
         sp = lstm_results["redesign"][kind]
         records.append(kernel_record(
             f"lstmp_train_{kind}", "lstmp_train.cu", f"lstm_pallas.py:{line}",
-            {"bptt": bptt_launches[f"lstmp_train_{kind}"]}, rows, timed,
+            {"bptt": bptt_launches[f"lstmp_train_{kind}"],
+             "lc_train": zoo_launches["lc_train"][f"lstmp_train_{kind}"]},
+            rows, timed,
             lstmp_train_bound(kind, *BPTT_SPLIT_SHAPE, HYBRID_C, HYBRID_P,
                               False),
             sweep_ms=sp["sweep_ms"], rest_ms=sp["rest_ms"],

@@ -2,10 +2,12 @@
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
 reference binaries; the port has the online servers and their client, the
-frame trainer, the CTC trainer, the BPTT trainer, the network forward, the
-lattice generator and lattice tools, the CD-phone tree tools, the feature
-tools (with pitch and spectrum), the syllable-prep tools, noise
-augmentation and compute-wer so far.  As in the JAX package, the BLSTM, LC-BLSTM, skip and
+frame trainers (MIMO included), the CTC trainer, the BPTT trainer, the
+network forwards, the model tools (init, info, copy, dot, insert,
+convert-to-standard), the alignment and matrix tools, the lattice
+generator and lattice tools, the CD-phone tree tools, the feature tools
+(with pitch and spectrum), the syllable-prep tools, noise augmentation and
+compute-wer so far (70 of the JAX registry's 103 names).  As in the JAX package, the BLSTM, LC-BLSTM, skip and
 per-utterance BPTT binaries are one trainer, the warp-ctc and per-utterance
 CTC binaries the CTC trainer, and the forward's -skip / -blstm-lc variants
 one forward:
@@ -56,6 +58,7 @@ TOOLS = {
     "aslp-nnet-train-simple": train_tools.nnet_train_simple,
     "aslp-nnet-train-mse": train_tools.nnet_train_simple,
     "aslp-nnet-train-frame": train_tools.nnet_train_simple,
+    "aslp-nnet-train-frame-mimo": train_tools.nnet_train_frame_mimo,
     "aslp-nnet-train-ctc-streams": train_tools.nnet_train_ctc_streams,
     # warp-ctc role is folded into the one CTC loss, as in the JAX package
     "aslp-nnet-train-warp-ctc-streams": train_tools.nnet_train_ctc_streams,
@@ -70,6 +73,24 @@ TOOLS = {
     "aslp-nnet-forward": nnet_tools.nnet_forward_cli,
     "aslp-nnet-forward-skip": nnet_tools.nnet_forward_cli,
     "aslp-nnet-forward-blstm-lc": nnet_tools.nnet_forward_cli,
+    "aslp-nnet-forward-mimo": nnet_tools.nnet_forward_mimo,
+    # aslp-nnetbin model tools
+    "aslp-nnet-init": nnet_tools.nnet_init,
+    "aslp-nnet-info": nnet_tools.nnet_info,
+    "aslp-nnet-copy": nnet_tools.nnet_copy,
+    "aslp-nnet-dot": nnet_tools.nnet_dot,
+    "aslp-nnet-insert": nnet_tools.nnet_insert,
+    "aslp-nnet-convert-to-standard": nnet_tools.nnet_convert_to_standard,
+    # bin / aslp-bin alignment and matrix tools
+    "ali-to-pdf": nnet_tools.ali_to_pdf,
+    "aslp-ali-to-pdf": nnet_tools.ali_to_pdf,
+    "aslp-ali-minus-one": nnet_tools.ali_minus_one,
+    "analyze-counts": nnet_tools.analyze_counts,
+    "aslp-ali-to-matrix": nnet_tools.ali_to_matrix,
+    "aslp-matrix-to-txt": nnet_tools.matrix_to_txt,
+    "aslp-txt-to-matrix": nnet_tools.txt_to_matrix,
+    "aslp-copy-vector-from-matrix": nnet_tools.copy_vector_from_matrix,
+    "aslp-extract-transition-to-pdf": nnet_tools.extract_transition_to_pdf,
     # latbin, bin
     "lattice-best-path": lat_tools.lattice_best_path_cli,
     "lattice-scale": lat_tools.lattice_scale_cli,

@@ -55,6 +55,21 @@ def write_token(f: BinaryIO, token: str) -> None:
     f.write(token.encode("utf-8") + b" ")
 
 
+def expect_token(f: BinaryIO, token: str) -> None:
+    got = read_token(f)
+    if got != token:
+        raise KaldiIOError(f"expected token {token!r}, got {got!r}")
+
+
+def peek_binary_marker(f: BinaryIO) -> bool:
+    """Consume b"\\0B" if present; return whether the stream is binary."""
+    pos = f.tell()
+    if f.read(2) == BINARY_MARKER:
+        return True
+    f.seek(pos)
+    return False
+
+
 def read_basic_int32(f: BinaryIO) -> int:
     size = f.read(1)
     if size != b"\x04":

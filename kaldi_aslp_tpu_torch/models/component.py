@@ -11,10 +11,16 @@ JAX key ``['params']['0']['fwd']['w_gifo_x']`` (models/interop.py).
 Data layout is the JAX package's: sequence components take [S, T, D]
 (streams, time, feature); frame-level components accept any [..., D].
 Recurrent components thread an explicit ``state`` and take a ``mask``
-[S, T] (1 = valid frame)."""
+[S, T] (1 = valid frame).
+
+``parse_proto_line`` / ``build_component`` read the reference's
+<NnetProto> lines (``<AffineTransform> <InputDim> 40 <OutputDim> 512
+...``; reference: Component::Init, nnet-component.cc), as
+kaldi_aslp_tpu/models/component.py:107-165 does."""
 
 from __future__ import annotations
 
+import shlex
 from typing import Any, Dict, List, Optional, Tuple, Type
 
 import torch
@@ -27,6 +33,8 @@ class Component(nn.Module):
     token: str = "<Component>"
     updatable: bool = False   # has parameters the trainer updates
     recurrent: bool = False   # takes a mask [S, T] and threads a state
+    masked: bool = False      # takes the mask without being recurrent
+    draws: bool = False       # takes a ``generator`` in training
 
     def __init__(self, input_dim: int, output_dim: int, **attrs):
         super().__init__()
@@ -79,3 +87,68 @@ def component_from_token(token: str) -> Type[Component]:
 
 def known_tokens() -> List[str]:
     return sorted({c.token for c in _REGISTRY.values()})
+
+
+# -- proto lines (reference: Component::Init, nnet-component.cc) -------------
+
+def parse_proto_line(line: str) -> Tuple[Type[Component], Dict[str, Any]]:
+    """Parse one ``<Token> <Key> value ...`` proto line.
+
+    Returns (component class, attrs with ``input_dim`` / ``output_dim``
+    and the other keys in snake case: ``<ParamStddev> 0.1`` gives
+    ``param_stddev=0.1``; a key with no value is ``True``)."""
+    toks = shlex.split(line)
+    if not toks or not toks[0].startswith("<"):
+        raise ValueError(f"bad proto line: {line!r}")
+    cls = component_from_token(toks[0])
+    attrs: Dict[str, Any] = {}
+    i = 1
+    while i < len(toks):
+        key = toks[i]
+        if not (key.startswith("<") and key.endswith(">")):
+            raise ValueError(f"expected <Key> in proto line, got {key!r}")
+        name = _snake(key[1:-1])
+        if i + 1 < len(toks) and not toks[i + 1].startswith("<"):
+            attrs[name] = _auto(toks[i + 1])
+            i += 2
+        else:
+            attrs[name] = True
+            i += 1
+    return cls, attrs
+
+
+def _snake(camel: str) -> str:
+    out = []
+    for i, c in enumerate(camel):
+        if c.isupper() and i > 0 and (not camel[i - 1].isupper()):
+            out.append("_")
+        out.append(c.lower())
+    return "".join(out)
+
+
+def _camel(snake: str) -> str:
+    return "".join(p.capitalize() for p in snake.split("_"))
+
+
+def _auto(s: str):
+    """A proto value as int, float, bool or, failing those, the string."""
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    if s.lower() in ("true", "false"):
+        return s.lower() == "true"
+    return s
+
+
+def build_component(line: str) -> Component:
+    """The component of one proto line, its parameters not yet drawn
+    (``reset_parameters`` draws them)."""
+    cls, attrs = parse_proto_line(line)
+    input_dim = attrs.pop("input_dim")
+    output_dim = attrs.pop("output_dim")
+    return cls(input_dim, output_dim, **attrs)

@@ -5,7 +5,11 @@ node id, then by the component's own keys
 (``{'0': {'fwd': {'w_gifo_x': array}}}``; kaldi_aslp_tpu/models/nnet.py).
 The port's ``Nnet`` holds its components in ``nodes`` (an
 ``nn.ModuleList``) under the same names, so the two map one to one:
-``['0']['fwd']['w_gifo_x']`` <-> ``nodes.0.fwd.w_gifo_x``.
+``['0']['fwd']['w_gifo_x']`` <-> ``nodes.0.fwd.w_gifo_x``.  The
+carried state (a recurrent layer's ``c`` / ``r`` / ``h``, an LC-BLSTMP's
+``fwd`` subtree, ``BatchNormalization``'s ``sum`` / ``sumsq`` /
+``count``) is the same nesting of node id and key on both sides, numpy
+arrays there and tensors here (``states_from_jax`` / ``states_to_jax``).
 
 A GMM acoustic model crosses as its numpy arrays: the JAX
 ``AmDiagGmm``'s ``weights``, ``means`` and ``vars`` and its transition
@@ -62,6 +66,22 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]
             node = node.setdefault(part, {})
         node[parts[-1]] = tensor.detach().cpu().numpy()
     return tree
+
+
+def states_from_jax(tree: Mapping[str, Any],
+                    device: torch.device) -> Dict[str, Any]:
+    """A JAX state pytree (nested dicts of arrays) -> the same nesting of
+    tensors, in the arrays' dtypes, on ``device``."""
+    if isinstance(tree, Mapping):
+        return {k: states_from_jax(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def states_to_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`states_from_jax`: tensors -> numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: states_to_jax(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
 
 
 def gmm_from_jax(am: Any, log_probs: np.ndarray,

@@ -9,8 +9,10 @@ same offset add; disjoint offsets splice.
 
 ``save``/``load`` read and write the JAX package's native format
 exactly (nnet.py:193-247): a zip holding ``topology.json`` and
-``arrays.npz`` keyed by JAX keystr paths (``['params']['0']['w']``), so
-a model written by either package loads in the other."""
+``arrays.npz`` keyed by JAX keystr paths (``['params']['0']['w']``,
+``['states']['2']['sum']``), so a model written by either package loads
+in the other.  ``from_proto`` builds a chain from <NnetProto> text;
+``info`` and ``to_dot`` print the JAX package's text."""
 
 from __future__ import annotations
 
@@ -25,11 +27,14 @@ from torch import nn
 
 from kaldi_aslp_tpu_torch.models.component import (
     Component,
+    build_component,
     component_from_token,
 )
 from kaldi_aslp_tpu_torch.models.interop import (
     params_from_jax,
     params_to_jax,
+    states_from_jax,
+    states_to_jax,
 )
 
 Source = Union[int, str]  # component id or "in:k"
@@ -70,7 +75,24 @@ class Nnet(nn.Module):
         self.node_inputs.append([tuple(e) for e in inputs])
         return len(self.nodes) - 1
 
+    @classmethod
+    def from_proto(cls, proto: str) -> "Nnet":
+        """A chain of the components of <NnetProto> text, one a line
+        (reference: nnet-nnet.cc:561 Init); their parameters are not yet
+        drawn (``reset_parameters``)."""
+        net = cls()
+        for line in proto.strip().splitlines():
+            line = line.strip()
+            if not line or line in ("<NnetProto>", "</NnetProto>"):
+                continue
+            net.add(build_component(line))
+        return net
+
     # -- shape bookkeeping --------------------------------------------------
+    @property
+    def input_dim(self) -> int:
+        return self.nodes[0].input_dim if len(self.nodes) else 0
+
     @property
     def output_dim(self) -> int:
         return sum(self.nodes[i].output_dim for i in self.output_ids())
@@ -82,6 +104,12 @@ class Nnet(nn.Module):
                     if isinstance(s, int)}
         outs = [i for i in range(len(self.nodes)) if i not in consumed]
         return outs or [len(self.nodes) - 1]
+
+    def num_components(self) -> int:
+        return len(self.nodes)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
 
     # -- params / state -----------------------------------------------------
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -107,14 +135,20 @@ class Nnet(nn.Module):
     # -- forward ------------------------------------------------------------
     def forward(self, inputs: Union[torch.Tensor, Sequence[torch.Tensor]],
                 states: Optional[Dict[str, Any]] = None,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """Run the DAG (reference: Propagate nnet-nnet.cc:70-106).
 
-        ``mask`` [S, T] goes to every recurrent component.  Training
-        threads through ``nn.Module.train()`` / ``.eval()``: each
-        component reads ``self.training``, where the JAX package passes
-        ``train=``.  Returns (outputs, new_states): outputs is a single
-        tensor if the net has one output, else a list."""
+        ``mask`` [S, T] goes to every recurrent component and to
+        ``BatchNormalization``, ``CompactFsmn`` and ``RowConvolution``
+        (the ``masked`` ones), as kaldi_aslp_tpu/models/nnet.py:155-158
+        rules.  ``generator`` goes to every component that draws in
+        training (``Dropout``), one after another where JAX splits one
+        key a node.  Training threads through ``nn.Module.train()`` /
+        ``.eval()``: each component reads ``self.training``, where the
+        JAX package passes ``train=``.  Returns (outputs, new_states):
+        outputs is a single tensor if the net has one output, else a
+        list."""
         input_list = (list(inputs) if isinstance(inputs, (list, tuple))
                       else [inputs])
         if len(input_list) != self.num_inputs:
@@ -125,7 +159,11 @@ class Nnet(nn.Module):
         new_states: Dict[str, Any] = {}
         for i, comp in enumerate(self.nodes):
             x = self._gather_input(i, input_list, outputs)
-            kwargs = {"mask": mask} if comp.recurrent else {}
+            kwargs: Dict[str, Any] = {}
+            if comp.recurrent or comp.masked:
+                kwargs["mask"] = mask
+            if comp.draws:
+                kwargs["generator"] = generator
             y, s = comp(x, states.get(str(i)), **kwargs)
             outputs[i] = y
             if s is not None:
@@ -169,7 +207,7 @@ class Nnet(nn.Module):
             ],
         }
         tree = {"params": params_to_jax(self.state_dict()),
-                "states": _states_to_numpy(states or {})}
+                "states": states_to_jax(states or {})}
         arrays = {_keystr(p): np.asarray(v) for p, v in _flatten(tree)}
         with zipfile.ZipFile(path, "w") as z:
             z.writestr("topology.json", json.dumps(topo))
@@ -201,17 +239,42 @@ class Nnet(nn.Module):
             node[keys[-1]] = arr
         net.load_state_dict(params_from_jax(trees["params"]), strict=True)
         net.to(device)
-        states = _states_to_torch(trees["states"], torch.device(device))
+        states = states_from_jax(trees["states"], torch.device(device))
         return net, states
 
+    # -- diagnostics --------------------------------------------------------
+    def info(self, with_params: bool = False) -> str:
+        """Human-readable summary (reference: aslp-nnet-info), the JAX
+        package's ``info(params)`` text with ``with_params``, else its
+        ``info()``."""
+        lines = [f"num-components {len(self.nodes)}",
+                 f"input-dim {self.input_dim}",
+                 f"output-dim {self.output_dim}"]
+        total = 0
+        for i, (comp, edges) in enumerate(zip(self.nodes,
+                                              self.node_inputs)):
+            extra = ""
+            if with_params:
+                cnt = sum(p.numel() for p in comp.parameters())
+                total += cnt
+                extra = f", {cnt} params"
+            lines.append(f"component {i} : {comp.token} "
+                         f"{comp.input_dim}->{comp.output_dim}"
+                         f" inputs={list(edges)}{extra}")
+        if with_params:
+            lines.append(f"number-of-parameters {total}")
+        return "\n".join(lines)
 
-def _states_to_numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _states_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
-
-
-def _states_to_torch(tree, device):
-    if isinstance(tree, dict):
-        return {k: _states_to_torch(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+    def to_dot(self) -> str:
+        """Graphviz dump (reference: WriteDotFile nnet-nnet.h:148)."""
+        lines = ["digraph nnet {"]
+        for k in range(self.num_inputs):
+            lines.append(f'  "in:{k}" [shape=box];')
+        for i, (comp, edges) in enumerate(zip(self.nodes,
+                                              self.node_inputs)):
+            lines.append(f'  n{i} [label="{i}:{comp.token.strip("<>")}"];')
+            for (src, off) in edges:
+                name = f'"{src}"' if isinstance(src, str) else f"n{src}"
+                lines.append(f'  {name} -> n{i} [label="{off}"];')
+        lines.append("}")
+        return "\n".join(lines)

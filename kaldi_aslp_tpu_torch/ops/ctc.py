@@ -13,9 +13,14 @@ EvalParallel, label expansion at :134-149).  Blank id 0 by default.
   - ``CtcLoss`` is the ``torch.autograd.Function`` counterpart of the JAX
     custom VJP: its backward is the occupancy formula
     dL/dlogit = softmax(logit) - gamma (ops/ctc.py:229-255), plain torch
-    ops, as the JAX package computes it outside any kernel."""
+    ops, as the JAX package computes it outside any kernel;
+  - ``ctc_greedy_decode`` and ``collapse_ctc_path`` are the best-path
+    decode (ops/ctc.py:261-277): argmax frames on the device, repeats and
+    blanks removed on the host."""
 
 from __future__ import annotations
+
+from typing import Iterable, List
 
 import torch
 
@@ -123,3 +128,24 @@ def ctc_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Per-sequence CTC negative log-likelihood [S]."""
     return CtcLoss.apply(logits, labels, input_lengths, label_lengths, blank)
 
+
+
+def ctc_greedy_decode(logits: torch.Tensor, input_lengths=None,
+                      blank: int = 0) -> torch.Tensor:
+    """Best-path frames (reference: ctc-loss.cc:346 ErrorRate path):
+    [S, T, V] -> [S, T] argmax (the first maximum at a tie, as
+    ``jnp.argmax``); :func:`collapse_ctc_path` turns a row into labels."""
+    return torch.argmax(logits, dim=-1)
+
+
+def collapse_ctc_path(path: Iterable, length, blank: int = 0) -> List[int]:
+    """The labels of a best path's first ``length`` frames: repeats
+    merged, then blanks removed (host-side, any sequence of ints)."""
+    out = []
+    prev = None
+    for v in list(path)[: int(length)]:
+        v = int(v)
+        if v != prev and v != blank:
+            out.append(v)
+        prev = v
+    return out

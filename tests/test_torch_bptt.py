@@ -353,13 +353,24 @@ def test_cli_names_map_to_the_bptt_trainer_as_in_jax():
 
 
 def test_cli_refuses_a_model_with_a_component_the_port_lacks(tmp_path):
+    import json
+    import zipfile
+
     from kaldi_aslp_tpu.models.simple import Tanh
-    # Tanh is not ported yet (ROADMAP queue 1 item 9)
+    # every JAX token is ported, so the model file names one neither
+    # package registers in place of the Tanh
     net_j = JaxNnet()
     net_j.add(JaxAffine(D, 8))
     net_j.add(Tanh(8, 8))
     net_j.add(JaxAffine(8, V))
-    net_j.save(str(tmp_path / "dnn.zip"), net_j.init(jax.random.PRNGKey(0)))
+    net_j.save(str(tmp_path / "tanh.zip"), net_j.init(jax.random.PRNGKey(0)))
+    with zipfile.ZipFile(tmp_path / "tanh.zip") as z:
+        topo = json.loads(z.read("topology.json"))
+        arrays = z.read("arrays.npz")
+    topo["nodes"][1]["token"] = "<NoSuchComponent>"
+    with zipfile.ZipFile(tmp_path / "dnn.zip", "w") as z:
+        z.writestr("topology.json", json.dumps(topo))
+        z.writestr("arrays.npz", arrays)
     feats, targets = _write_corpus(tmp_path, _corpus([5], seed=9))
     with pytest.raises(ValueError, match="unknown component token"):
         cli_main(["aslp-nnet-train-lstm-streams", "--device=cpu", feats,

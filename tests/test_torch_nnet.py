@@ -139,9 +139,20 @@ def test_unknown_token_is_an_error(tmp_path):
     net = JaxNnet()
     net.add(JaxAffine(4, 4))
     net.add(Tanh(4, 4))
-    net.save(str(tmp_path / "m.zip"), net.init(jax.random.PRNGKey(0)))
-    with pytest.raises(ValueError, match="<Tanh>"):
+    net.save(str(tmp_path / "tanh.zip"), net.init(jax.random.PRNGKey(0)))
+    # every JAX token is ported, so the file names one neither package
+    # registers in place of the Tanh
+    with zipfile.ZipFile(tmp_path / "tanh.zip") as z:
+        topo = json.loads(z.read("topology.json"))
+        arrays = z.read("arrays.npz")
+    topo["nodes"][1]["token"] = "<NoSuchComponent>"
+    with zipfile.ZipFile(tmp_path / "m.zip", "w") as z:
+        z.writestr("topology.json", json.dumps(topo))
+        z.writestr("arrays.npz", arrays)
+    with pytest.raises(ValueError, match="<NoSuchComponent>"):
         Nnet.load(str(tmp_path / "m.zip"), "cpu")
+    assert type(Nnet.load(str(tmp_path / "tanh.zip"), "cpu")[0].nodes[1]
+                ).__name__ == "Tanh"
 
 
 @pytest.mark.parametrize("pallas", [True, False])
