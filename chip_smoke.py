@@ -329,6 +329,33 @@ exits nonzero:
                 of every other new component (zoo_net) forward and
                 backward against the CPU and 2 steps of
                 aslp-nnet-train-frame-mimo on it, with finite losses.
+ 25. kws-vad  - the VAD recipe (24 training and 8 test utterances: the
+                energy VAD's frame scores, the GMM VAD's 16-gaussian
+                float64 EM, the DNN VAD's 3 FrameTrainer epochs, the
+                segments and TextGrid) and the KWS recipe (30 training
+                utterances and their 30 simulated copies, 20 test
+                utterances: a 64-wide phone DNN, 8 epochs, the spotter)
+                at the JAX defaults on the card, initial weights from a
+                numpy seed, against the same runs on the CPU in a child
+                process started at the phase's start (apps_cpu_child):
+                results and KWS confidences within APP_TOL, the GMM VAD's
+                masks equal, segment.info, u0.TextGrid and keyword.fst.txt
+                byte for byte; then the application CLI on their outputs,
+                each tensor tool with --device=cuda against --device=cpu
+                (aslp-nnet-forward on both nets, gmm-global-init-from-feats
+                for silence and speech, aslp-apply-gmm-vad,
+                aslp-eval-gmm-vad, aslp-apply-energy-vad) and the host
+                tools against the recipes (aslp-kws-score,
+                aslp-kws-evaluation-roc, aslp-apply-nn-vad,
+                -nn-vad-segment, aslp-eval-vad, -vad-boundary,
+                aslp-gen-textgrid, aslp-kws-gen-text-fst, aslp-fst-init,
+                -info, -to-dot through a symbol table,
+                aslp-kws-convert-phone-ali); aslp-kws-gen-state-map on
+                phase 20's pickled tri model and tree (its files equal to
+                the CPU child's); aslp-log-analyse on the run's training
+                log (capture_progress: every ProgressLoss line of the
+                earlier phases); one frame-training step of the KWS net
+                by CUDA events and torch.profiler.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -512,8 +539,8 @@ LATTICE_BEAM = 8.0
 LMWT_RANGE = range(4, 16)
 # utterances of each set (by name) the lattice-score phase decodes: 8 of
 # dev's 12 and of test's 20 (all of them cut for phase 20's time), then 4
-# for phase 23's
-SCORE_UTTS = 4
+# for phase 23's, then 2 for phase 25's
+SCORE_UTTS = 2
 # card vs CPU: MFCC + deltas + CMVN as the fbank tests hold them; a
 # training step's loss relative and gradients relative to each
 # parameter's largest |gradient| (float32, TF32 off); log posteriors
@@ -4060,18 +4087,23 @@ def punctuation_phase(vad_paths):
 
 DECODE_BATCH = 8
 # of the beam phase's utterances, those batched (by name; 32 until phase
-# 23 needed the time)
-DECODE_BATCH_UTTS = 16
+# 23 needed the time, 16 until phase 25)
+DECODE_BATCH_UTTS = 8
 # the sets later phases decode, cut to their first utterances by name for
 # phase 23's time: the beam phase (and so the batched decode) 6 of phase
 # 14's 12 dev and 10 of its 20 test utterances; the GMM and DNN stages of
 # phases 19-20 6 test utterances (10 until phase 24 needed the time; all
 # 12 dev, for their LMWT choice); phase 22's GMM budget sweep 6 dev
-# utterances and timit_synth 10 of its 20 test utterances
-BEAM_SETS = dict(dev=6, test=10)
+# utterances and timit_synth 10 of its 20 test utterances.  For phase 25
+# (whole runs took 1,121.5 and 1,225.4 s with it, on hosts up to 16 %
+# slower than a 1,053.7 s run without it; phase 25 8.5-12.7 s): the beam
+# phase's test set 6, the budget sweep 3 dev, timit_synth 5 test
+# utterances (and ls_synth's decodes, hkust's iterations, the
+# lattice-score utterances and the batched decode above and below)
+BEAM_SETS = dict(dev=6, test=6)
 GMM_SETS = dict(test=6)
-SWEEP_SETS = dict(dev=6)
-TIMIT_TEST_UTTS = 10
+SWEEP_SETS = dict(dev=3)
+TIMIT_TEST_UTTS = 5
 
 
 def first_utts(corpus, **sizes):
@@ -5093,6 +5125,17 @@ def tri_phase(corpus, art, child, workdir):
     if any(launches.values()):
         raise RuntimeError(f"the tri phase launched hand kernels: "
                            f"{launches}")
+    # the tri system's transition model and tree, pickled as the port's
+    # tools write them, for phase 25's aslp-kws-gen-state-map
+    import pickle
+
+    out = {"lang": corpus["lang"], "mdl": f"{workdir}/tri.mdl",
+           "tree": f"{workdir}/tri.tree",
+           "num_transition_ids": tri_art["tm1"].num_transition_ids}
+    for key, obj in (("mdl", tri_art["tm1"]), ("tree", tri_art["tri"].tree)):
+        with open(out[key], "wb") as f:
+            pickle.dump(obj, f)
+    return out
 
 
 # -- phase 21: ls_synth ------------------------------------------------------
@@ -5104,9 +5147,10 @@ def tri_phase(corpus, art, child, workdir):
 # cut for the script's time: 20 of the 100 test utterances decoded and
 # rescored, then 24 of the 48 newbob iterations (a proof run took 1,146.8
 # s of the 1,200 with 40 decodes, 19.7 s, and 48 iterations, 35.2 s);
-# then, for phase 23's room, 10 decodes and 12 iterations
+# then, for phase 23's room, 10 decodes and 12 iterations; 5 decodes for
+# phase 25's
 LS_SYNTH = dict(num_words=1000, num_train=1200, num_test=100, max_iters=12)
-LS_DECODE_UTTS = 10      # test utterances decoded and rescored (by name)
+LS_DECODE_UTTS = 5       # test utterances decoded and rescored (by name)
 LS_LATTICE_UTTS = 3      # of them, decoded on the CPU too
 LS_SPLIT_REPS = 5
 
@@ -5592,8 +5636,10 @@ def synth_recipes_phase(corpus, workdir):
 # training speakers, a BLSTM of 160 cells a direction in 3 layers on 48
 # MFCC + pitch inputs.  Depth cut for the script's time (PERF.md §4): the
 # newbob iterations (80 in the preset), the decoded test utterances (100)
-# and the training utterances (500).
-HKUST = dict(max_iters=2, num_decode=6, num_train=160)
+# and the training utterances (500); 4 decodes and 1 iteration since
+# phase 25 (6 decodes took 28.4 s of a proof run's 102.5, an iteration
+# 12.7 s).
+HKUST = dict(max_iters=1, num_decode=4, num_train=160)
 HKUST_FEAT_UTTS = 16     # training utterances' features, card vs CPU
 HKUST_WAVES = 4          # corpus waves for the front-end and CLI checks
 HKUST_SPLIT_REPS = 3
@@ -6725,6 +6771,480 @@ def zoo_phase(workdir):
             "lc_forward": {"lstmp_forward": forward["launches"]}}
 
 
+# -- phase 25: kws-vad ---------------------------------------------------------
+
+APP_TOL = 1e-4            # KWS confidences, AUC and EER, card vs CPU
+APP_FMT_TOL = 5.1e-5      # a value printed to 4 decimals against its own
+APP_POST_ATOL = 1e-5      # the nets' posteriors through aslp-nnet-forward
+APP_GMM_RTOL = 1e-5       # gmm-global-init-from-feats' files, card vs CPU
+APP_FBANK_DIM = 23        # the recipes' fbank (23 mel bins, no energy)
+APP_SEEDS = {"vad": 25, "kws": 26}   # numpy seeds of the initial weights
+APP_STEP_REPS = 50
+# ProgressLoss lines every 6 minutes of 10 ms frames (the reporter's
+# default is an hour, which none of the script's training runs reaches),
+# so the earlier phases' training log carries lines for aslp-log-analyse
+PROGRESS_FRAMES = 36_000
+
+
+def capture_progress(workdir):
+    """The training log of the whole run: the reporters' ProgressLoss
+    lines into ``workdir/train_progress.log`` (and on to stderr as
+    before), one every PROGRESS_FRAMES frames."""
+    import logging
+
+    from kaldi_aslp_tpu_torch.models.losses import LossReporter
+    from kaldi_aslp_tpu_torch.utils.log import get_logger
+
+    LossReporter.PROGRESS_STEP = PROGRESS_FRAMES
+    path = os.path.join(workdir, "train_progress.log")
+    get_logger("nnet-loss").addHandler(logging.FileHandler(path))
+    return path
+
+
+def app_init(name):
+    """A recipe's initial DNN weights (the port's state dict) from the
+    numpy seed APP_SEEDS[name], uniform in [-0.1, 0.1]."""
+    from kaldi_aslp_tpu_torch.recipes import kws, vad
+
+    net = {"vad": vad, "kws": kws}[name].build_net(APP_FBANK_DIM)
+    rs = np.random.RandomState(APP_SEEDS[name])
+    return {k: torch.from_numpy(uniform(rs, *v.shape))
+            for k, v in net.state_dict().items()}
+
+
+def app_recipes(root, device):
+    """Both recipes at the JAX defaults on ``device``: their results, the
+    KWS confidences an utterance, the GMM VAD's test masks, seconds."""
+    from kaldi_aslp_tpu_torch.recipes import kws, vad
+
+    out = {}
+    t0 = time.perf_counter()
+    out["vad"] = vad.run(f"{root}/vad", init_params=app_init("vad"),
+                         device=device)
+    out["vad_s"] = time.perf_counter() - t0
+    art = vad.run.artifacts
+    out["gmm_masks"] = [art["gmm_vad"].detect(f - art["cmn"]).tolist()
+                        for f in art["test_feats"]]
+    t0 = time.perf_counter()
+    out["kws"] = kws.run(f"{root}/kws", init_params=app_init("kws"),
+                         device=device)
+    out["kws_s"] = time.perf_counter() - t0
+    out["kws_scores"] = dict(kws.run.artifacts["scores"])
+    return out
+
+
+def apps_cpu_child(job):
+    """In a process of its own, beside the card's run: both recipes on the
+    CPU with the card's initial weights, and aslp-kws-gen-state-map on
+    the card run's pickles; one JSON line."""
+    from kaldi_aslp_tpu_torch.cli.__main__ import main as cli_main
+
+    torch.set_num_threads(4)
+    with open(job) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    out = app_recipes(spec["root"], "cpu")
+    out["state_map_rc"] = cli_main(spec["state_map_args"])
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def quiet_cli(argv):
+    """The CLI's stdout, not echoed; raises on a nonzero exit."""
+    from kaldi_aslp_tpu_torch.cli.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]}: exit {rc}")
+    return out.getvalue()
+
+
+def int_table(path):
+    from kaldi_aslp_tpu_torch.io import sequential_int_vector_reader
+    return {k: v.tolist() for k, v in
+            sequential_int_vector_reader(f"ark:{path}")}
+
+
+def mat_table(path):
+    from kaldi_aslp_tpu_torch.io import sequential_matrix_reader
+    return dict(sequential_matrix_reader(f"ark:{path}"))
+
+
+def both_devices(tool, args, outs):
+    """``tool`` with --device=cuda and --device=cpu on the same inputs;
+    ``outs`` are the positions in ``args`` of output paths, given a
+    ``{dev}`` to fill.  Returns ({dev: stdout}, {dev: [paths]}, seconds
+    of the card run)."""
+    stdout, paths, card_s = {}, {}, 0.0
+    for dev in ("cuda", "cpu"):
+        filled = [a.format(dev=dev) for a in args]
+        t0 = time.perf_counter()
+        stdout[dev] = quiet_cli([tool, f"--device={dev}"] + filled)
+        if dev == "cuda":
+            card_s = time.perf_counter() - t0
+        paths[dev] = [filled[i].split(":", 1)[-1] for i in outs]
+    return stdout, paths, card_s
+
+
+def write_app_files(d, vad_art, kws_art):
+    """The tables the CLI chain reads: features less the recipes' CMN,
+    labels, waves, the VAD train set's sil / speech masks, the KWS phone
+    alignments, the nets as model zips."""
+    from kaldi_aslp_tpu_torch.io import (
+        WaveData,
+        int_vector_writer,
+        matrix_writer,
+        write_wave,
+    )
+
+    os.makedirs(d, exist_ok=True)
+    with matrix_writer(f"ark:{d}/vad_test.ark") as fw, \
+            int_vector_writer(f"ark:{d}/vad_ref.ark") as lw:
+        for i, (f, lab) in enumerate(zip(vad_art["test_feats"],
+                                         vad_art["test_labels"])):
+            fw[f"utt{i}"] = f - vad_art["cmn"]
+            lw[f"utt{i}"] = lab
+    with matrix_writer(f"ark:{d}/vad_train.ark") as fw, \
+            int_vector_writer(f"ark:{d}/speech.ark") as sw, \
+            int_vector_writer(f"ark:{d}/sil.ark") as nw:
+        for i, (f, lab) in enumerate(zip(vad_art["train_feats"],
+                                         vad_art["train_labels"])):
+            fw[f"utt{i}"] = f - vad_art["cmn"]
+            sw[f"utt{i}"], nw[f"utt{i}"] = lab, 1 - lab
+    lines = []
+    for i, w in enumerate(vad_art["test_wavs"]):
+        write_wave(f"{d}/utt{i}.wav", WaveData(8000.0, w[None]))
+        lines.append(f"utt{i} {d}/utt{i}.wav")
+    with open(f"{d}/wav.scp", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with matrix_writer(f"ark:{d}/kws_test.ark") as fw:
+        for i, f in enumerate(kws_art["test_feats"]):
+            fw[f"utt{i}"] = f - kws_art["cmn"]
+    # the clean training utterances' frame phone labels, 1-based
+    with int_vector_writer(f"ark:{d}/phone_ali.ark") as w:
+        for i, lab in enumerate(kws_art["train_labels"][:len(
+                kws_art["train_labels"]) // 2]):
+            w[f"utt{i}"] = lab + 1
+    vad_art["net"].save(f"{d}/vad.zip")
+    kws_art["net"].save(f"{d}/kws.zip")
+    with open(f"{d}/kw.txt", "w") as f:
+        f.write("niho ee ii oo\n")
+
+
+def app_kws_chain(d, kws_art, recipe_root):
+    """aslp-nnet-forward (the KWS net) -> aslp-kws-score ->
+    aslp-kws-evaluation-roc, on the card and on the CPU; the keyword
+    tools (text FST, fst-init / -info / -to-dot through a symbol table,
+    convert-phone-ali)."""
+    from kaldi_aslp_tpu_torch.fst.fst import SymbolTable
+    from kaldi_aslp_tpu_torch.kws import roc_sweep
+    from kaldi_aslp_tpu_torch.recipes import kws
+
+    out = {}
+    fwd = ["--no-softmax=true", "--apply-log=false", f"{d}/kws.zip",
+           f"ark:{d}/kws_test.ark", "ark:" + d + "/kws_post_{dev}.ark"]
+    _, paths, out["kws_forward_s"] = both_devices("aslp-nnet-forward",
+                                                  fwd, [4])
+    card, cpu = (mat_table(paths[k][0]) for k in ("cuda", "cpu"))
+    out["kws_post_err"] = max(float(np.abs(card[u] - cpu[u]).max())
+                              for u in cpu)
+    if out["kws_post_err"] > APP_POST_ATOL or list(card) != list(cpu):
+        raise RuntimeError(f"KWS posteriors, card vs CPU: {out}")
+    cols = ",".join(str(kws.PHONES.index(p)) for p in kws.KEYWORD_PHONES)
+    scored = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        scored[dev] = quiet_cli([
+            "aslp-kws-score", f"--keywords={kws.KEYWORD}:{cols}",
+            "--confidence-threshold=0", f"ark:{paths[dev][0]}"])
+        out[f"kws_score_{dev}_s"] = time.perf_counter() - t0
+    if scored["cuda"] != scored["cpu"]:
+        raise RuntimeError("aslp-kws-score differs, card vs CPU")
+    conf = {ln.split()[0]: float(ln.split()[2])
+            for ln in scored["cuda"].splitlines()}
+    out["kws_score_err"] = max(abs(conf.get(u, 0.0) - s)
+                               for u, s in kws_art["scores"].items())
+    if out["kws_score_err"] > APP_FMT_TOL:
+        raise RuntimeError(f"aslp-kws-score against the recipe: {out}")
+    with open(f"{d}/score.txt", "w") as f:
+        f.writelines(f"{u} {c:.4f}\n" for u, c in conf.items())
+    labels = {f"utt{i}": y for i, y in enumerate(kws_art["test_flags"])}
+    with open(f"{d}/label.txt", "w") as f:
+        f.writelines(f"{u} {y}\n" for u, y in labels.items())
+    roc = quiet_cli(["aslp-kws-evaluation-roc", f"{d}/score.txt",
+                     f"{d}/label.txt"])
+    want = "".join(f"thresh {t:f} acc {a:f} false_reject {r:f} "
+                   f"false_alarm {fa:f}\n" for t, a, r, fa in roc_sweep(
+                       {u: float(f"{c:.4f}") for u, c in conf.items()},
+                       labels))
+    if roc != want:
+        raise RuntimeError("aslp-kws-evaluation-roc differs from roc_sweep")
+    # the keyword-filler FST: the tool's text is the recipe's; its symbol
+    # names compiled to integer labels for the FST tools
+    quiet_cli(["aslp-kws-gen-text-fst", f"{d}/kw.txt", f"{d}/kw.fst.txt"])
+    with open(f"{d}/kw.fst.txt") as f, \
+            open(f"{recipe_root}/kws/keyword.fst.txt") as g:
+        text = f.read()
+        if text != g.read():
+            raise RuntimeError("aslp-kws-gen-text-fst differs from the "
+                               "recipe's keyword.fst.txt")
+    isyms, osyms = SymbolTable(), SymbolTable()
+    lines = []
+    for ln in text.splitlines():
+        p = ln.split()
+        if len(p) == 4:
+            p[2], p[3] = str(isyms.add(p[2])), str(osyms.add(p[3]))
+        lines.append(" ".join(p))
+    with open(f"{d}/kw.fst.int", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    quiet_cli(["aslp-fst-init", f"{d}/kw.fst.int", f"{d}/kw.fst"])
+    info = quiet_cli(["aslp-fst-info", f"{d}/kw.fst"])
+    quiet_cli(["aslp-fst-to-dot", f"{d}/kw.fst", f"{d}/kw.dot"])
+    with open(f"{d}/kw.dot") as f:
+        dot = f.read()
+    n_arcs = len(lines) - 1
+    if (f"num-states {3 + len(kws.KEYWORD_PHONES)}\nnum-arcs {n_arcs}\n"
+            "num-final 1\nstart 0\n") not in info or \
+            dot.count("->") != n_arcs:
+        raise RuntimeError(f"the keyword FST's tools: {info!r}")
+    # convert-phone-ali: sil, the keyword phones, the rest as filler
+    ids = {p: i + 1 for i, p in enumerate(kws.PHONES)}
+    new = {p: (1 if p == "sil" else 3 + kws.KEYWORD_PHONES.index(p)
+               if p in kws.KEYWORD_PHONES else 2) for p in kws.PHONES}
+    with open(f"{d}/phone.map", "w") as f:
+        f.writelines(f"{ids[p]} {new[p]}\n" for p in kws.PHONES)
+    quiet_cli(["aslp-kws-convert-phone-ali", f"{d}/phone.map",
+               f"ark:{d}/phone_ali.ark", f"ark:{d}/kws_ali.ark"])
+    lut = np.array([0] + [new[p] for p in kws.PHONES])
+    if int_table(f"{d}/kws_ali.ark") != {
+            u: lut[np.asarray(a)].tolist()
+            for u, a in int_table(f"{d}/phone_ali.ark").items()}:
+        raise RuntimeError("aslp-kws-convert-phone-ali")
+    out["kws_fst"] = info.split()[1::2][:2]
+    return out
+
+
+def app_vad_chain(d, vad_art, vad_results, recipe_root):
+    """The VAD tools: aslp-nnet-forward (the VAD net) ->
+    aslp-apply-nn-vad-segment / aslp-apply-nn-vad -> aslp-eval-vad,
+    aslp-eval-vad-boundary; aslp-gen-textgrid on the recipe's
+    segment.info; aslp-apply-energy-vad; gmm-global-init-from-feats
+    (silence and speech) -> aslp-apply-gmm-vad -> aslp-eval-gmm-vad; the
+    tensor tools on the card and on the CPU."""
+    from kaldi_aslp_tpu_torch.io import matrix_writer
+    from kaldi_aslp_tpu_torch.recipes import vad
+    from kaldi_aslp_tpu_torch.vad import NnetVad, VadOptions
+
+    out = {}
+    fwd = ["--no-softmax=true", "--apply-log=false", f"{d}/vad.zip",
+           f"ark:{d}/vad_test.ark", "ark:" + d + "/vad_post_{dev}.ark"]
+    _, paths, out["vad_forward_s"] = both_devices("aslp-nnet-forward",
+                                                  fwd, [4])
+    card, cpu = (mat_table(paths[k][0]) for k in ("cuda", "cpu"))
+    out["vad_post_err"] = max(float(np.abs(card[u] - cpu[u]).max())
+                              for u in cpu)
+    if out["vad_post_err"] > APP_POST_ATOL:
+        raise RuntimeError(f"VAD posteriors, card vs CPU: {out}")
+    post = f"ark:{paths['cuda'][0]}"
+    quiet_cli(["aslp-apply-nn-vad-segment", post, f"{d}/segments.txt"])
+    quiet_cli(["aslp-apply-nn-vad", post, f"ark:{d}/nn_mask.ark"])
+    masks = int_table(f"{d}/nn_mask.ark")
+    nvad = NnetVad(VadOptions(sil_pdf_ids="0"))
+    for i, p in enumerate(vad_art["test_posteriors"]):
+        if masks[f"utt{i}"] != nvad.detect_from_posteriors(p).astype(
+                np.int32).tolist():
+            raise RuntimeError(f"aslp-apply-nn-vad, utt{i}")
+    with open(f"{d}/segments.txt") as f:
+        seg0 = [tuple(int(x) for x in ln.split()[1:]) for ln in f
+                if ln.startswith("utt0 ")]
+    if seg0 != vad.mask_to_intervals(np.asarray(masks["utt0"])):
+        raise RuntimeError("aslp-apply-nn-vad-segment against the mask")
+    with matrix_writer(f"ark:{d}/vad_scores.ark") as w:
+        for u, m in card.items():
+            w[u] = m[:, 1:2]
+    ev = quiet_cli(["aslp-eval-vad", f"ark:{d}/nn_mask.ark",
+                    f"ark:{d}/vad_ref.ark", f"ark:{d}/vad_scores.ark"])
+    auc_, eer_ = (float(x) for x in ev.split()[-3::2])
+    out["eval_vad"] = ev.split()
+    if abs(auc_ - vad_results["dnn_auc"]) > APP_FMT_TOL or \
+            abs(eer_ - vad_results["dnn_eer"]) > APP_FMT_TOL:
+        raise RuntimeError(f"aslp-eval-vad against the recipe: {ev!r}")
+    # exits 1 (raises here) if no utterance could be scored
+    out["boundary"] = quiet_cli(["aslp-eval-vad-boundary",
+                                 f"ark:{d}/vad_ref.ark",
+                                 f"ark:{d}/nn_mask.ark"]).split()
+    quiet_cli(["aslp-gen-textgrid", f"{recipe_root}/vad/segment.info",
+               f"{d}/u0.TextGrid"])
+    with open(f"{d}/u0.TextGrid", "rb") as f, \
+            open(f"{recipe_root}/vad/u0.TextGrid", "rb") as g:
+        if f.read() != g.read():
+            raise RuntimeError("aslp-gen-textgrid differs from the "
+                               "recipe's u0.TextGrid")
+    _, paths, out["energy_vad_s"] = both_devices(
+        "aslp-apply-energy-vad", [f"scp:{d}/wav.scp",
+                                  "ark:" + d + "/energy_{dev}.ark"], [1])
+    if int_table(paths["cuda"][0]) != int_table(paths["cpu"][0]):
+        raise RuntimeError("aslp-apply-energy-vad, card vs CPU")
+    for cls in ("sil", "speech"):
+        quiet_cli(["aslp-select-frames", f"ark:{d}/vad_train.ark",
+                   f"ark:{d}/{cls}.ark", f"ark:{d}/{cls}_feats.ark"])
+        _, paths, out[f"gmm_init_{cls}_s"] = both_devices(
+            "gmm-global-init-from-feats",
+            ["--num-gauss=16", "--num-iters=10",
+             f"ark:{d}/{cls}_feats.ark", d + "/" + cls + "_{dev}.npz"], [3])
+        card, cpu = (np.load(paths[k][0]) for k in ("cuda", "cpu"))
+        for k in cpu.files:
+            err = float(np.abs(card[k] - cpu[k]).max() /
+                        np.abs(cpu[k]).max())
+            if card[k].shape != cpu[k].shape or err > APP_GMM_RTOL:
+                raise RuntimeError(f"{cls} GMM {k}, card vs CPU: {err}")
+    models = [d + "/sil_{dev}.npz", d + "/speech_{dev}.npz"]
+    _, paths, out["apply_gmm_vad_s"] = both_devices(
+        "aslp-apply-gmm-vad", models + [f"ark:{d}/vad_test.ark",
+                                        "ark:" + d + "/gmm_{dev}.ark"], [3])
+    if int_table(paths["cuda"][0]) != int_table(paths["cpu"][0]):
+        raise RuntimeError("aslp-apply-gmm-vad, card vs CPU")
+    evals, _, out["eval_gmm_vad_s"] = both_devices(
+        "aslp-eval-gmm-vad", models + [f"ark:{d}/vad_test.ark",
+                                       f"ark:{d}/vad_ref.ark"], [])
+    if evals["cuda"] != evals["cpu"]:
+        raise RuntimeError("aslp-eval-gmm-vad, card vs CPU")
+    out["eval_gmm_vad"] = evals["cuda"].split()
+    return out
+
+
+def app_state_map_args(d, tri):
+    """aslp-kws-gen-state-map's arguments on phase 20's pickled tri model
+    and tree: the lang's phones and two of its words as keywords."""
+    lang = tri["lang"]
+    with open(f"{d}/phones.txt", "w") as f:
+        f.write(lang.phones.to_text() + "\n")
+    words = [(w, p[0]) for w, p in sorted(lang.lexicon.prons.items())
+             if w != "<SIL>" and len(p[0]) >= 2][:2]
+    with open(f"{d}/keyword.lexicon", "w") as f:
+        f.writelines(f"{w} {' '.join(p)}\n" for w, p in words)
+    sil = lang.phones.sym(lang.sil_phone_id)
+    return [["aslp-kws-gen-state-map", f"--silence={sil}",
+             f"{d}/phones.txt", f"{d}/keyword.lexicon", tri["mdl"],
+             tri["tree"], f"{d}/{tag}_tid.map", f"{d}/{tag}_states.txt"]
+            for tag in ("card", "cpu")]
+
+
+def app_frame_step():
+    """One frame-training step of the KWS recipe's phone DNN at its
+    minibatch (256 frames) on the card: ms by CUDA events, launches and
+    device ms by torch.profiler."""
+    from kaldi_aslp_tpu_torch.recipes import kws
+    from kaldi_aslp_tpu_torch.train import (
+        FrameTrainer,
+        NnetTrainOptions,
+        init_velocity,
+    )
+
+    net = kws.build_net(APP_FBANK_DIM)
+    net.load_state_dict(app_init("kws"))
+    net.to("cuda")
+    trainer = FrameTrainer(net, NnetTrainOptions(momentum=0.9))
+    velocity = init_velocity(net)
+    rs = np.random.RandomState(25)
+    x = rs.randn(256, APP_FBANK_DIM).astype(np.float32)
+    y = rs.randint(0, net.output_dim, 256).astype(np.int32)
+    batch = trainer._upload((x, y), torch.device("cuda"))
+    step = lambda: trainer.step(velocity, batch, 0.1)
+    ms = cuda_ms(step, APP_STEP_REPS)
+    counts = {}
+    dev_ms = sum(device_ms_by_kernel(step, counts).values())
+    return {"step_ms": ms, "launches": sum(counts.values()),
+            "device_ms": dev_ms, "device_busy_share": dev_ms / ms}
+
+
+def apps_phase(workdir, tri, progress_log):
+    """Phase 25: the KWS and VAD recipes at the JAX defaults on the card
+    against a CPU run in a child process, then the application CLI chain
+    on their outputs (tensor tools on the card against --device=cpu), a
+    frame-training step, and aslp-log-analyse on the run's training
+    log."""
+    t_phase = time.perf_counter()
+    d = f"{workdir}/apps"
+    os.makedirs(d, exist_ok=True)
+    state_map_args = app_state_map_args(d, tri)
+    job = f"{d}/cpu_job.json"
+    with open(job, "w") as f:
+        json.dump({"root": f"{d}/cpu_run", "state_map_args":
+                   state_map_args[1]}, f)
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.apps_cpu_child({job!r})"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    from kaldi_aslp_tpu_torch.recipes import kws, vad
+
+    card = app_recipes(f"{d}/card_run", "cuda")
+    vad_art, kws_art = vad.run.artifacts, kws.run.artifacts
+    if {next(a["net"].parameters()).device.type
+            for a in (vad_art, kws_art)} != {"cuda"}:
+        raise RuntimeError("a recipe's net is not on the card")
+    t0 = time.perf_counter()
+    write_app_files(d, vad_art, kws_art)
+    chain = app_kws_chain(d, kws_art, f"{d}/card_run")
+    chain.update(app_vad_chain(d, vad_art, card["vad"], f"{d}/card_run"))
+    quiet_cli(state_map_args[0])
+    with open(f"{d}/card_tid.map") as f:
+        chain["state_map_tids"] = len(f.read().splitlines())
+    with open(f"{d}/card_states.txt") as f:
+        chain["state_map_states"] = len(f.read().splitlines()) - 1
+    if chain["state_map_tids"] != tri["num_transition_ids"]:
+        raise RuntimeError("the state map's transition ids")
+    logged = quiet_cli(["aslp-log-analyse", "--sum=1000000", "--stride=1",
+                        progress_log]).split()
+    with open(progress_log) as f:
+        progress_lines = sum("ProgressLoss[" in ln for ln in f)
+    if not progress_lines or len(logged) != progress_lines or \
+            not all(np.isfinite(float(v)) for v in logged):
+        raise RuntimeError(f"aslp-log-analyse read {len(logged)} of "
+                           f"{progress_lines} ProgressLoss lines")
+    chain_s = time.perf_counter() - t0
+    step = app_frame_step()
+    cpu = cpu_child_result(child)
+    # card against CPU
+    errs = {k: abs(card[r][k] - cpu[r][k]) for r in ("vad", "kws")
+            for k in card[r]}
+    conf_err = max(abs(card["kws_scores"][u] - cpu["kws_scores"][u])
+                   for u in cpu["kws_scores"])
+    if max(errs.values()) > APP_TOL or conf_err > APP_TOL:
+        raise RuntimeError(f"the recipes, card vs CPU: {errs}, "
+                           f"confidences {conf_err}")
+    if card["gmm_masks"] != cpu["gmm_masks"]:
+        raise RuntimeError("the GMM VAD's masks, card vs CPU")
+    pairs = [(f"{d}/card_run/{name}", f"{d}/cpu_run/{name}") for name in (
+        "vad/segment.info", "vad/u0.TextGrid", "kws/keyword.fst.txt")]
+    pairs += [(f"{d}/card_{name}", f"{d}/cpu_{name}")
+              for name in ("tid.map", "states.txt")]
+    for a, b in pairs:
+        with open(a, "rb") as f, open(b, "rb") as g:
+            if f.read() != g.read():
+                raise RuntimeError(f"{a}, card vs CPU")
+    if cpu["state_map_rc"] != 0:
+        raise RuntimeError("aslp-kws-gen-state-map on the CPU")
+    log("apps_check", vad=card["vad"], kws=card["kws"],
+        max_err_results=max(errs.values()), max_err_confidence=conf_err,
+        gmm_masks_equal=True, files_equal=True,
+        progress_lines=progress_lines, cpu_seconds=cpu["seconds"],
+        **{k: v for k, v in chain.items()})
+    log("apps_step", **step, batch=256, widths=[APP_FBANK_DIM, 64, 6])
+    log("apps_phase", seconds=time.perf_counter() - t_phase,
+        vad_recipe_s=card["vad_s"], kws_recipe_s=card["kws_s"],
+        cli_chain_s=chain_s, step_ms=step["step_ms"],
+        step_launches=step["launches"], kws_auc=card["kws"]["kws_auc"],
+        kws_best_acc=card["kws"]["kws_best_acc"],
+        dnn_auc=card["vad"]["dnn_auc"], dnn_eer=card["vad"]["dnn_eer"],
+        gmm_auc=card["vad"]["gmm_auc"], gmm_eer=card["vad"]["gmm_eer"],
+        energy_auc=card["vad"]["energy_auc"],
+        energy_eer=card["vad"]["energy_eer"], smi=smi_name_and_power())
+
+
 NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
@@ -6782,6 +7302,7 @@ def main() -> int:
 
     kernel_results = kernel_phase(dev)
     with tempfile.TemporaryDirectory() as workdir:
+        progress_log = capture_progress(workdir)
         paths = write_model_and_graph(workdir)
         launches, recorded, finals = slice_phase(paths, "cuda")
         cross_check(paths, recorded)
@@ -6827,7 +7348,7 @@ def main() -> int:
         log("lattice_score_phase", seconds=time.perf_counter() - t0)
         gmm_corpus = first_utts(corpus, **GMM_SETS)
         art, child = hybrid_phase(gmm_corpus, workdir)
-        tri_phase(gmm_corpus, art, child, workdir)
+        tri = tri_phase(gmm_corpus, art, child, workdir)
         t0 = time.perf_counter()
         runs["ls_synth"], ls_synth_forward = ls_synth_phase(workdir)
         log("ls_synth_phase", seconds=time.perf_counter() - t0)
@@ -6838,6 +7359,7 @@ def main() -> int:
         runs["hkust"] = hkust_phase(workdir)
         log("hkust_phase", seconds=time.perf_counter() - t0)
         zoo_launches = zoo_phase(workdir)
+        apps_phase(workdir, tri, progress_log)
     serving_runs = {"serving": launches, "serve_batched": batched_launches,
                     "vad": vad_launches, "entry": entry_launches,
                     "ls_synth": ls_synth_forward}

@@ -1,18 +1,16 @@
 """CLI dispatcher: ``python -m kaldi_aslp_tpu_torch.cli <tool> [args]``.
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
-reference binaries; the port has the online servers and their client, the
-frame trainers (MIMO included), the CTC trainer, the BPTT trainer, the
-network forwards, the model tools (init, info, copy, dot, insert,
-convert-to-standard), the alignment and matrix tools, the lattice
-generator and lattice tools, the CD-phone tree tools, the feature tools
-(with pitch and spectrum), the syllable-prep tools, noise augmentation and
-compute-wer so far (70 of the JAX registry's 103 names).  As in the JAX package, the BLSTM, LC-BLSTM, skip and
-per-utterance BPTT binaries are one trainer, the warp-ctc and per-utterance
-CTC binaries the CTC trainer, and the forward's -skip / -blstm-lc variants
-one forward:
-the architecture lives in the model file, and a model with a component
-the port lacks fails at load with the registry's error."""
+reference binaries; the port has every name of the JAX registry but the
+five MPI workers of distributed training (``aslp-nnet-train-frame-worker``,
+``-lstm-stream-worker``, ``-lc-blstm-streams-worker``, ``-simple-mpi``,
+``aslp-nnet-train-server``): 98 of 103.  As in the JAX package, the
+BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are one trainer,
+the warp-ctc and per-utterance CTC binaries the CTC trainer, the
+forward's -skip / -blstm-lc variants one forward, the NN-VAD apply
+binaries one tool and the VAD eval binaries two: the architecture lives
+in the model file, and a model with a component the port lacks fails at
+load with the registry's error."""
 
 from __future__ import annotations
 
@@ -20,6 +18,7 @@ import sys
 
 from kaldi_aslp_tpu_torch.cli import (
     feat_tools,
+    fst_tools,
     lat_tools,
     nnet_tools,
     online_tools,
@@ -42,6 +41,38 @@ TOOLS = {
     # pitch, aslp-vadbin spectrum
     "compute-kaldi-pitch-feats": vad_tools.compute_pitch_cli,
     "aslp-compute-spectrum-feats": vad_tools.compute_spectrum_feats,
+    # aslp-vadbin
+    "aslp-apply-energy-vad": vad_tools.apply_energy_vad,
+    "aslp-apply-nnet-vad": vad_tools.apply_nnet_vad,
+    "aslp-apply-nn-vad": vad_tools.apply_nnet_vad,
+    "aslp-apply-nn-vad-frame": vad_tools.apply_nnet_vad,
+    "aslp-apply-nn-vad-segment": vad_tools.apply_nnet_vad_segment,
+    "aslp-apply-gmm-vad": vad_tools.apply_gmm_vad,
+    "gmm-global-init-from-feats": vad_tools.gmm_global_init_from_feats,
+    "aslp-eval-vad": vad_tools.eval_vad_cli,
+    "aslp-eval-energy-vad": vad_tools.eval_vad_cli,
+    "aslp-eval-nn-vad": vad_tools.eval_vad_cli,
+    "aslp-eval-gmm-vad": vad_tools.eval_gmm_vad_cli,
+    "aslp-eval-vad-boundary": vad_tools.eval_vad_boundary_cli,
+    "aslp-eval-nn-vad-boundary": vad_tools.eval_vad_boundary_cli,
+    "aslp-ali-to-sil": vad_tools.ali_to_sil,
+    "aslp-select-frames": vad_tools.select_frames_cli,
+    # aslp-kwsbin / fst tools, aslp_scripts/kws
+    "aslp-fst-init": fst_tools.fst_init,
+    "aslp-fst-info": fst_tools.fst_info,
+    "aslp-fst-to-dot": fst_tools.fst_to_dot,
+    "aslp-kws-score": fst_tools.kws_score,
+    "aslp-kws-gen-state-map": fst_tools.kws_gen_state_map,
+    "aslp-kws-convert-phone-ali": fst_tools.kws_convert_phone_ali,
+    "aslp-kws-evaluation-roc": fst_tools.kws_evaluation_roc,
+    "aslp-kws-gen-text-fst": script_tools.kws_gen_text_fst,
+    "aslp-kws-generate-simulation-ali":
+        script_tools.kws_generate_simulation_ali,
+    # aslp_scripts program-role helpers: log analysis, TextGrid
+    "aslp-log-analyse": script_tools.log_analyse,
+    "aslp-log-analyse-ctc": script_tools.log_analyse,
+    "aslp-mpi-log-analyse": script_tools.mpi_log_analyse,
+    "aslp-gen-textgrid": script_tools.gen_textgrid,
     # aslp_scripts/syllable
     "aslp-convert-lexicon-to-syllable":
         script_tools.convert_lexicon_to_syllable,

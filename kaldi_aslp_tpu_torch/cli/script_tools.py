@@ -1,21 +1,77 @@
-"""Syllable-prep CLI tools (reference: aslp_scripts/syllable/*.py).
+"""Script-role CLI tools: log analysis, syllable prep, TextGrid, KWS text
+prep (reference: aslp_scripts/log_analyse.sh, log_analyse_ctc.sh,
+mpi_log_analyse.sh, aslp_scripts/syllable/*.py,
+aslp_scripts/vad/gen_textgrid_according_vad_interval.py,
+aslp_scripts/kws/gen_text_fst.py, generate_simulation_ali.py).
 
-Port of the four syllable tools of kaldi_aslp_tpu/cli/script_tools.py
-(``aslp-convert-lexicon-to-syllable``, ``aslp-bind-syllable``,
-``aslp-bind-lexicon``, ``aslp-ali-to-syllable``): plain Python on the
-port's ops/syllable.py, the same arguments and the same output text.
-The log-analysis and TextGrid tools of that file are not ported yet.
+Port of kaldi_aslp_tpu/cli/script_tools.py: plain Python on the port's
+ops/syllable.py, vad/textgrid.py and kws/text_fst.py, the same arguments
+and the same output text.  The log tools read the ``ProgressLoss[...]``
+lines that the port's ``LossReporter`` logs (models/losses.py), the
+JAX package's format.  None takes ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import os
+import re
 import sys
 
 
 def _read_lines(path: str):
     with open(path) as f:
         return f.read().splitlines()
+
+
+_PROGRESS_RE = re.compile(r"ProgressLoss\[[^\]]*\]:.*?(-?\d+(?:\.\d+)?)\s*$")
+
+
+def _progress_values(lines):
+    out = []
+    for line in lines:
+        m = _PROGRESS_RE.search(line)
+        if m:
+            out.append(float(m.group(1)))
+    return out
+
+
+def log_analyse(argv):
+    """Extract the ProgressLoss curve from a training log
+    (log_analyse.sh / log_analyse_ctc.sh: grep Progress | awk)."""
+    p = argparse.ArgumentParser(prog="aslp-log-analyse")
+    p.add_argument("--sum", type=int, default=121,
+                   help="progress lines per iteration")
+    p.add_argument("--stride", type=int, default=5,
+                   help="print every stride-th value within an iter")
+    p.add_argument("log_file")
+    a = p.parse_args(argv)
+    vals = _progress_values(_read_lines(a.log_file))
+    for n, v in enumerate(vals):
+        it = 1 + n // a.sum
+        if n % a.sum == 0 or (n - it) % a.stride == 0:
+            print(v)
+    return 0
+
+
+def mpi_log_analyse(argv):
+    """Per-worker loss curves from a parallel-train log dir
+    (mpi_log_analyse.sh: iter*.tr.log* files, 0-separated)."""
+    p = argparse.ArgumentParser(prog="aslp-mpi-log-analyse")
+    p.add_argument("log_dir")
+    p.add_argument("--pattern", default="iter*.tr.log*")
+    a = p.parse_args(argv)
+    files = sorted(glob.glob(os.path.join(a.log_dir, a.pattern)))
+    if not files:
+        print("no logs matching %s in %s" % (a.pattern, a.log_dir),
+              file=sys.stderr)
+        return 1
+    for path in files:
+        print(0)
+        for v in _progress_values(_read_lines(path)):
+            print(v)
+    return 0
 
 
 def convert_lexicon_to_syllable(argv):
@@ -112,4 +168,66 @@ def ali_to_syllable_cli(argv):
         ali = [int(x) for x in parts[1:]]
         out = ali_to_syllable(ali, phone_names, syllable_ids, bind)
         print(parts[0], " ".join(str(x) for x in out))
+    return 0
+
+
+def gen_textgrid(argv):
+    """VAD interval file -> Praat TextGrid
+    (aslp_scripts/vad/gen_textgrid_according_vad_interval.py)."""
+    from kaldi_aslp_tpu_torch.vad.textgrid import (
+        intervals_to_textgrid,
+        parse_interval_file,
+    )
+
+    p = argparse.ArgumentParser(prog="aslp-gen-textgrid")
+    p.add_argument("interval_file")
+    p.add_argument("out_textgrid")
+    a = p.parse_args(argv)
+    with open(a.interval_file) as f:
+        intervals = parse_interval_file(f.read())
+    name = os.path.splitext(os.path.basename(a.out_textgrid))[0]
+    with open(a.out_textgrid, "w") as f:
+        f.write(intervals_to_textgrid(intervals, tier_name=name))
+    return 0
+
+
+def kws_gen_text_fst(argv):
+    """Keyword phone list -> keyword-filler text FST
+    (aslp_scripts/kws/gen_text_fst.py)."""
+    from kaldi_aslp_tpu_torch.kws.text_fst import (
+        build_keyword_filler_text_fst,
+    )
+
+    p = argparse.ArgumentParser(prog="aslp-kws-gen-text-fst")
+    p.add_argument("keyword_phone_file",
+                   help="lines: KEYWORD ph1 ph2 ...")
+    p.add_argument("text_fst_file")
+    a = p.parse_args(argv)
+    keywords = {}
+    for ln in _read_lines(a.keyword_phone_file):
+        parts = ln.split()
+        if len(parts) >= 2:
+            keywords[parts[0]] = parts[1:]
+    with open(a.text_fst_file, "w") as f:
+        f.write(build_keyword_filler_text_fst(keywords))
+    return 0
+
+
+def kws_generate_simulation_ali(argv):
+    """Clean ali (stdin) + simulated wav.scp -> simulated ali (stdout)
+    (aslp_scripts/kws/generate_simulation_ali.py)."""
+    from kaldi_aslp_tpu_torch.kws.text_fst import simulation_ali
+
+    p = argparse.ArgumentParser(prog="aslp-kws-generate-simulation-ali")
+    p.add_argument("wav_scp")
+    a = p.parse_args(argv)
+    clean = {}
+    for line in sys.stdin:
+        parts = line.split()
+        if parts:
+            clean[parts[0]] = parts[1:]
+    sim_keys = [ln.split()[0] for ln in _read_lines(a.wav_scp)
+                if ln.split()]
+    for key, ali in simulation_ali(clean, sim_keys).items():
+        print(key, " ".join(str(x) for x in ali))
     return 0

@@ -149,7 +149,8 @@ class LossReporter:
     ``frames`` and ``loss_sum`` of each batch's aux and, where the aux
     has it (xent), the frames counted correct by ``accuracy``."""
 
-    # 1h of 10ms frames between ProgressLoss lines, like the reference
+    # 1h of 10ms frames between ProgressLoss lines, like the reference; a
+    # reporter made without ``progress_step`` reads it when it is made
     PROGRESS_STEP = 3600 * 100
 
     # Batches whose scalars stay on the device before they are read.  The
@@ -159,13 +160,13 @@ class LossReporter:
     MAX_PENDING = 64
 
     def __init__(self, name: str = "xent",
-                 progress_step: int = PROGRESS_STEP):
+                 progress_step: Optional[int] = None):
         self.name = name
         self._loss_sum = 0.0
         self._frames = 0.0
         self._correct = 0.0
         self._pending: List[Dict[str, torch.Tensor]] = []
-        self._progress_step = progress_step
+        self._progress_step = progress_step or self.PROGRESS_STEP
         self._frames_progress = 0.0
         self._loss_progress = 0.0
 

@@ -85,8 +85,9 @@ def _close(got_path, want_path, check=None):
 
 
 def test_the_registry_has_the_new_tools():
-    # 53 with the feature tools; 70 since the nnet zoo's 17 names
-    assert set(NEW_TOOLS) <= set(TOOLS) and len(TOOLS) == 70
+    # 53 with the feature tools; 70 since the nnet zoo's 17 names; 98
+    # since the application layer's 28
+    assert set(NEW_TOOLS) <= set(TOOLS) and len(TOOLS) == 98
 
 
 def test_feature_chain_matches_jax(wav_scp, tmp_path, capsys):

@@ -115,7 +115,7 @@ def dnn(tmp_path):
 
 
 def test_registry_names_map_like_jax():
-    assert len(TOOLS) == 70
+    assert len(TOOLS) == 98  # 70 until the application layer's 28
     for name in NEW_TOOLS:
         assert name in TOOLS and name in JAX_TOOLS, name
         assert TOOLS[name].__name__ == JAX_TOOLS[name].__name__, name

@@ -360,3 +360,35 @@ def test_tri_path_runs_with_jax_blocked(tmp_path):
     assert "RESULT 0 True 4 bool False []" in proc.stdout, \
         proc.stdout[-2000:]
     assert "WER_LADDER mono=" in proc.stdout and "tri=" in proc.stdout
+
+
+def test_kws_state_map_of_the_tri_system_equals_jax(both, tmp_path):
+    """aslp-kws-gen-state-map on the port's pickled tri decode model and
+    tree (chip_smoke.py phase 25's input) writes JAX's files for JAX's
+    system."""
+    import pickle
+
+    from kaldi_aslp_tpu.kws import gen_state_map, write_state_map
+    from kaldi_aslp_tpu_torch.cli.__main__ import main
+
+    lang = both["lang"]
+    (tmp_path / "phones.txt").write_text(lang.phones.to_text() + "\n")
+    lexicon = [["YN", "Y", "N"], ["NYN", "N", "Y", "N"]]
+    (tmp_path / "kw.lex").write_text(
+        "".join(" ".join(row) + "\n" for row in lexicon))
+    for name, obj in (("tri.mdl", both["tm_dec"]),
+                      ("tri.tree", both["tri"].tree)):
+        with open(tmp_path / name, "wb") as f:
+            pickle.dump(obj, f)
+    sil = lang.phones.sym(lang.sil_phone_id)
+    assert main(["aslp-kws-gen-state-map", f"--silence={sil}"] + [
+        str(tmp_path / n) for n in ("phones.txt", "kw.lex", "tri.mdl",
+                                    "tri.tree", "t.map", "t.txt")]) == 0
+    syms = {s: lang.phones.id(s) for s in lang.lexicon.phone_set()}
+    write_state_map(gen_state_map(syms, lexicon, both["jtm_dec"],
+                                  both["jtri"].tree, silence=sil),
+                    str(tmp_path / "j.map"), str(tmp_path / "j.txt"))
+    for a, b in (("t.map", "j.map"), ("t.txt", "j.txt")):
+        assert (tmp_path / a).read_bytes() == (tmp_path / b).read_bytes()
+    assert len((tmp_path / "t.map").read_text().splitlines()) == \
+        both["tm_dec"].num_transition_ids
