@@ -356,6 +356,34 @@ exits nonzero:
                 log (capture_progress: every ProgressLoss line of the
                 earlier phases); one frame-training step of the KWS net
                 by CUDA events and torch.profiler.
+ 26. distributed - two ranks in one group spawned by
+                kaldi_aslp_tpu_torch/parallel/launch.py, sharing the card
+                over gloo (the backend rule: NCCL refuses two ranks on one
+                card), each loading phase 2's libraries: (a) the bf16
+                flagship of phase 7 under BSP at DIST_STREAMS streams a
+                rank (together the bench's S = 128, T = 400, U = 40) for
+                DIST_STEPS steps, each rank launching bilstmp_train_fwd and
+                _bwd 3 times a step and the CTC pair once (never wide), the
+                two ranks' parameters the same bits after every step, the
+                step-1 loss and gradients within CROSS_LOSS_RTOL /
+                CROSS_GRAD_RTOL of one rank on all 128 streams here, then
+                one BMUF round over 2 blocks x 1 rank of DIST_BMUF_INNER
+                inner steps; each rank's step ms and one gloo all-reduce of
+                the gradients (staged through the host: not a multi-card
+                NCCL figure); (b) the full-width LSTM hybrid of phase 11
+                through aslp-nnet-train-lstm-stream-worker run in each
+                rank, once a worker type (bsp, sod with a momentum
+                server optimizer, bmuf, easgd, asgd, masgd) on phase 11's
+                corpus at DIST_WORKER_ARGS: exit 0,
+                lstmp_train_fwd / _bwd launches on every rank with
+                per_step 0, the written model reloads and moved, and its
+                CV loss (aslp-nnet-train-simple --cross-validate) is
+                finite and below the initial model's; (c) a small BN net
+                with axis_name "data" under BSP, each rank's rows of the
+                outputs and the averaged gradients against one rank on the
+                whole batch (DIST_BN_RTOL).  The ranks' launches go into
+                the kernels' records (runs "distributed" and
+                "distributed_workers").
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -381,6 +409,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from kaldi_aslp_tpu_torch.parallel.steps import (
+    kernel_wrappers,
+    train_kernel_wrappers,
+)
 
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)   # float32 both sides, summation
 #                                          order differs, contractive cell
@@ -547,6 +580,25 @@ SCORE_UTTS = 2
 RECIPE_FEAT_TOL = dict(rtol=1e-4, atol=1e-4)
 RECIPE_LOSS_RTOL, RECIPE_GRAD_RTOL, RECIPE_POST_ATOL = 1e-4, 1e-3, 1e-4
 RECIPE_SPLIT_REPS = 5
+# phase 26 (distributed): two ranks share the card over gloo; the flagship
+# under BSP at DIST_STREAMS streams a rank (the bench's S = 128 over the
+# two) for DIST_STEPS steps, then one BMUF round of DIST_BMUF_INNER inner
+# steps; the LSTM hybrid through aslp-nnet-train-lstm-stream-worker, each
+# worker type on phase 11's corpus (48 utterances, 5,000-odd frames) at
+# DIST_WORKER_ARGS (a sync every 2 minibatches) with its own extra flags;
+# a small BN net with axis_name "data" (DIST_BN widths, DIST_BN_FRAMES
+# rows) under BSP.  Card against one rank on the whole batch: the flagship
+# at the CTC bf16 step bounds (CROSS_LOSS_RTOL, CROSS_GRAD_RTOL), the BN
+# net's outputs and gradients at DIST_BN_RTOL (float32, TF32 off, sums in
+# another order), relative to each tensor's largest |value|
+DIST_RANKS, DIST_STREAMS, DIST_STEPS, DIST_BMUF_INNER = 2, 64, 2, 2
+DIST_WORKER_ARGS = ["--minibatch-size=256", "--sync-period=512",
+                    "--learn-rate=0.02"]
+DIST_WORKERS = {"bsp": [], "sod": ["--server-optimizer=momentum"],
+                "bmuf": [], "easgd": [], "asgd": [],
+                "masgd": ["--masgd-momentum=0.5"]}
+DIST_BN = (FEAT_DIM, 64, 8)
+DIST_BN_FRAMES, DIST_BN_RTOL = 256, 1e-4
 
 
 def log(phase: str, **fields) -> None:
@@ -1976,24 +2028,6 @@ def write_train_files(workdir: str):
     return model, f"scp:{workdir}/feats.scp", f"ark:{workdir}/labels.ark"
 
 
-def train_counts():
-    """Every training kernel's wrapper, by name."""
-    from kaldi_aslp_tpu_torch.ops import (
-        bilstmp_train,
-        bilstmp_xg_train,
-        ctc_alpha_beta,
-        lstmp_train,
-    )
-    return {"bilstmp_train_fwd": bilstmp_train.bilstmp_train_fwd,
-            "bilstmp_train_bwd": bilstmp_train.bilstmp_train_bwd,
-            "bilstmp_train_bwd_dir": bilstmp_train.bilstmp_train_bwd_dir,
-            "bilstmp_xg_train_fwd": bilstmp_xg_train.bilstmp_xg_train_fwd,
-            "bilstmp_xg_train_bwd": bilstmp_xg_train.bilstmp_xg_train_bwd,
-            "lstmp_train_fwd": lstmp_train.lstmp_train_fwd,
-            "lstmp_train_bwd": lstmp_train.lstmp_train_bwd,
-            "ctc_alpha_beta": ctc_alpha_beta.ctc_alpha_beta}
-
-
 def train_phase(model, feats, labels, workdir, switch=None):
     """The CTC CLI's run, with ``switch`` set (None: no switch)."""
     from kaldi_aslp_tpu_torch.cli.__main__ import main as cli_main
@@ -2001,7 +2035,7 @@ def train_phase(model, feats, labels, workdir, switch=None):
     from kaldi_aslp_tpu_torch.ops.lstmp import lstmp_forward
     from kaldi_aslp_tpu_torch.train.trainer import CtcTrainer
 
-    wrappers = train_counts()
+    wrappers = train_kernel_wrappers()
     per_step_want = {n: TRAIN_RUNS[switch].get(n, 0) for n in wrappers}
     per_step_want.update(ctc_alpha_beta=1)
     steps = []
@@ -2748,7 +2782,7 @@ def recipe_phase(corpus, workdir):
     G = arpa_to_fst(corpus["arpa"], lang.words)
     log("grammar", states=G.num_states, arcs=G.num_arcs,
         seconds=time.perf_counter() - t0)
-    wrappers = train_counts()
+    wrappers = train_kernel_wrappers()
     others = (lstmp_forward, blstmp_forward)
     for w in (*wrappers.values(), *others):
         w.launches = 0
@@ -3004,13 +3038,6 @@ def ctc_recipe_phase(workdir):
     return launches, wide, ctc_check, rec, corpus
 
 
-def hand_kernel_wrappers():
-    """Every hand kernel's wrapper, by name."""
-    from kaldi_aslp_tpu_torch.ops.lstmp import blstmp_forward, lstmp_forward
-    return {**train_counts(), "lstmp_forward": lstmp_forward,
-            "blstmp_forward": blstmp_forward}
-
-
 def timed_decode(dec, loglikes):
     """(words, alignment, score) of one decode, or None where the graph
     holds no path, and its wall ms to the result on the host."""
@@ -3049,7 +3076,7 @@ def beam_phase(rec, corpus):
             logp = rec.posteriors(corpus[f"{split}_feats"][u])
             loglikes[split, u] = (rec.acoustic_scale
                                   * (logp - rec.log_priors))
-    wrappers = hand_kernel_wrappers()
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     card_ms, cpu_ms, frames, worst, failed = [], [], 0, 0.0, 0
@@ -4099,11 +4126,15 @@ DECODE_BATCH_UTTS = 8
 # slower than a 1,053.7 s run without it; phase 25 8.5-12.7 s): the beam
 # phase's test set 6, the budget sweep 3 dev, timit_synth 5 test
 # utterances (and ls_synth's decodes, hkust's iterations, the
-# lattice-score utterances and the batched decode above and below)
+# lattice-score utterances and the batched decode above and below).  For
+# phase 26's room on slow hosts (a whole run took 948.9 s on one host and
+# 1,223.0 s on another, 29 % slower in every host-bound phase): the GMM
+# and DNN stages 4 test utterances, timit_synth 3 (and hkust's and
+# rm_synth's decodes below)
 BEAM_SETS = dict(dev=6, test=6)
-GMM_SETS = dict(test=6)
+GMM_SETS = dict(test=4)
 SWEEP_SETS = dict(dev=3)
-TIMIT_TEST_UTTS = 5
+TIMIT_TEST_UTTS = 3
 
 
 def first_utts(corpus, **sizes):
@@ -4149,7 +4180,7 @@ def batched_decode_phase(rec, loglikes, singles):
                for i in range(0, len(keys), DECODE_BATCH)]
     on_card = {k: torch.from_numpy(np.asarray(loglikes[k], np.float32)).cuda()
                for k in keys}
-    wrappers = hand_kernel_wrappers()
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     out = {}
@@ -4292,7 +4323,7 @@ MONO_HCLG = (6851, 14989)
 
 def hand_kernel_launches():
     """Every hand kernel wrapper's launch count, by name."""
-    return {n: w.launches for n, w in hand_kernel_wrappers().items()}
+    return {n: w.launches for n, w in kernel_wrappers().items()}
 
 
 def tree_nodes(tree):
@@ -5075,7 +5106,7 @@ def hybrid_phase(corpus, workdir):
     """Phase 19: the mono stage and the frame trainer's CLI, with no hand
     kernel launched anywhere in it.  Returns the ladder's artifacts and
     the GMM CPU process, which goes on to the tri stage."""
-    for w in hand_kernel_wrappers().values():
+    for w in kernel_wrappers().values():
         w.launches = 0
     t0 = time.perf_counter()
     art, child, mono = hybrid_mono_part(corpus, workdir)
@@ -5100,7 +5131,7 @@ def tri_phase(corpus, art, child, workdir):
     """Phase 20: the ladder's tri stage on phase 19's mono system, its dnn
     stage on the tri alignments and CD graph, and the rest of the GMM
     family, with no hand kernel launched anywhere in it."""
-    for w in hand_kernel_wrappers().values():
+    for w in kernel_wrappers().values():
         w.launches = 0
     t0 = time.perf_counter()
     try:
@@ -5400,7 +5431,7 @@ def ls_synth_phase(workdir):
     blstmp_forward's."""
     from kaldi_aslp_tpu_torch.recipes import ls_synth
 
-    wrappers = hand_kernel_wrappers()
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
         if hasattr(w, "per_step"):
@@ -5472,7 +5503,7 @@ def ls_synth_run_and_check(workdir, wrappers, calls, child):
         decode_utts_asked=LS_DECODE_UTTS, card=smi_name_and_power())
     ls_synth_check(art)
     ls_synth_step_split(art, workdir, child)
-    return ({n: launches[n] for n in train_counts()},
+    return ({n: launches[n] for n in train_kernel_wrappers()},
             launches["blstmp_forward"])
 
 
@@ -5485,9 +5516,9 @@ YESNO_WER_BAND = (0.0, 5.0)
 # cut for the script's time: yesno on 20 of its 60 utterances (10 test;
 # the whole recipe took 39.8 s in a first card call, most of it decoding,
 # and 26.8 s on 30), rm_synth on 10 of its 15 test utterances, then for
-# phase 23's room on 5
+# phase 23's room on 5, for phase 26's on 3
 YESNO_UTTS = 20
-RM_TEST_UTTS = 5
+RM_TEST_UTTS = 3
 JAX_ROWS = {"timit_kmeans_medium_test_wer": 43.49,
             "budget_sweep_medium_dev_wer": {"2048": 32.32, "256": 40.78}}
 SYNTH_BUDGETS = [2048, 256]
@@ -5530,7 +5561,7 @@ def synth_recipes_phase(corpus, workdir):
 
     work = os.path.join(workdir, "synth")
     os.makedirs(work)
-    wrappers = hand_kernel_wrappers()
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     monos = []
@@ -5638,8 +5669,8 @@ def synth_recipes_phase(corpus, workdir):
 # newbob iterations (80 in the preset), the decoded test utterances (100)
 # and the training utterances (500); 4 decodes and 1 iteration since
 # phase 25 (6 decodes took 28.4 s of a proof run's 102.5, an iteration
-# 12.7 s).
-HKUST = dict(max_iters=1, num_decode=4, num_train=160)
+# 12.7 s), 2 decodes since phase 26 (4 took 22.6-32.8 s).
+HKUST = dict(max_iters=1, num_decode=2, num_train=160)
 HKUST_FEAT_UTTS = 16     # training utterances' features, card vs CPU
 HKUST_WAVES = 4          # corpus waves for the front-end and CLI checks
 HKUST_SPLIT_REPS = 3
@@ -6065,7 +6096,7 @@ def hkust_phase(workdir):
     from kaldi_aslp_tpu_torch.recipes import hard_corpus as hc
     from kaldi_aslp_tpu_torch.recipes import hkust_synth as hk
 
-    wrappers = hand_kernel_wrappers()
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
         if hasattr(w, "per_step"):
@@ -6222,7 +6253,7 @@ def hkust_run_and_check(out, run_s, launches, counters, seconds, captured,
         feature_tol=RECIPE_FEAT_TOL, step=step, frontend=frontend, cli=cli,
         pitch_tol=PITCH_TOL)
     hkust_step_split(child, captured["sent"])
-    return {n: launches[n] for n in train_counts()}
+    return {n: launches[n] for n in train_kernel_wrappers()}
 
 
 # -- phase 24: the nnet zoo ----------------------------------------------------
@@ -7249,6 +7280,199 @@ NO_LIBRARY = ("no PyTorch call computes a peephole LSTMP with cell "
               "clipping (torch.nn.LSTM with proj_size has neither)")
 
 
+# -- phase 26: distributed training ----------------------------------------
+
+def write_bn_model(workdir: str) -> str:
+    """Linear (no bias: a bias before BN has a gradient of rounding noise),
+    BatchNormalization with axis_name "data", Sigmoid, Affine at DIST_BN's
+    widths, weights from numpy seed 9753."""
+    from kaldi_aslp_tpu_torch.models import (
+        AffineTransform,
+        BatchNormalization,
+        LinearTransform,
+        Nnet,
+        Sigmoid,
+    )
+
+    D, H, V = DIST_BN
+    rs = np.random.RandomState(9753)
+    net = Nnet()
+    net.add(LinearTransform(D, H))
+    net.add(BatchNormalization(H, H, axis_name="data"))
+    net.add(Sigmoid(H, H))
+    net.add(AffineTransform(H, V))
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(".w"):
+                p.copy_(torch.from_numpy(
+                    (0.3 * rs.randn(*p.shape)).astype(np.float32)))
+    path = f"{workdir}/bn_dist.zip"
+    net.save(path)
+    return path
+
+
+def rel_max(got, want) -> float:
+    """Largest |got - want| over the largest |want| (numpy)."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def cv_loss(feats, targets, model, device) -> float:
+    rc, out = run_cli(["aslp-nnet-train-simple", "--cross-validate=true",
+                       f"--device={device}", feats, targets, model])
+    if rc:
+        raise RuntimeError(f"cross-validation of {model} failed: {rc}")
+    return float(out.split("AvgLoss: ")[1].split()[0])
+
+
+def distributed_phase(flagship_model, hybrid, workdir, device="cuda"):
+    """Phase 26: DIST_RANKS ranks in one spawned group sharing the card
+    (gloo), each running (a) the flagship under BSP and one BMUF round,
+    (b) the six worker types of aslp-nnet-train-lstm-stream-worker on the
+    LSTM hybrid, (c) the BN net under BSP; then the checks against one
+    rank on the whole batch here.  Returns the ranks' launches:
+    ({train kernel: launches in (a)}, {wrapper: launches in (b)})."""
+    from kaldi_aslp_tpu_torch.models import Nnet
+    from kaldi_aslp_tpu_torch.parallel.launch import RankContext, spawn
+    from kaldi_aslp_tpu_torch.parallel.mesh import choose_backend
+    from kaldi_aslp_tpu_torch.parallel.steps import train_rank, train_ranks
+
+    t_phase = time.perf_counter()
+    hybrid_model, feats, targets = hybrid
+    rs = np.random.RandomState(8642)
+    S, (T, U) = DIST_RANKS * DIST_STREAMS, CTC_SHAPE[1:3]
+    batch = {"feats": rs.randn(S, T, FEAT_DIM).astype(np.float32),
+             "labels": rs.randint(1, TARGETS, (S, U)).astype(np.int64),
+             "in_lens": np.full(S, T, np.int64),
+             "lab_lens": np.full(S, U, np.int64),
+             "mask": np.ones((S, T), np.float32)}
+    flag = dict(model=flagship_model, batch=batch, learn_rate=0.008,
+                momentum=0.9, steps=DIST_STEPS, strategy="bsp")
+    bmuf = dict(flag, strategy="bmuf", steps=1, blocks=DIST_RANKS,
+                inner_steps=DIST_BMUF_INNER)
+    outs = {t: f"{workdir}/dist_{t}.zip" for t in DIST_WORKERS}
+    workers = {"cli": [
+        ["aslp-nnet-train-lstm-stream-worker", f"--worker-type={t}",
+         f"--device={device}", *DIST_WORKER_ARGS, *extra, feats, targets,
+         hybrid_model, outs[t]] for t, extra in DIST_WORKERS.items()]}
+    D, _, V = DIST_BN
+    bn = dict(model=write_bn_model(workdir), strategy="bsp", steps=1,
+              learn_rate=0.1, momentum=0.9,
+              batch={"x": rs.randn(DIST_BN_FRAMES, D).astype(np.float32),
+                     "y": rs.randint(0, V, DIST_BN_FRAMES).astype(np.int64)})
+    t0 = time.perf_counter()
+    ranks = spawn(train_ranks, DIST_RANKS, args=([flag, bmuf, workers, bn],),
+                  device_type=device, run_timeout_s=600)
+    group_s = time.perf_counter() - t0
+    rk_flag, rk_bmuf, rk_cli, rk_bn = zip(*ranks)
+
+    # (a) the flagship: finite, the same bits on both ranks after every
+    # step, every kernel launched where it should be; one rank on all
+    # the streams for the step-1 loss and gradients
+    names = list(rk_flag[0]["params"][0])
+    for r in rk_flag + rk_bmuf:
+        if not np.isfinite(r["losses"]).all():
+            raise RuntimeError(f"distributed flagship loss {r['losses']}")
+    for i in range(DIST_STEPS):
+        for k in names:
+            if not all(np.array_equal(r["params"][i][k],
+                                      rk_flag[0]["params"][i][k])
+                       for r in rk_flag):
+                raise RuntimeError(f"ranks differ after BSP step {i + 1} "
+                                   f"in {k}")
+    for k in names:
+        if not all(np.array_equal(r["params"][0][k],
+                                  rk_bmuf[0]["params"][0][k])
+                   for r in rk_bmuf):
+            raise RuntimeError(f"ranks differ after the BMUF round in {k}")
+    want = {"bilstmp_train_fwd": LAYERS, "bilstmp_train_bwd": LAYERS,
+            "ctc_alpha_beta": 1}
+    for what, rows, steps in (("bsp", rk_flag, DIST_STEPS),
+                              ("bmuf", rk_bmuf, DIST_BMUF_INNER)):
+        for r in rows:
+            got = {n: r["launches"][n]["launches"] for n in want}
+            if got != {n: c * steps for n, c in want.items()} or \
+                    r["launches"]["ctc_alpha_beta"]["wide"]:
+                raise RuntimeError(f"{what} launches {r['launches']}")
+    one = train_rank(RankContext(0, 1, torch.device(device), "none"),
+                     dict(flag, steps=1))
+    loss_err = abs(rk_flag[0]["losses"][0] - one["losses"][0]) / abs(
+        one["losses"][0])
+    grad_err = max(rel_max(rk_flag[0]["grads"][k], one["grads"][k])
+                   for k in names)
+    if loss_err > CROSS_LOSS_RTOL or grad_err > CROSS_GRAD_RTOL:
+        raise RuntimeError(f"BSP step against one rank: loss {loss_err}, "
+                           f"gradients {grad_err}")
+    log("distributed", ranks=DIST_RANKS, backend=choose_backend(
+            device, DIST_RANKS, torch.cuda.device_count()
+            if device == "cuda" else 0),
+        streams_a_rank=DIST_STREAMS, T=T, U=U, group_s=group_s,
+        bsp_losses=rk_flag[0]["losses"], bmuf_loss=rk_bmuf[0]["losses"],
+        one_rank_loss=one["losses"][0], loss_rel_err=loss_err,
+        grad_rel_err=grad_err, ranks_equal_bits=True,
+        step_ms=[r["step_ms"] for r in rk_flag],
+        bmuf_round_ms=[r["step_ms"] for r in rk_bmuf],
+        one_rank_step_ms=one["step_ms"],
+        allreduce_ms_gloo_through_host_staging_one_card=[
+            r["allreduce_ms"] for r in rk_flag],
+        allreduce_note="gloo all-reduce of the flagship's float32 "
+        "gradients between two processes on one card, staged through the "
+        "host: not a multi-card NCCL figure",
+        launches=[{n: r["launches"][n] for n in want} for r in rk_flag])
+
+    # (b) the worker types: every rank's run exits 0 on the LSTMP sweeps
+    # (never the per-step kernels), the written model reloads and moved,
+    # and the CV loss falls
+    cv0 = cv_loss(feats, targets, hybrid_model, device)
+    net0, _ = Nnet.load(hybrid_model, device)
+    p0 = {k: v.detach() for k, v in net0.named_parameters()}
+    per_type, worker_launches = {}, {}
+    for i, t in enumerate(DIST_WORKERS):
+        runs = [rc["cli"][i] for rc in rk_cli]
+        for r in runs:
+            lc = r["launches"]
+            if (r["rc"] or not lc["lstmp_train_fwd"]["launches"]
+                    or lc["lstmp_train_fwd"]["launches"]
+                    != lc["lstmp_train_bwd"]["launches"]
+                    or lc["lstmp_train_fwd"]["per_step"]
+                    or lc["lstmp_train_bwd"]["per_step"]):
+                raise RuntimeError(f"worker {t}: rc {r['rc']}, {lc}")
+        net, _ = Nnet.load(outs[t], device)
+        moved = max(float((p.detach() - p0[k]).abs().max())
+                    for k, p in net.named_parameters())
+        cv1 = cv_loss(feats, targets, outs[t], device)
+        if not (np.isfinite(cv1) and cv1 < cv0 and moved > 0):
+            raise RuntimeError(f"worker {t}: CV {cv0} -> {cv1}, moved "
+                               f"{moved}")
+        for name in ("lstmp_train_fwd", "lstmp_train_bwd"):
+            worker_launches[name] = worker_launches.get(name, 0) + sum(
+                r["launches"][name]["launches"] for r in runs)
+        per_type[t] = {"cv_loss": cv1, "seconds": [r["seconds"]
+                                                   for r in runs],
+                       "report": runs[0]["stdout"].strip(),
+                       "lstmp_train_fwd": [r["launches"]["lstmp_train_fwd"]
+                                           ["launches"] for r in runs]}
+    log("distributed_workers", cv_loss_initial=cv0, workers=per_type,
+        args=DIST_WORKER_ARGS)
+
+    # (c) BN with axis_name: the ranks' rows of the outputs and their
+    # averaged gradients against one rank on the whole batch
+    one_bn = train_rank(RankContext(0, 1, torch.device(device), "none"), bn)
+    out_err = rel_max(np.concatenate([r["outputs"] for r in rk_bn]),
+                      one_bn["outputs"])
+    bn_grad_err = max(rel_max(r["grads"][k], one_bn["grads"][k])
+                      for r in rk_bn for k in one_bn["grads"])
+    if out_err > DIST_BN_RTOL or bn_grad_err > DIST_BN_RTOL:
+        raise RuntimeError(f"BN axis_name: outputs {out_err}, gradients "
+                           f"{bn_grad_err}")
+    log("distributed_bn", output_rel_err=out_err, grad_rel_err=bn_grad_err,
+        frames=DIST_BN_FRAMES)
+    log("distributed_phase", seconds=time.perf_counter() - t_phase)
+    train_launches = {n: sum(r["launches"][n]["launches"]
+                             for r in rk_flag + rk_bmuf)
+                      for n in train_kernel_wrappers()}
+    return train_launches, worker_launches
+
+
 def kernel_record(name, source, replaces, runs, rows, timed, bound_at,
                   library_ms=None, library_note=NO_LIBRARY, **extra):
     """The kernel's JSON entry: its launches summed over the CLI runs
@@ -7315,6 +7539,7 @@ def main() -> int:
         train_results = train_kernel_phase(dev)
         xg_results = xg_train_kernel_phase(dev)
         model, feats, labels = write_train_files(workdir)
+        flagship_model = model
         runs = {"default": train_phase(model, feats, labels, workdir)}
         train_cross_check(model, feats, labels)
         steps = {"default": step_split(model, dev)}
@@ -7330,6 +7555,7 @@ def main() -> int:
             backward_ms={k: v["backward_ms"] for k, v in steps.items()})
         lstm_results = lstm_train_kernel_phase(dev)
         model, feats, targets = write_bptt_files(workdir)
+        hybrid = (model, feats, targets)
         bptt_launches = bptt_train_phase(model, feats, targets, workdir)
         bptt_cross_check(model, feats, targets)
         bptt_step_split(model, dev)
@@ -7360,13 +7586,16 @@ def main() -> int:
         log("hkust_phase", seconds=time.perf_counter() - t0)
         zoo_launches = zoo_phase(workdir)
         apps_phase(workdir, tri, progress_log)
+        runs["distributed"], dist_workers = distributed_phase(
+            flagship_model, hybrid, workdir)
     serving_runs = {"serving": launches, "serve_batched": batched_launches,
                     "vad": vad_launches, "entry": entry_launches,
                     "ls_synth": ls_synth_forward}
     records = kernel_records(serving_runs, runs, bptt_launches,
                              kernel_results, train_results, xg_results,
                              lstm_results, recipe_wide, recipe_ctc,
-                             latgen_launches, batched_timings, zoo_launches)
+                             latgen_launches, batched_timings, zoo_launches,
+                             dist_workers)
     log("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
@@ -7379,7 +7608,7 @@ def main() -> int:
 def kernel_records(serving_runs, runs, bptt_launches, kernel_results,
                    train_results, xg_results, lstm_results, recipe_wide,
                    recipe_ctc, latgen_launches, batched_timings,
-                   zoo_launches):
+                   zoo_launches, dist_workers):
     """The ten kernels' JSON entries from the phases' results."""
     def launched(name):
         return {run: n[name] for run, n in runs.items() if n[name]}
@@ -7463,7 +7692,8 @@ def kernel_records(serving_runs, runs, bptt_launches, kernel_results,
         records.append(kernel_record(
             f"lstmp_train_{kind}", "lstmp_train.cu", f"lstm_pallas.py:{line}",
             {"bptt": bptt_launches[f"lstmp_train_{kind}"],
-             "lc_train": zoo_launches["lc_train"][f"lstmp_train_{kind}"]},
+             "lc_train": zoo_launches["lc_train"][f"lstmp_train_{kind}"],
+             "distributed_workers": dist_workers[f"lstmp_train_{kind}"]},
             rows, timed,
             lstmp_train_bound(kind, *BPTT_SPLIT_SHAPE, HYBRID_C, HYBRID_P,
                               False),

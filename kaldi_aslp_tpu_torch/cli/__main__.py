@@ -1,10 +1,11 @@
 """CLI dispatcher: ``python -m kaldi_aslp_tpu_torch.cli <tool> [args]``.
 
 Port of kaldi_aslp_tpu/cli/__main__.py.  The tool names mirror the
-reference binaries; the port has every name of the JAX registry but the
-five MPI workers of distributed training (``aslp-nnet-train-frame-worker``,
+reference binaries; the port has every name of the JAX registry, the
+MPI workers of distributed training (``aslp-nnet-train-frame-worker``,
 ``-lstm-stream-worker``, ``-lc-blstm-streams-worker``, ``-simple-mpi``,
-``aslp-nnet-train-server``): 98 of 103.  As in the JAX package, the
+``aslp-nnet-train-server``; one process a worker rank) included: 103 of
+103.  As in the JAX package, the
 BLSTM, LC-BLSTM, skip and per-utterance BPTT binaries are one trainer,
 the warp-ctc and per-utterance CTC binaries the CTC trainer, the
 forward's -skip / -blstm-lc variants one forward, the NN-VAD apply
@@ -22,6 +23,7 @@ from kaldi_aslp_tpu_torch.cli import (
     lat_tools,
     nnet_tools,
     online_tools,
+    parallel_tools,
     script_tools,
     train_tools,
     tree_tools,
@@ -100,6 +102,13 @@ TOOLS = {
     "aslp-nnet-train-blstm-streams-lc": train_tools.nnet_train_lstm_streams,
     "aslp-nnet-train-blstm-parallel": train_tools.nnet_train_lstm_streams,
     "aslp-nnet-train-perutt": train_tools.nnet_train_lstm_streams,
+    # aslp-parallelbin workers (one process a worker rank)
+    "aslp-nnet-train-frame-worker": parallel_tools.nnet_train_worker,
+    "aslp-nnet-train-lstm-stream-worker": parallel_tools.nnet_train_worker,
+    "aslp-nnet-train-lc-blstm-streams-worker":
+        parallel_tools.nnet_train_worker,
+    "aslp-nnet-train-simple-mpi": parallel_tools.nnet_train_worker,
+    "aslp-nnet-train-server": parallel_tools.nnet_train_server,
     # aslp-nnetbin forward: -skip / -blstm-lc are the same main
     "aslp-nnet-forward": nnet_tools.nnet_forward_cli,
     "aslp-nnet-forward-skip": nnet_tools.nnet_forward_cli,

@@ -9,10 +9,12 @@ saved with the model under ``['states'][node]`` in the JAX zip format,
 so a state written by either package loads in the other.
 
 Training normalizes by the (masked) batch statistics and adds them to
-the sums; eval normalizes by the sums.  JAX's ``axis_name`` sums the
-batch statistics over a mesh axis (a ``psum``), which is distributed
-training: the port refuses it in training rather than normalize by one
-device's statistics."""
+the sums; eval normalizes by the sums.  With ``axis_name`` training sums
+the batch's ``sum``, ``sumsq`` and ``count`` over the ranks of that mesh
+axis (the group ``parallel/mesh.py:make_mesh`` registered under the
+name) by a differentiable all-reduce, whose backward is an all-reduce,
+as JAX's ``psum`` transposes to a ``psum`` (batchnorm.py:58-61).  A name
+no mesh registered raises; eval ignores the attr, as JAX's does."""
 
 from __future__ import annotations
 
@@ -66,11 +68,7 @@ class BatchNormalization(Component):
             sq = (flat * flat).sum(dim=0)
         if self.training:
             if self.axis_name is not None:
-                raise ValueError(
-                    f"BatchNormalization axis_name={self.axis_name!r}: "
-                    "statistics summed across devices are distributed "
-                    "training, which the port does not have yet (ROADMAP "
-                    "item 11); drop the attr to train on one device")
+                s, sq, count = _psum((s, sq, count), self.axis_name)
             mean = s / count
             var = sq / count - mean * mean
             new_state = {"sum": state["sum"] + s.detach(),
@@ -89,6 +87,25 @@ class BatchNormalization(Component):
     def lr_coefs(self) -> Dict[str, float]:
         coef = float(self.attrs.get("learn_rate_coef", 1.0))
         return {"gamma": coef, "beta": coef}
+
+
+def _psum(tensors, axis_name: str):
+    """Each tensor summed over the ranks of mesh axis ``axis_name``,
+    differentiably."""
+    from kaldi_aslp_tpu_torch.parallel.mesh import axis_group, group_size
+
+    try:
+        group = axis_group(axis_name)
+    except KeyError:
+        raise ValueError(
+            f"BatchNormalization axis_name={axis_name!r}: no mesh axis of "
+            "that name (parallel.make_mesh registers one); drop the attr "
+            "to train on one rank") from None
+    if group_size(group) == 1:
+        return tensors
+    from torch.distributed.nn.functional import all_reduce
+
+    return tuple(all_reduce(t, group=group) for t in tensors)
 
 
 def merge_bn_stats(states: List[Any]) -> Any:

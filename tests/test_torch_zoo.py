@@ -517,12 +517,15 @@ def test_batchnorm_state_round_trips_and_merges(tmp_path):
 
 
 def test_batchnorm_refuses_axis_name_in_training():
-    comp = M.BatchNormalization(3, 3, axis_name="data")
+    """Training refuses an axis_name that no mesh registered (distributed
+    training registers one: parallel/mesh.py:make_mesh); the error names
+    the attr.  Eval ignores the attr."""
+    comp = M.BatchNormalization(3, 3, axis_name="unregistered_axis")
     x = torch.randn(2, 4, 3)
     comp.eval()
     comp(x)   # eval uses the accumulated statistics only
     comp.train()
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="axis_name='unregistered_axis'"):
         comp(x)
 
 
