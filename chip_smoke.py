@@ -381,9 +381,17 @@ exits nonzero:
                 finite and below the initial model's; (c) a small BN net
                 with axis_name "data" under BSP, each rank's rows of the
                 outputs and the averaged gradients against one rank on the
-                whole batch (DIST_BN_RTOL).  The ranks' launches go into
-                the kernels' records (runs "distributed" and
-                "distributed_workers").
+                whole batch (DIST_BN_RTOL); (d) the convergence task
+                (make_hard_frame_task, seed 0) built on the card, then
+                PARITY_ROUNDS rounds of bsp and asgd on PARITY_RANKS card
+                ranks and, at the same time, on as many CPU ranks, both
+                from the task built here and JAX's shipped initial
+                parameters: the 11 held-out losses of each, their largest
+                relative gap, which must lie within the CPU test's bound
+                against JAX (PARITY_RTOL); then each subpackage imported
+                and its count of public names.  The ranks' launches of
+                (a)-(c) go into the kernels' records (runs "distributed"
+                and "distributed_workers"); (d) runs no hand kernel.
 The last lines are the kernels' JSON record (each kernel's launches in
 the CLI runs, its error, its time and its plain version's, the least
 time the card could take for its work and what binds it, and a PyTorch
@@ -599,6 +607,13 @@ DIST_WORKERS = {"bsp": [], "sod": ["--server-optimizer=momentum"],
                 "masgd": ["--masgd-momentum=0.5"]}
 DIST_BN = (FEAT_DIM, 64, 8)
 DIST_BN_FRAMES, DIST_BN_RTOL = 256, 1e-4
+# (d): the held-out losses of PARITY_ROUNDS rounds, card ranks against CPU
+# ranks, within tests/test_torch_convergence_jax.py's bound against JAX:
+# 1e-5 relative, and for ASGD (a server that adds the W workers' deltas in
+# turn) 1e-5 + R W u, u = 2^-24
+PARITY_RANKS, PARITY_ROUNDS = 2, 10
+PARITY_RTOL = {"bsp": 1e-5,
+               "asgd": 1e-5 + PARITY_ROUNDS * PARITY_RANKS * 2.0 ** -24}
 
 
 def log(phase: str, **fields) -> None:
@@ -1378,7 +1393,7 @@ def ctc_case(dev):
 def ctc_wide():
     """A context in which the CTC pair runs on its wide kernel (its plan in
     place of plan_for)."""
-    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+    from kaldi_aslp_tpu_torch.ops import ctc_recursions as cab
 
     planned = cab.plan_for
     cab.plan_for = cab.wide_plan
@@ -1393,7 +1408,7 @@ def ctc_profile_child():
     launches by kernel at CTC_SHAPE, on its planned (warp) kernel and on
     the wide one, printed as one JSON line {"warp" | "wide": [ms by
     kernel, launches by kernel]}."""
-    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+    from kaldi_aslp_tpu_torch.ops import ctc_recursions as cab
 
     args = ctc_case(torch.device("cuda"))[-1]
     out = {}
@@ -1415,7 +1430,7 @@ def ctc_phase(dev):
     the wide kernel at the same inputs as the same run's yardstick; then
     the port's whole ctc_loss forward and backward beside F.ctc_loss's on
     the same logits."""
-    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+    from kaldi_aslp_tpu_torch.ops import ctc_recursions as cab
     from kaldi_aslp_tpu_torch.ops.ctc import ctc_loss
 
     S, T, U, V = CTC_SHAPE
@@ -2865,7 +2880,7 @@ def recipe_ctc_check(rec, corpus):
     cross-validation batches, on the trained net's emissions): one launch
     a batch, on the kernel its plan names, against the plain recursions
     on the same tensors."""
-    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+    from kaldi_aslp_tpu_torch.ops import ctc_recursions as cab
     from kaldi_aslp_tpu_torch.ops.ctc import ctc_emissions
     from kaldi_aslp_tpu_torch.train.trainer import upload
 
@@ -2924,7 +2939,7 @@ def recipe_step_split(rec, batch):
     """One training step of the recipe's net at its longest batch, split
     by CUDA events, and its kernel launches by torch.profiler."""
     from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
-    from kaldi_aslp_tpu_torch.ops.ctc_alpha_beta import plan_for
+    from kaldi_aslp_tpu_torch.ops.ctc_recursions import plan_for
     from kaldi_aslp_tpu_torch.train import (
         CtcTrainer,
         NnetTrainOptions,
@@ -5341,7 +5356,7 @@ def ls_step_child():
     from torch.profiler import ProfilerActivity, profile
 
     from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
-    from kaldi_aslp_tpu_torch.ops import bilstmp_train, ctc_alpha_beta
+    from kaldi_aslp_tpu_torch.ops import bilstmp_train, ctc_recursions
     from kaldi_aslp_tpu_torch.recipes import ls_synth
     from kaldi_aslp_tpu_torch.train import (
         CtcTrainer,
@@ -5350,7 +5365,7 @@ def ls_step_child():
     )
     from kaldi_aslp_tpu_torch.train.trainer import upload
 
-    for m in (bilstmp_train, ctc_alpha_beta):
+    for m in (bilstmp_train, ctc_recursions):
         m.build()
     ones = torch.ones(64, 64, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -5941,7 +5956,7 @@ def hkust_step_child():
     from torch.profiler import ProfilerActivity, profile
 
     from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
-    from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta
+    from kaldi_aslp_tpu_torch.ops import ctc_recursions
     from kaldi_aslp_tpu_torch.recipes.ctc import CtcRecipe, CtcRecipeOptions
     from kaldi_aslp_tpu_torch.train import (
         CtcTrainer,
@@ -5950,7 +5965,7 @@ def hkust_step_child():
     )
     from kaldi_aslp_tpu_torch.train.trainer import upload
 
-    ctc_alpha_beta.build()
+    ctc_recursions.build()
     ones = torch.ones(64, 64, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         ones.matmul(ones)
@@ -7466,11 +7481,60 @@ def distributed_phase(flagship_model, hybrid, workdir, device="cuda"):
                            f"{bn_grad_err}")
     log("distributed_bn", output_rel_err=out_err, grad_rel_err=bn_grad_err,
         frames=DIST_BN_FRAMES)
+    convergence_parity(device)
     log("distributed_phase", seconds=time.perf_counter() - t_phase)
     train_launches = {n: sum(r["launches"][n]["launches"]
                              for r in rk_flag + rk_bmuf)
                       for n in train_kernel_wrappers()}
     return train_launches, worker_launches
+
+
+def convergence_parity(device="cuda"):
+    """Phase 26 (d): the convergence task built on ``device``, then bsp
+    and asgd for PARITY_ROUNDS rounds on ranks of ``device`` and on CPU
+    ranks at once, from JAX's shipped initial parameters; fails when the
+    held-out losses part by more than PARITY_RTOL.  Then every subpackage
+    of the port imported, with its count of public names."""
+    import importlib
+    import pkgutil
+
+    import kaldi_aslp_tpu_torch
+    from kaldi_aslp_tpu_torch.parallel.convergence import (
+        make_hard_frame_task,
+        run_convergence_comparison,
+    )
+
+    t0 = time.perf_counter()
+    task = make_hard_frame_task(seed=0, device=device)
+    task_s = time.perf_counter() - t0
+    kw = dict(n_rounds=PARITY_ROUNDS, learn_rate=1.0, per_device_batch=8,
+              strategies=tuple(PARITY_RTOL), task="hard_blstm",
+              task_data=task, init_params="jax", run_timeout_s=300)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        on_device = pool.submit(run_convergence_comparison, PARITY_RANKS,
+                                device=device, **kw)
+        on_cpu = pool.submit(run_convergence_comparison, PARITY_RANKS,
+                             device="cpu", threads=1, **kw)
+        got, want = on_device.result(), on_cpu.result()
+    gaps = {s: max(abs(a - b) / abs(b) for a, b in zip(got[s], want[s]))
+            for s in PARITY_RTOL}
+    log("convergence_parity", ranks=PARITY_RANKS, rounds=PARITY_ROUNDS,
+        device=device, task_s=task_s, runs_s=time.perf_counter() - t0,
+        train_shape=list(task[0].shape), num_pdfs=task[4],
+        **{f"{s}_{where}": traj for s in PARITY_RTOL
+           for where, traj in (("card", got[s]), ("cpu", want[s]))},
+        max_rel_gap=gaps, bound=PARITY_RTOL)
+    bad = {s: g for s, g in gaps.items() if not g <= PARITY_RTOL[s]}
+    if bad:
+        raise RuntimeError(f"card against CPU ranks: held-out losses part "
+                           f"by {bad}, bounds {PARITY_RTOL}")
+    names = {}
+    for m in sorted(pkgutil.iter_modules(kaldi_aslp_tpu_torch.__path__),
+                    key=lambda m: m.name):
+        mod = importlib.import_module(f"kaldi_aslp_tpu_torch.{m.name}")
+        names[m.name] = len([n for n in vars(mod) if not n.startswith("_")])
+    log("surface", public_names=names)
 
 
 def kernel_record(name, source, replaces, runs, rows, timed, bound_at,
@@ -7510,13 +7574,13 @@ def main() -> int:
         bilstmp_train,
         bilstmp_xg_train,
         build,
-        ctc_alpha_beta,
+        ctc_recursions,
         lstmp,
         lstmp_train,
     )
 
     t0 = time.perf_counter()
-    modules = (lstmp, bilstmp_train, ctc_alpha_beta, lstmp_train,
+    modules = (lstmp, bilstmp_train, ctc_recursions, lstmp_train,
                bilstmp_xg_train)
     with ThreadPoolExecutor(len(modules)) as pool:
         for future in [pool.submit(m.build) for m in modules]:

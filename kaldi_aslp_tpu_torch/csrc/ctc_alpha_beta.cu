@@ -47,7 +47,7 @@
 // states the block-per-stream kernel (ctc_wide_kernel) takes over, one
 // block per stream and recursion, its state in shared memory, the next
 // frame's emission scores loaded before the barrier.  The plan
-// (ops/ctc_alpha_beta.py:plan_for) picks the kernel from U' alone.  No
+// (ops/ctc_recursions.py:plan_for) picks the kernel from U' alone.  No
 // atomics: two runs give the same bits.
 
 #include <cuda_runtime.h>

@@ -22,7 +22,10 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from kaldi_aslp_tpu_torch.decoder.viterbi import ViterbiDecoder
+from kaldi_aslp_tpu_torch.decoder.viterbi import (  # noqa: F401 (NEG_INF)
+    NEG_INF,
+    ViterbiDecoder,
+)
 
 
 class BatchedViterbiDecoder(ViterbiDecoder):

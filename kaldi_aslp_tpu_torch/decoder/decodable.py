@@ -1,8 +1,8 @@
 """Acoustic-score bridge: network outputs -> decoder log-likelihoods.
 
-Port of kaldi_aslp_tpu/decoder/decodable.py (``PdfPrior`` with
-``from_alignments``,
-``NnetForwardOptions``, ``nnet_forward``; reference:
+Port of kaldi_aslp_tpu/decoder/decodable.py (``PdfPriorOptions``,
+``PdfPrior`` with ``from_alignments``, ``NnetForwardOptions``,
+``nnet_forward``; reference:
 src/aslp-nnet/nnet-decodable.{h,cc}, nnet-pdf-prior.{h,cc},
 src/aslp-nnetbin/aslp-nnet-forward.cc).  The network runs once over
 [1, T, D] on the device its parameters live on; log-softmax and the
@@ -18,6 +18,13 @@ import torch
 
 from kaldi_aslp_tpu_torch.models.nnet import Nnet
 from kaldi_aslp_tpu_torch.utils.config import Config
+
+
+@dataclasses.dataclass
+class PdfPriorOptions(Config):
+    class_frame_counts: str = ""
+    prior_scale: float = 1.0
+    prior_floor: float = 1e-10
 
 
 class PdfPrior:

@@ -118,8 +118,10 @@ def dryrun_convergence(n_workers: int,
     the six with the tuned MASGD in place of the default one too.  Then
     the affine task: every strategy below 0.55 of the initial loss and
     within 2x of the others.  A strategy whose group failed every try
-    (``strategies_missing``) fails the run.  Each task's JSON line is
-    printed before its checks; returns what it printed."""
+    (``strategies_missing``) fails the run.  Both tasks start from JAX's
+    initial parameters (``parallel/convergence.py:jax_initial_params``,
+    shipped with the package; missing, they raise).  Each task's JSON
+    line is printed before its checks; returns what it printed."""
     from kaldi_aslp_tpu_torch.parallel.convergence import (
         blstm_band,
         run_convergence_comparison,
@@ -144,7 +146,7 @@ def dryrun_convergence(n_workers: int,
 
     res = run_convergence_comparison(n_workers, n_rounds=60,
                                      learn_rate=1.5, per_device_batch=16,
-                                     device=device)
+                                     device=device, init_params="jax")
     finals = {k: v[-1] for k, v in res.items()}
     init = res["bsp"][0]
     out["affine"] = {"convergence_60round_final_loss": finals,

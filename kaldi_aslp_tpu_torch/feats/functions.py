@@ -8,7 +8,8 @@ reference: src/feat/feature-functions.{h,cc} DeltaFeatures,
 SpliceFrames and SlidingWindowCmn, src/transform/cmvn.{h,cc}).
 Deltas are gathers and weighted sums over a fixed context on the
 features' device; CMVN stats keep the reference's 2 x (dim+1)
-accumulator layout in float64, on the features' device."""
+accumulator layout in float64, on the features' device, with each
+utterance's sums taken on the host in numpy's order, as JAX's are."""
 
 from __future__ import annotations
 
@@ -85,16 +86,22 @@ def acc_cmvn_stats(feats: Union[torch.Tensor, np.ndarray],
                    stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Accumulate ``feats`` [T, D] into the Kaldi 2 x (D+1) float64 stats
     matrix on the features' device: row 0 [sum_x..., count], row 1
-    [sum_x^2..., 0].  As in the JAX package, each utterance's sums are
-    taken in the features' own precision before they are added."""
-    feats = torch.as_tensor(feats)
-    dim = feats.shape[1]
+    [sum_x^2..., 0].  Each utterance's sums are taken as the JAX package
+    takes them: in numpy, on the host, in the features' own precision,
+    frame after frame.  The order matters: a float32 sum of c0^2 (c0
+    about 15-21, variance about 1) carries a relative error near
+    T * 6e-8, and E[x^2] - E[x]^2 amplifies it by E[x^2] / var, about
+    300, so another summation order moves the normalized c0 by up to
+    5e-4 where every other dim moves by 1e-6."""
+    t = torch.as_tensor(feats)
+    f = t.detach().cpu().numpy()
+    dim = f.shape[1]
     if stats is None:
         stats = torch.zeros((2, dim + 1), dtype=torch.float64,
-                            device=feats.device)
-    stats[0, :dim] += feats.sum(dim=0).double()
-    stats[0, dim] += feats.shape[0]
-    stats[1, :dim] += (feats * feats).sum(dim=0).double()
+                            device=t.device)
+    sums = np.stack([f.sum(axis=0), (f ** 2).sum(axis=0)]).astype(np.float64)
+    stats[:, :dim] += torch.from_numpy(sums).to(stats.device)
+    stats[0, dim] += f.shape[0]
     return stats
 
 

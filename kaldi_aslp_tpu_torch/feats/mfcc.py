@@ -26,8 +26,11 @@ from kaldi_aslp_tpu_torch.feats.fbank import (
     mel_energies,
 )
 from kaldi_aslp_tpu_torch.feats.mel import MelBanksOptions, mel_banks_matrix
-from kaldi_aslp_tpu_torch.feats.window import (
+from kaldi_aslp_tpu_torch.feats.window import (  # noqa: F401 (JAX's names)
     FrameExtractionOptions,
+    compute_power_spectrum,
+    extract_frames,
+    process_window,
     window_function,
 )
 from kaldi_aslp_tpu_torch.utils.config import Config

@@ -1,10 +1,11 @@
 """Weighted FSTs (tropical semiring) for graph construction.
 
 The port's own copy of kaldi_aslp_tpu/fst/fst.py (``EPS``, ``Arc``,
-``Fst``, ``SymbolTable``; reference: src/fstext/ fsttablecompose,
-src/aslp-kws/fst.{h,cc}), with the names and layouts kept, so that the
-port never imports the JAX package.  Host-side construction only: the
-decoder runs over the packed arc arrays of ``to_arrays``.  Weights are
+``Fst`` with its rational operations, ``SymbolTable``; reference:
+src/fstext/ fsttablecompose, src/aslp-kws/fst.{h,cc}), with the names
+and layouts kept, so that the port never imports the JAX package.
+Host-side construction only: the decoder runs over the packed arc
+arrays of ``to_arrays``.  Weights are
 costs (-log probs) and label 0 is epsilon, as in OpenFst, so text dumps
 interoperate with the reference tooling.
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 import heapq
 from collections import defaultdict, deque
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -76,6 +77,9 @@ class Fst:
     @property
     def num_arcs(self) -> int:
         return sum(len(a) for a in self.arcs)
+
+    def is_final(self, s: int) -> bool:
+        return s in self.finals
 
     # -- basic algorithms ---------------------------------------------------
     def connect(self) -> "Fst":
@@ -163,6 +167,75 @@ class Fst:
                     if fw < out.finals.get(s, INF):
                         out.set_final(s, fw)
         return out.connect()
+
+    # -- rational operations ------------------------------------------------
+    @classmethod
+    def linear(cls, labels: Iterable[Tuple[int, int]],
+               weights: Optional[List[float]] = None) -> "Fst":
+        """Linear chain from (ilabel, olabel) pairs."""
+        f = cls()
+        cur = f.add_state()
+        f.set_start(cur)
+        for i, (il, ol) in enumerate(labels):
+            nxt = f.add_state()
+            f.add_arc(cur, Arc(il, ol, weights[i] if weights else 0.0, nxt))
+            cur = nxt
+        f.set_final(cur)
+        return f
+
+    def _copy_into(self, out: "Fst", off: int) -> None:
+        """Every arc of ``self`` into ``out``, states shifted by ``off``."""
+        for s in range(self.num_states):
+            for a in self.arcs[s]:
+                out.add_arc(off + s, Arc(a.ilabel, a.olabel, a.weight,
+                                         off + a.nextstate))
+
+    def concat(self, other: "Fst") -> "Fst":
+        """``self`` then ``other``: each final state of ``self`` takes an
+        epsilon arc, weighted by its final weight, to ``other``'s start."""
+        out = Fst()
+        off = self.num_states
+        for _ in range(self.num_states + other.num_states):
+            out.add_state()
+        out.set_start(self.start)
+        self._copy_into(out, 0)
+        for s, w in self.finals.items():
+            out.add_arc(s, Arc(EPS, EPS, w, off + other.start))
+        other._copy_into(out, off)
+        for s, w in other.finals.items():
+            out.set_final(off + s, w)
+        return out
+
+    def union(self, other: "Fst") -> "Fst":
+        """A new start state with epsilon arcs into both machines."""
+        out = Fst()
+        out.set_start(out.add_state())
+        for _ in range(self.num_states + other.num_states):
+            out.add_state()
+        off1, off2 = 1, 1 + self.num_states
+        out.add_arc(out.start, Arc(EPS, EPS, 0.0, off1 + self.start))
+        out.add_arc(out.start, Arc(EPS, EPS, 0.0, off2 + other.start))
+        self._copy_into(out, off1)
+        other._copy_into(out, off2)
+        for s, w in self.finals.items():
+            out.set_final(off1 + s, w)
+        for s, w in other.finals.items():
+            out.set_final(off2 + s, w)
+        return out
+
+    def closure(self) -> "Fst":
+        """Kleene star: each final state loops back to the start by an
+        epsilon arc of its final weight, and the start is final."""
+        out = Fst()
+        for _ in range(self.num_states):
+            out.add_state()
+        out.set_start(self.start)
+        self._copy_into(out, 0)
+        for s, w in self.finals.items():
+            out.set_final(s, w)
+            out.add_arc(s, Arc(EPS, EPS, w, self.start))
+        out.set_final(self.start, 0.0)
+        return out
 
     # -- composition --------------------------------------------------------
     def compose(self, other: "Fst") -> "Fst":

@@ -112,15 +112,7 @@ def make_unigram_grammar(word_probs: Dict[str, float],
 def make_linear_acceptor(word_ids: Sequence[int]) -> Fst:
     """Transcript acceptor for training-graph compilation
     (reference: compile-train-graphs.cc MakeLinearAcceptor)."""
-    f = Fst()
-    cur = f.add_state()
-    f.set_start(cur)
-    for w in word_ids:
-        nxt = f.add_state()
-        f.add_arc(cur, Arc(w, w, 0.0, nxt))
-        cur = nxt
-    f.set_final(cur)
-    return f
+    return Fst.linear([(w, w) for w in word_ids])
 
 
 # ---------------------------------------------------------------------------

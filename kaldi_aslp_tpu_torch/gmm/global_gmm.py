@@ -22,7 +22,10 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from kaldi_aslp_tpu_torch.gmm.diag_gmm import component_loglikes
+from kaldi_aslp_tpu_torch.gmm.diag_gmm import (  # noqa: F401 (LOG_2PI)
+    LOG_2PI,
+    component_loglikes,
+)
 from kaldi_aslp_tpu_torch.utils.device import resolve_device
 
 # frames an E-step block: bounds its [frames, M] float64 operands

@@ -1,5 +1,5 @@
-"""HMM topologies and the transition model (port of
-kaldi_aslp_tpu/hmm/topology.py and transition_model.py; numpy)."""
+"""HMM topologies, the transition model and alignment conversion (port
+of kaldi_aslp_tpu/hmm/; numpy)."""
 
 from kaldi_aslp_tpu_torch.hmm.topology import (
     HmmState,
@@ -9,4 +9,8 @@ from kaldi_aslp_tpu_torch.hmm.topology import (
 from kaldi_aslp_tpu_torch.hmm.transition_model import (
     TransitionModel,
     TransitionState,
+)
+from kaldi_aslp_tpu_torch.hmm.convert_ali import (
+    convert_alignment,
+    phone_segments,
 )

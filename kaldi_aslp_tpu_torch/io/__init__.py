@@ -16,10 +16,16 @@ from kaldi_aslp_tpu_torch.io.kaldi_io import (
     write_vector,
 )
 from kaldi_aslp_tpu_torch.io.lattice_io import (
+    CompactLatticeHolder,
+    LatticeHolder,
     compact_lattice_writer,
     lattice_writer,
     random_access_lattice_reader,
+    read_lattice_binary,
+    read_lattice_text,
     sequential_lattice_reader,
+    write_lattice_binary,
+    write_lattice_text,
 )
 from kaldi_aslp_tpu_torch.io.table import (
     RandomAccessTableReader,

@@ -134,10 +134,12 @@ def _read_compressed_matrix(f: BinaryIO, fmt: int) -> np.ndarray:
     raise KaldiIOError(f"unknown compressed-matrix format {fmt}")
 
 
-def read_matrix(f: BinaryIO) -> np.ndarray:
-    """Read a binary Matrix<float/double> as float32 (reference:
-    kaldi-matrix.cc Matrix::Read); text matrices go through
-    :func:`read_text_matrix_lines`."""
+def read_matrix(f: BinaryIO, binary: bool = True) -> np.ndarray:
+    """Read a Matrix<float/double> as float32 (reference: kaldi-matrix.cc
+    Matrix::Read); ``binary=False`` reads the text form, one row a line
+    (:func:`read_text_matrix_lines`)."""
+    if not binary:
+        return _read_text_matrix(f)
     token = read_token(f)
     if token == "CM":
         return _read_compressed_matrix(f, 1)
@@ -177,6 +179,26 @@ def write_matrix(f: BinaryIO, mat: np.ndarray, binary: bool = True) -> None:
         write_basic_int32(f, mat.shape[0])
         write_basic_int32(f, mat.shape[1])
         f.write(np.ascontiguousarray(mat, dtype="<f4").tobytes())
+
+
+def _read_text_matrix(f: BinaryIO) -> np.ndarray:
+    """The text form " [\n  r0 ...\n  r1 ... ]" up to its "]", a row a
+    line as Kaldi writes and reads it.  JAX's reader puts every value in
+    one row (kaldi_aslp_tpu/io/kaldi_io.py:189-207); the port keeps the
+    rows (ROADMAP queue 3)."""
+    tok = read_token(f)
+    if tok != "[":
+        raise KaldiIOError(f"expected '[' for text matrix, got {tok!r}")
+    body = bytearray()
+    while True:
+        c = f.read(1)
+        if not c:
+            raise KaldiIOError("EOF inside a text matrix")
+        if c == b"]":
+            break
+        body += c
+    mat = read_text_matrix_lines("[" + body.decode("utf-8") + "]")
+    return mat.reshape(0, 0) if mat.size == 0 else mat
 
 
 def read_text_matrix_lines(text: str) -> np.ndarray:

@@ -31,7 +31,7 @@ from kaldi_aslp_tpu_torch.models.losses import (
     multitask_loss,
     xent_loss,
 )
-from kaldi_aslp_tpu_torch.models.nnet import Nnet
+from kaldi_aslp_tpu_torch.models.nnet import Nnet, Node
 from kaldi_aslp_tpu_torch.models.recurrent import (
     BLstm,
     BLstmProjectedStreams,

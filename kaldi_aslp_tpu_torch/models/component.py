@@ -48,6 +48,9 @@ class Component(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw the parameters (counterpart of ``init_params(key)``)."""
 
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
     def init_state(self, num_streams: int, device: torch.device) -> Any:
         return None
 
@@ -60,6 +63,15 @@ class Component(nn.Module):
                 mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
         raise NotImplementedError
+
+    @classmethod
+    def from_config(cls, input_dim: int, output_dim: int,
+                    attrs: Dict[str, Any]) -> "Component":
+        return cls(input_dim, output_dim, **attrs)
+
+    def config_attrs(self) -> Dict[str, Any]:
+        """Attrs to serialize."""
+        return dict(self.attrs)
 
     def extra_repr(self) -> str:
         return f"in={self.input_dim}, out={self.output_dim}"
@@ -151,4 +163,4 @@ def build_component(line: str) -> Component:
     cls, attrs = parse_proto_line(line)
     input_dim = attrs.pop("input_dim")
     output_dim = attrs.pop("output_dim")
-    return cls(input_dim, output_dim, **attrs)
+    return cls.from_config(input_dim, output_dim, attrs)

@@ -5,7 +5,8 @@ src/aslp-nnet/nnet-nnet.{h,cc}, multi-io Propagate at :70-106).  The
 container holds the components in ``nodes`` (an ``nn.ModuleList``) and,
 per node, its input edges: ``(source, column offset)`` where a source is
 a component id or ``"in:k"``, the k-th network input.  Edges with the
-same offset add; disjoint offsets splice.
+same offset add; disjoint offsets splice.  ``graph()`` gives them as
+JAX's ``Node`` (component, edges) list.
 
 ``save``/``load`` read and write the JAX package's native format
 exactly (nnet.py:193-247): a zip holding ``topology.json`` and
@@ -16,6 +17,7 @@ in the other.  ``from_proto`` builds a chain from <NnetProto> text;
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import zipfile
@@ -38,6 +40,14 @@ from kaldi_aslp_tpu_torch.models.interop import (
 )
 
 Source = Union[int, str]  # component id or "in:k"
+
+
+@dataclasses.dataclass
+class Node:
+    """A component and its input edges, (source, column offset into the
+    input buffer), as JAX's ``Nnet.nodes`` holds them."""
+    comp: Component
+    inputs: List[Tuple[Source, int]]
 
 
 def _keystr(path: Sequence[str]) -> str:
@@ -107,6 +117,11 @@ class Nnet(nn.Module):
 
     def num_components(self) -> int:
         return len(self.nodes)
+
+    def graph(self) -> List[Node]:
+        """Every node as JAX's ``Node``: the component and its edges."""
+        return [Node(c, list(e)) for c, e in zip(self.nodes,
+                                                  self.node_inputs)]
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -197,13 +212,13 @@ class Nnet(nn.Module):
             "output_ids": self._output_ids,
             "nodes": [
                 {
-                    "token": comp.token,
-                    "input_dim": comp.input_dim,
-                    "output_dim": comp.output_dim,
-                    "attrs": comp.attrs,
-                    "inputs": [[s, o] for (s, o) in edges],
+                    "token": n.comp.token,
+                    "input_dim": n.comp.input_dim,
+                    "output_dim": n.comp.output_dim,
+                    "attrs": n.comp.attrs,
+                    "inputs": [[s, o] for (s, o) in n.inputs],
                 }
-                for comp, edges in zip(self.nodes, self.node_inputs)
+                for n in self.graph()
             ],
         }
         tree = {"params": params_to_jax(self.state_dict()),
@@ -251,8 +266,8 @@ class Nnet(nn.Module):
                  f"input-dim {self.input_dim}",
                  f"output-dim {self.output_dim}"]
         total = 0
-        for i, (comp, edges) in enumerate(zip(self.nodes,
-                                              self.node_inputs)):
+        for i, node in enumerate(self.graph()):
+            comp, edges = node.comp, node.inputs
             extra = ""
             if with_params:
                 cnt = sum(p.numel() for p in comp.parameters())
@@ -270,10 +285,10 @@ class Nnet(nn.Module):
         lines = ["digraph nnet {"]
         for k in range(self.num_inputs):
             lines.append(f'  "in:{k}" [shape=box];')
-        for i, (comp, edges) in enumerate(zip(self.nodes,
-                                              self.node_inputs)):
-            lines.append(f'  n{i} [label="{i}:{comp.token.strip("<>")}"];')
-            for (src, off) in edges:
+        for i, node in enumerate(self.graph()):
+            label = node.comp.token.strip("<>")
+            lines.append(f'  n{i} [label="{i}:{label}"];')
+            for (src, off) in node.inputs:
                 name = f'"{src}"' if isinstance(src, str) else f"n{src}"
                 lines.append(f'  {name} -> n{i} [label="{off}"];')
         lines.append("}")

@@ -24,6 +24,8 @@ import torch
 
 from kaldi_aslp_tpu_torch.utils.device import resolve_device
 
+NEG = -1e30     # JAX's "minus infinity" of a score (kaldi_aslp_tpu/ops/crf.py)
+
 
 @dataclasses.dataclass
 class CrfParams:

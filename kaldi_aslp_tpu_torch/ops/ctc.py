@@ -6,7 +6,7 @@ EvalParallel, label expansion at :134-149).  Blank id 0 by default.
   - ``expand_labels`` and ``_transition_mask`` build the expanded label
     sequence l' (U' = 2U + 1) and the states a skip may enter;
   - ``ctc_alpha_beta`` gathers the emission scores and runs the two
-    recursions through ops/ctc_alpha_beta.py: on a CUDA tensor one launch
+    recursions through ops/ctc_recursions.py: on a CUDA tensor one launch
     of the hand CUDA kernel for both (a warp per stream and recursion,
     the state in registers), on a CPU tensor the plain loops over T (the
     equations of the JAX scan, ops/ctc.py:63-159, ``_lse3`` included);
@@ -24,8 +24,8 @@ from typing import Iterable, List
 
 import torch
 
-from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as recursions
-from kaldi_aslp_tpu_torch.ops.ctc_alpha_beta import NEG_INF
+from kaldi_aslp_tpu_torch.ops import ctc_recursions as recursions
+from kaldi_aslp_tpu_torch.ops.ctc_recursions import NEG_INF
 
 
 def expand_labels(labels: torch.Tensor, blank: int = 0) -> torch.Tensor:

@@ -22,7 +22,11 @@ The layout is the JAX wrapper's: ``lp_t [T, S, U']`` emission scores
 ``exp_lens`` [S].  The TPU padding of U' to 128 and S to 8 is not
 ported.  On the TPU these kernels were opt-in because of Mosaic compile
 time (kaldi_aslp_tpu/ops/ctc.py:174-186); here they are the default on
-CUDA tensors."""
+CUDA tensors.
+
+The module is ``ops.ctc_recursions``: in the package, ``ops.ctc_alpha_beta``
+is JAX's function of that name (ops/ctc.py), which calls this module's
+wrapper after gathering the emission scores."""
 
 from __future__ import annotations
 

@@ -17,14 +17,25 @@ Two tasks, as JAX's:
 ``run_comparison_groups`` is the counterpart of JAX's
 ``run_comparison_subprocess``: one process group a strategy, each retried
 on failure and bounded in time.  A strategy that still fails is not
-dropped silently: it is named, with its error, in the second value."""
+dropped silently: it is named, with its error, in the second value.
+
+Initial parameters (``init_params``): ``"torch"``, the net's own
+``reset_parameters`` from a ``torch.Generator`` seeded ``seed``;
+``"jax"``, JAX's ``Nnet.init(PRNGKey(seed))`` for the task's net, shipped
+as data beside this module (``INIT_FILE``, written by
+tests/test_torch_convergence_init.py on a host with JAX); or a dict of
+numpy arrays in JAX's layout (node id, then the component's keys).
+``blstm_band`` and ``main`` start from ``"jax"`` by default, as JAX's
+dryrun does; the lower-level runs from ``"torch"``."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import os
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from kaldi_aslp_tpu_torch.parallel.launch import RankContext, spawn
@@ -35,6 +46,51 @@ logger = get_logger("convergence")
 ALL_STRATEGIES = ("bsp", "bmuf", "easgd", "asgd", "masgd", "sod")
 
 Task = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]
+Init = Union[str, Mapping[str, Any]]
+
+INIT_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "jax_initial_params.npz")
+
+
+def jax_initial_params(task: str = "hard_blstm", seed: int = 0
+                       ) -> Dict[str, Any]:
+    """JAX's ``Nnet.init(PRNGKey(seed))`` for ``task``'s net, as the nested
+    dict of numpy arrays in JAX's layout, read from ``INIT_FILE`` (keys
+    ``<task>/seed<seed>/<node>/<key>...``).  Raises ``FileNotFoundError``
+    when the file is missing and ``KeyError`` when it holds no such draw:
+    there is no quiet fallback to another start."""
+    if not os.path.exists(INIT_FILE):
+        raise FileNotFoundError(
+            f"{INIT_FILE} is missing: JAX's initial parameters are shipped "
+            "with the package (tests/test_torch_convergence_init.py "
+            "writes them on a host with JAX)")
+    prefix = f"{task}/seed{seed}/"
+    tree: Dict[str, Any] = {}
+    with np.load(INIT_FILE) as z:
+        for name in z.files:
+            if not name.startswith(prefix):
+                continue
+            parts = name[len(prefix):].split("/")
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = z[name]
+    if not tree:
+        raise KeyError(f"{INIT_FILE} holds no JAX initial parameters for "
+                       f"task {task!r} at seed {seed}")
+    return tree
+
+
+def resolve_init(init_params: Init, task: str, seed: int) -> Init:
+    """``"jax"`` -> the shipped draw for ``task`` at ``seed``; ``"torch"``
+    and a dict stay as they are."""
+    if isinstance(init_params, str):
+        if init_params == "jax":
+            return jax_initial_params(task, seed)
+        if init_params != "torch":
+            raise ValueError("init_params must be 'jax', 'torch' or a "
+                             f"dict, not {init_params!r}")
+    return init_params
 
 
 def make_hard_frame_task(chunk: int = 32, seed: int = 0,
@@ -79,7 +135,11 @@ def make_hard_frame_task(chunk: int = 32, seed: int = 0,
 
 def _task_rounds(spec: dict):
     """The net, the rounds' global batches and the held-out set, the same
-    on every rank (numpy seeds, JAX's draws)."""
+    on every rank (numpy seeds, JAX's draws).  The net starts from
+    ``spec["init_params"]``: a dict in JAX's layout (through
+    ``interop.params_from_jax``), or ``"torch"``, a torch generator
+    seeded ``seed``."""
+    from kaldi_aslp_tpu_torch.models.interop import params_from_jax
     from kaldi_aslp_tpu_torch.models.nnet import Nnet
     from kaldi_aslp_tpu_torch.models.recurrent import BLstm
     from kaldi_aslp_tpu_torch.models.simple import AffineTransform, Sigmoid
@@ -114,7 +174,10 @@ def _task_rounds(spec: dict):
             rounds.append((train_x[sel], train_y[sel]))
     else:
         raise ValueError(spec["task"])
-    net.reset_parameters(torch.Generator().manual_seed(seed))
+    if isinstance(spec["init_params"], str):
+        net.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        net.load_state_dict(params_from_jax(spec["init_params"]))
     return net, rounds, (x_eval, y_eval)
 
 
@@ -123,6 +186,7 @@ def convergence_rank(ctx: RankContext,
     """One rank of a comparison: every strategy of ``spec`` in turn over
     this group; rank 0 returns {strategy: held-out loss a round}."""
     from kaldi_aslp_tpu_torch.models.losses import xent_loss
+    from kaldi_aslp_tpu_torch.parallel.mesh import flatten, unflatten
     from kaldi_aslp_tpu_torch.parallel.optimizers import (
         OptimizerOptions,
         make_optimizer,
@@ -139,11 +203,18 @@ def convergence_rank(ctx: RankContext,
     net, rounds, (x_eval, y_eval) = _task_rounds(spec)
     net.to(dev)
     params = dict(net.named_parameters())
+    if W > 1:       # every rank starts from rank 0's parameters
+        flat = flatten(list(params.values()))
+        dist.broadcast(flat, src=0)
+        with torch.no_grad():
+            for p, v in zip(params.values(),
+                            unflatten(flat, list(params.values()))):
+                p.copy_(v)
     params0 = {k: v.detach().clone() for k, v in params.items()}
     x_ev = torch.from_numpy(x_eval).to(dev)
-    y_ev = torch.from_numpy(y_eval).to(dev)
+    y_ev = torch.from_numpy(y_eval).long().to(dev)
     batches = [{"x": torch.from_numpy(x).to(dev),
-                "y": torch.from_numpy(y).to(dev)} for x, y in rounds]
+                "y": torch.from_numpy(y).long().to(dev)} for x, y in rounds]
     lr0, halve = spec["learn_rate"], spec["lr_halve_at"]
     lrs = [lr0 * 0.5 ** sum(i >= h for h in halve)
            for i in range(len(rounds))]
@@ -200,19 +271,23 @@ def run_convergence_comparison(
     task_data: Optional[Task] = None,
     threads: Optional[int] = None,
     run_timeout_s: Optional[float] = None,
+    init_params: Init = "torch",
 ) -> Dict[str, List[float]]:
     """{strategy: held-out xent of the consensus model after each round},
     every strategy on identical data from an identical start, over one
     group of ``n_workers`` ranks on ``device`` (one rank: in this
     process).  ``task_data``: ``make_hard_frame_task``'s result for
-    ``hard_blstm`` (built here when None)."""
+    ``hard_blstm`` (built here when None); ``init_params``: the start
+    (the module's docstring)."""
+    init_params = resolve_init(init_params, task, seed)
     if task == "hard_blstm" and task_data is None:
         task_data = make_hard_frame_task(seed=seed, device=device)
     spec = dict(n_workers=n_workers, n_rounds=n_rounds, seed=seed,
                 per_device_batch=per_device_batch, learn_rate=learn_rate,
                 strategies=tuple(strategies), task=task,
                 lr_halve_at=tuple(lr_halve_at),
-                masgd_momentum=masgd_momentum, task_data=task_data)
+                masgd_momentum=masgd_momentum, task_data=task_data,
+                init_params=init_params)
     if n_workers == 1:
         from kaldi_aslp_tpu_torch.parallel.mesh import rank_device
 
@@ -239,7 +314,8 @@ def run_comparison_groups(n_workers: int, rounds: int, lr: float,
                           retries: int = 3, timeout_s: float = 1800,
                           masgd_momentum: float = 0.9, device: str = "cuda",
                           task_data: Optional[Task] = None,
-                          threads: Optional[int] = None, seed: int = 0
+                          threads: Optional[int] = None, seed: int = 0,
+                          init_params: Init = "torch"
                           ) -> Tuple[Dict[str, List[float]],
                                      Dict[str, str]]:
     """The ``hard_blstm`` comparison with one process group a strategy,
@@ -247,7 +323,9 @@ def run_comparison_groups(n_workers: int, rounds: int, lr: float,
     (trajectories, {strategy: error} for each strategy whose group failed
     every try).  A group fails when a rank raises, dies or overruns; an
     error of this process (no card, a bad argument) is raised.  The task
-    is built once and every group trains on the same rounds."""
+    is built once and every group trains on the same rounds from the
+    same start (``init_params``, read once)."""
+    init_params = resolve_init(init_params, "hard_blstm", seed)
     if task_data is None:
         task_data = make_hard_frame_task(seed=seed, device=device)
     out: Dict[str, List[float]] = {}
@@ -261,7 +339,7 @@ def run_comparison_groups(n_workers: int, rounds: int, lr: float,
                     per_device_batch=8, strategies=(strat,),
                     task="hard_blstm", masgd_momentum=masgd_momentum,
                     device=device, task_data=task_data, threads=threads,
-                    run_timeout_s=timeout_s))
+                    run_timeout_s=timeout_s, init_params=init_params))
                 break
             except (mp.ProcessRaisedException, mp.ProcessExitedException,
                     TimeoutError) as e:
@@ -275,7 +353,8 @@ def run_comparison_groups(n_workers: int, rounds: int, lr: float,
 
 def blstm_band(n_workers: int, device: str = "cuda", seed: int = 0,
                rounds: int = 300, threads: Optional[int] = None,
-               task_data: Optional[Task] = None) -> Dict[str, object]:
+               task_data: Optional[Task] = None,
+               init_params: Init = "jax") -> Dict[str, object]:
     """JAX's dryrun evidence on the ``hard_blstm`` task
     (__graft_entry__.py:123-182): the six strategies and MASGD again at
     server momentum 0.5 for ``rounds`` rounds at lr 1.0, one group each;
@@ -284,15 +363,20 @@ def blstm_band(n_workers: int, device: str = "cuda", seed: int = 0,
     in place of the default one.  A band that cannot be taken says why in
     ``band5_skipped`` / ``band6_skipped``; a strategy whose group failed
     is in ``strategies_missing`` with its error.  ``task_data``:
-    ``make_hard_frame_task(seed=seed, device=device)`` when None."""
+    ``make_hard_frame_task(seed=seed, device=device)`` when None;
+    ``init_params``: JAX's initial draw by default (the module's
+    docstring), ``"torch"`` for the torch generator's."""
+    start = resolve_init(init_params, "hard_blstm", seed)
     data = (task_data if task_data is not None
             else make_hard_frame_task(seed=seed, device=device))
     res, missing = run_comparison_groups(n_workers, rounds, 1.0,
                                          device=device, task_data=data,
-                                         threads=threads, seed=seed)
+                                         threads=threads, seed=seed,
+                                         init_params=start)
     tuned, missing_tuned = run_comparison_groups(
         n_workers, rounds, 1.0, strategies=("masgd",), masgd_momentum=0.5,
-        device=device, task_data=data, threads=threads, seed=seed)
+        device=device, task_data=data, threads=threads, seed=seed,
+        init_params=start)
     finals = {k: v[-1] for k, v in res.items()}
     if tuned.get("masgd"):
         finals["masgd_tuned_m0.5"] = tuned["masgd"][-1]
@@ -315,7 +399,9 @@ def blstm_band(n_workers: int, device: str = "cuda", seed: int = 0,
                     f"{sorted(want6 - set(six))}")
     return {"convergence_blstm_hardcorpus_final_loss": finals,
             "initial_loss": init, "seed": seed, "ranks": n_workers,
-            "device": device, "best_5strategy_band": band5,
+            "device": device, "init_params": init_params
+            if isinstance(init_params, str) else "given",
+            "best_5strategy_band": band5,
             "band5_skipped": skipped5,
             "best_6strategy_band_tuned_masgd": band6,
             "band6_skipped": skipped6,
@@ -326,9 +412,10 @@ def blstm_band(n_workers: int, device: str = "cuda", seed: int = 0,
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """``python -m kaldi_aslp_tpu_torch.parallel.convergence --ranks 8
     --device cuda --seeds 0 1 2``: one JSON line of ``blstm_band`` a seed,
-    each with the task's targets and features set beside those built on
-    the CPU (``task_vs_cpu``), so that a gap between the devices' bands
-    can be told to come from the data or from rounding."""
+    from JAX's initial draw, each with the task's targets and features set
+    beside those built on the CPU (``task_vs_cpu``), so that a gap between
+    the devices' bands can be told to come from the data or from
+    rounding."""
     import argparse
     import json
     import time

@@ -124,6 +124,18 @@ def global_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def num_hosts() -> int:
+    """The number of nodes: torchrun's ``GROUP_WORLD_SIZE`` (its node
+    count), 1 without it (ranks spawned on this host).  JAX's counterpart
+    is the process count, one process a host."""
+    return int(os.environ.get("GROUP_WORLD_SIZE", 1))
+
+
+def host_index() -> int:
+    """This node's index: torchrun's ``GROUP_RANK``, 0 without it."""
+    return int(os.environ.get("GROUP_RANK", 0))
+
+
 def is_main_host() -> bool:
     """Equivalent of MpiNode::IsMainNode: rank 0 writes models."""
     return global_rank() == 0

@@ -189,7 +189,7 @@ def train_kernel_wrappers() -> Dict[str, Any]:
     from kaldi_aslp_tpu_torch.ops import (
         bilstmp_train,
         bilstmp_xg_train,
-        ctc_alpha_beta,
+        ctc_recursions,
         lstmp_train,
     )
     return {"bilstmp_train_fwd": bilstmp_train.bilstmp_train_fwd,
@@ -199,7 +199,7 @@ def train_kernel_wrappers() -> Dict[str, Any]:
             "bilstmp_xg_train_bwd": bilstmp_xg_train.bilstmp_xg_train_bwd,
             "lstmp_train_fwd": lstmp_train.lstmp_train_fwd,
             "lstmp_train_bwd": lstmp_train.lstmp_train_bwd,
-            "ctc_alpha_beta": ctc_alpha_beta.ctc_alpha_beta}
+            "ctc_alpha_beta": ctc_recursions.ctc_alpha_beta}
 
 
 def kernel_wrappers() -> Dict[str, Any]:

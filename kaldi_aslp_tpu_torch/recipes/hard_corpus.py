@@ -331,9 +331,10 @@ def extract_mfcc_deltas_cmvn(
 
     The MFCCs come from the bucketed batch extractor (feats/batch.py)
     and the raw pitch from ``compute_pitch_batched`` on the same device,
-    post-processed on the host as in the JAX package; the deltas and the
-    CMVN stats from feats/functions.py on the device; the features
-    return to the host as float32 numpy arrays."""
+    post-processed on the host as in the JAX package; the deltas and
+    the normalization from feats/functions.py on the device, the CMVN
+    stats' sums on the host in numpy's order (``acc_cmvn_stats``); the
+    features return to the host as float32 numpy arrays."""
     mfcc = Mfcc(FrameExtractionOptions(samp_freq=SAMP_FREQ, dither=0.0),
                 MelBanksOptions(num_bins=23), MfccOptions(), device=device)
     base = compute_batched(mfcc, waves)

@@ -87,7 +87,8 @@ from kaldi_aslp_tpu_torch.models import (
     Nnet,
 )
 from kaldi_aslp_tpu_torch.ops.edit_distance import score_utterances
-from kaldi_aslp_tpu_torch.recipes.rm_synth import (
+from kaldi_aslp_tpu_torch.recipes.rm_synth import (  # noqa: F401 (PHONES)
+    PHONES,
     SAMP_FREQ,
     bigram_arpa,
     make_lexicon,

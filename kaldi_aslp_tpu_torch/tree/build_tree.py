@@ -142,6 +142,12 @@ class ContextDependency:
             node = node.yes if val in node.question else node.no
         return node.pdf
 
+    def pdf_map(self):
+        """Refused, as in the JAX package: a monophone-style pdf map does
+        not describe a context-dependent tree; use ``compute`` with full
+        windows."""
+        raise TypeError("CD trees need context windows; use compute()")
+
 
 def build_tree(
     stats: Dict[StatsKey, GaussStats],

@@ -6,7 +6,8 @@ src/util/parse-options.h): options dataclasses self-register flags,
 true/false, and every CLI prints a usage string.  Unlike the reference
 there is a single typed registry instead of raw pointers.
 
-Copy of kaldi_aslp_tpu/utils/config.py (``Config``, ``parse_options``):
+Copy of kaldi_aslp_tpu/utils/config.py (``Config``, ``ConfigError``,
+``parse_options``):
 that package's ``utils/__init__`` loads JAX, so the port keeps its own.
 """
 
@@ -56,6 +57,12 @@ class Config:
         if key not in types:
             raise ConfigError(f"unknown option --{name}")
         setattr(self, key, _parse_value(raw, types[key]))
+
+    def flag_names(self) -> List[str]:
+        return [f.name.replace("_", "-") for f in dataclasses.fields(self)]
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 def _read_config_file(path: str) -> List[str]:

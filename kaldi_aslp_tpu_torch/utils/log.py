@@ -1,16 +1,16 @@
 """Logging with Kaldi-style severity and verbose levels.
 
 Replacement for the KALDI_LOG/KALDI_WARN/KALDI_ERR/KALDI_VLOG
-macro family (reference: src/base/kaldi-error.h).
-
-The part of kaldi_aslp_tpu/utils/log.py the port uses so far
-(``get_logger``, ``set_verbose_level``).
+macro family (reference: src/base/kaldi-error.h); port of
+kaldi_aslp_tpu/utils/log.py (``get_logger``, ``set_verbose_level``,
+``verbose_level``, ``vlog``, ``Timer``).
 """
 
 from __future__ import annotations
 
 import logging
 import sys
+import time
 
 _VERBOSE_LEVEL = 0
 
@@ -18,9 +18,13 @@ _FORMAT = "%(levelname)s (%(name)s) %(message)s"
 
 
 def set_verbose_level(level: int) -> None:
-    """Equivalent of --verbose=N (the port logs nothing verbose yet)."""
+    """Equivalent of --verbose=N; gates vlog() calls."""
     global _VERBOSE_LEVEL
     _VERBOSE_LEVEL = int(level)
+
+
+def verbose_level() -> int:
+    return _VERBOSE_LEVEL
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -32,3 +36,22 @@ def get_logger(name: str) -> logging.Logger:
         logger.setLevel(logging.INFO)
         logger.propagate = False
     return logger
+
+
+def vlog(logger: logging.Logger, level: int, msg: str, *args) -> None:
+    """KALDI_VLOG(level) equivalent: only prints if --verbose >= level."""
+    if _VERBOSE_LEVEL >= level:
+        logger.info(msg, *args)
+
+
+class Timer:
+    """Wall-clock timer (reference: src/base/timer.h)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._start = time.monotonic()
+
+    def elapsed(self) -> float:
+        return time.monotonic() - self._start

@@ -29,7 +29,7 @@ from kaldi_aslp_tpu_torch.models.losses import (
     ctc_batch_loss,
     ctc_loss_spike_mask,
 )
-from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as recursions
+from kaldi_aslp_tpu_torch.ops import ctc_recursions as recursions
 from kaldi_aslp_tpu_torch.ops.ctc import (
     NEG_INF,
     ctc_alpha_beta,

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+from kaldi_aslp_tpu_torch.ops import ctc_recursions as cab
 from kaldi_aslp_tpu_torch.ops.ctc import ctc_emissions, ctc_loss
 
 TOL = dict(rtol=1e-4, atol=1e-4)

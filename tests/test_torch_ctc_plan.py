@@ -1,5 +1,5 @@
 """The CTC alpha/beta kernel's launch plan
-(kaldi_aslp_tpu_torch/ops/ctc_alpha_beta.py:plan_for), on the CPU.
+(kaldi_aslp_tpu_torch/ops/ctc_recursions.py:plan_for), on the CPU.
 
 csrc/ctc_alpha_beta.cu takes the plan as arguments and refuses one that
 is not its kernels' layout; what the plan promises is tested here: the
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from kaldi_aslp_tpu_torch.ops import build
-from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta as cab
+from kaldi_aslp_tpu_torch.ops import ctc_recursions as cab
 
 
 def _source() -> str:

@@ -29,7 +29,7 @@ from kaldi_aslp_tpu_torch.fst import (
     make_unigram_grammar,
 )
 from kaldi_aslp_tpu_torch.models import BLstm
-from kaldi_aslp_tpu_torch.ops import ctc_alpha_beta
+from kaldi_aslp_tpu_torch.ops import ctc_recursions as ctc_alpha_beta
 from kaldi_aslp_tpu_torch.recipes import CtcRecipe, CtcRecipeOptions
 from kaldi_aslp_tpu_torch.utils.device import resolve_device
 

@@ -25,7 +25,7 @@ from kaldi_aslp_tpu_torch.models.losses import ctc_batch_loss
 from kaldi_aslp_tpu_torch.ops import (
     bilstmp_train,
     bilstmp_xg_train,
-    ctc_alpha_beta,
+    ctc_recursions as ctc_alpha_beta,
     lstmp,
     lstmp_train,
 )
