@@ -1,0 +1,8 @@
+"""Mean milliseconds a step of the network's forward in training mode,
+from CUDA events around the benchmark's call of it in every step of the
+traced window."""
+
+
+def read(records):
+    parts = records["window"].get("parts_ms")
+    return parts["forward"] if parts and records["window"]["steps"] else None

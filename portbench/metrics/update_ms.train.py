@@ -1,0 +1,7 @@
+"""Mean milliseconds a step of the SGD update, from CUDA events around the
+benchmark's call of it in every step of the traced window."""
+
+
+def read(records):
+    parts = records["window"].get("parts_ms")
+    return parts["update"] if parts and records["window"]["steps"] else None
