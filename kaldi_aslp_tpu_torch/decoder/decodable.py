@@ -6,7 +6,12 @@ Port of kaldi_aslp_tpu/decoder/decodable.py (``PdfPriorOptions``,
 src/aslp-nnet/nnet-decodable.{h,cc}, nnet-pdf-prior.{h,cc},
 src/aslp-nnetbin/aslp-nnet-forward.cc).  The network runs once over
 [1, T, D] on the device its parameters live on; log-softmax and the
-prior are plain torch ops."""
+prior are plain torch ops.
+
+``nnet_forward_batched`` is the span ``aslp.infer.call`` (utils/profile.py,
+recorded only while a record is on), its parts ``.upload``, ``.forward``,
+``.scores``, ``.wait`` and ``.to_host``; the bytes up and down are
+counted in ``aslp.infer.upload.bytes`` and ``aslp.infer.to_host.bytes``."""
 
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from kaldi_aslp_tpu_torch.models.nnet import Nnet
 from kaldi_aslp_tpu_torch.utils.config import Config
+from kaldi_aslp_tpu_torch.utils.profile import count, recording, span
 
 
 @dataclasses.dataclass
@@ -110,17 +116,35 @@ def nnet_forward_batched(
     forward of online/batching.py:AcousticBatcher).  The mask holds each
     recurrent layer's carry through a row's padding, so a row's valid
     frames score as they do alone.  Frame skipping and time shift are
-    per-utterance options and are refused here."""
+    per-utterance options and are refused here.
+
+    While a span record is on, ``aslp.infer.wait`` waits for the current
+    stream, so ``aslp.infer.to_host`` times the scores' copy alone; with
+    the record off the copy waits at the same point."""
     opts = opts or NnetForwardOptions()
     if opts.skip_width > 1 or opts.time_shift:
         raise ValueError("nnet_forward_batched takes no skip_width or "
                          "time_shift")
-    device = next(net.parameters()).device
-    y = _eval_forward(
-        net, torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(
-            device),
-        torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(device))
-    return _scores(y, opts, prior).cpu().numpy()
+    with span("aslp.infer.call"):
+        device = next(net.parameters()).device
+        with span("aslp.infer.upload"):
+            x = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(
+                device)
+            m = torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(
+                device)
+        with span("aslp.infer.forward"):
+            y = _eval_forward(net, x, m)
+        with span("aslp.infer.scores"):
+            scores = _scores(y, opts, prior)
+        with span("aslp.infer.wait"):
+            if recording() and scores.is_cuda:
+                torch.cuda.current_stream(scores.device).synchronize()
+        with span("aslp.infer.to_host"):
+            out = scores.cpu().numpy()
+        if recording():
+            count("aslp.infer.upload.bytes", x.nbytes + m.nbytes)
+            count("aslp.infer.to_host.bytes", out.nbytes)
+        return out
 
 
 def _eval_forward(net: Nnet, x: torch.Tensor,

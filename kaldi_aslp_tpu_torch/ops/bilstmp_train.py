@@ -42,6 +42,7 @@ from kaldi_aslp_tpu_torch.ops.build import (
 )
 from kaldi_aslp_tpu_torch.ops.sweep_plan import _round_up, sweep_plan
 from kaldi_aslp_tpu_torch.ops.switches import lstm_switches
+from kaldi_aslp_tpu_torch.utils.profile import span
 
 SOURCE = "bilstmp_train.cu"
 BF16 = torch.bfloat16
@@ -184,7 +185,8 @@ def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
     On a CUDA tensor this launches the kernel or raises (ValueError past
     the capacity :func:`sweep_plan` states); a CPU tensor takes
     :func:`bilstmp_train_fwd_reference`.
-    ``bilstmp_train_fwd.launches`` counts calls into the C entry."""
+    ``bilstmp_train_fwd.launches`` counts calls into the C entry, each
+    in the span ``aslp.op.bilstmp_train_fwd``."""
     S, T, D = x.shape
     G, P = wr.shape[1], wr.shape[2]
     C = G // 4
@@ -219,7 +221,7 @@ def bilstmp_train_fwd(x, mask, wx, wr, wrm, peep, bias, init_c, init_r,
     rprev[1, :, T - 1] = 0
     ys = _empty(dev, BF16, S, T, 2 * P)
     lib = _library()
-    with torch.cuda.device(dev):
+    with span("aslp.op.bilstmp_train_fwd"), torch.cuda.device(dev):
         err = lib.bilstmp_train_fwd(
             x.data_ptr(), mask.data_ptr(), wx.data_ptr(), wr.data_ptr(),
             wrm.data_ptr(), peep.data_ptr(), bias.data_ptr(), xg.data_ptr(),
@@ -332,7 +334,8 @@ def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
     On a CUDA tensor this launches the kernel or raises (ValueError past
     the capacity :func:`sweep_plan` states); a CPU tensor takes
     :func:`bilstmp_train_bwd_reference`.
-    ``bilstmp_train_bwd.launches`` counts calls into the C entry."""
+    ``bilstmp_train_bwd.launches`` counts calls into the C entry, each
+    in the span ``aslp.op.bilstmp_train_bwd``."""
     S, T, D = x.shape
     G, P = wr.shape[1], wr.shape[2]
     C = G // 4
@@ -365,7 +368,7 @@ def bilstmp_train_bwd(dy, mask, x, gates, cs, rprev, wx, wr, wrm, peep,
     dwx, dwr = _empty(dev, f32, 2, G, D), _empty(dev, f32, 2, G, P)
     dwrm, dbp = _empty(dev, f32, 2, P, C), _empty(dev, f32, 2, 7 * C)
     lib = _library()
-    with torch.cuda.device(dev):
+    with span("aslp.op.bilstmp_train_bwd"), torch.cuda.device(dev):
         err = lib.bilstmp_train_bwd(
             dy.data_ptr(), mask.data_ptr(), x.data_ptr(), gates.data_ptr(),
             cs.data_ptr(), rprev.data_ptr(), wx.data_ptr(), wr_t.data_ptr(),

@@ -8,7 +8,12 @@ hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source or header is rebuilt and a stale library is never
 loaded.  ``nvcc``'s own output (``-Xptxas -v``:
 registers, shared memory, spills per kernel) is kept beside the library
-in a ``.log`` file."""
+in a ``.log`` file.
+
+``load_library.builds`` and ``load_library.loads`` count the ``nvcc`` runs
+and the libraries loaded in this process, ``load_library.seconds`` the
+seconds both took: what a process pays for its kernels' libraries before
+its first launch."""
 
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -65,6 +71,21 @@ def load_library(source_name: str) -> ctypes.CDLL:
     lib = _LOADED.get(source_name)
     if lib is not None:
         return lib
+    t0 = time.perf_counter()
+    try:
+        lib = _build_and_load(source_name)
+    finally:
+        load_library.seconds += time.perf_counter() - t0
+    _LOADED[source_name] = lib
+    return lib
+
+
+load_library.builds = 0
+load_library.loads = 0
+load_library.seconds = 0.0
+
+
+def _build_and_load(source_name: str) -> ctypes.CDLL:
     so = library_path(source_name)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,8 +102,9 @@ def load_library(source_name: str) -> ctypes.CDLL:
                 f"nvcc failed on {source_name} (exit {proc.returncode}):\n"
                 f"{proc.stderr[-4000:]}")
         os.replace(tmp, so)
+        load_library.builds += 1
     lib = ctypes.CDLL(str(so))
-    _LOADED[source_name] = lib
+    load_library.loads += 1
     return lib
 
 

@@ -41,6 +41,7 @@ from kaldi_aslp_tpu_torch.ops.build import (
     current_stream,
     load_library,
 )
+from kaldi_aslp_tpu_torch.utils.profile import span
 
 SOURCE = "ctc_alpha_beta.cu"
 NEG_INF = -1e30
@@ -124,8 +125,9 @@ def ctc_alpha_beta(lp_t: torch.Tensor, skip_ok: torch.Tensor,
     """(alphas, betas), each [T, S, U'].  On a CUDA tensor this launches the
     kernel once for both recursions or raises; a CPU tensor takes
     :func:`ctc_alpha_beta_reference`.  ``ctc_alpha_beta.launches`` counts
-    calls into the kernel's C entry, ``ctc_alpha_beta.wide`` those on the
-    wide kernel."""
+    calls into the kernel's C entry (each in the span
+    ``aslp.op.ctc_alpha_beta``), ``ctc_alpha_beta.wide`` those on the wide
+    kernel."""
     _check(lp_t, skip_ok, input_lengths, exp_lens)
     if lp_t.device.type == "cpu":
         return ctc_alpha_beta_reference(lp_t, skip_ok, input_lengths,
@@ -136,7 +138,7 @@ def ctc_alpha_beta(lp_t: torch.Tensor, skip_ok: torch.Tensor,
     plan = plan_for(U)
     out = torch.empty((2, T, S, U), dtype=torch.float32, device=lp_t.device)
     alphas = out.data_ptr()
-    with torch.cuda.device(lp_t.device):
+    with span("aslp.op.ctc_alpha_beta"), torch.cuda.device(lp_t.device):
         err = _library().ctc_alpha_beta_f32(
             lp_t.data_ptr(), skip_ok.data_ptr(), input_lengths.data_ptr(),
             exp_lens.data_ptr(), alphas, alphas + 4 * T * S * U, T, S, U,

@@ -41,6 +41,7 @@ from kaldi_aslp_tpu_torch.ops.sweep_plan import (
     LstmpInferPlan,
     lstmp_infer_plan,
 )
+from kaldi_aslp_tpu_torch.utils.profile import span
 
 SOURCE = "lstmp_forward.cu"
 F32 = torch.float32
@@ -173,7 +174,8 @@ def _launch(plan: LstmpInferPlan, xgs: Sequence[torch.Tensor], mask,
 
 def _forward(counter, xgs, mask, weights, c0, r0, cell_clip) -> _Outputs:
     """The CUDA route of both wrappers; ``counter`` is the wrapper whose
-    ``launches`` / ``per_step`` count the call."""
+    ``launches`` / ``per_step`` count the call and whose name the call's
+    span takes (``aslp.op.lstmp_forward``, ``aslp.op.blstmp_forward``)."""
     xg = xgs[0]
     if xg.device.type != "cuda":
         raise ValueError(f"no LSTMP kernel for device {xg.device}")
@@ -184,7 +186,8 @@ def _forward(counter, xgs, mask, weights, c0, r0, cell_clip) -> _Outputs:
         return (torch.empty((S, 0, len(xgs) * P), dtype=F32,
                             device=xg.device), c0.clone(), r0.clone())
     plan = plan_for(S, C, P, len(xgs), xg.device)
-    out = _launch(plan, xgs, mask, weights, c0, r0, cell_clip)
+    with span("aslp.op." + counter.__name__):
+        out = _launch(plan, xgs, mask, weights, c0, r0, cell_clip)
     counter.launches += 1
     counter.per_step += not plan.persistent
     return out

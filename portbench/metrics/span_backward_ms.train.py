@@ -1,0 +1,9 @@
+"""Mean milliseconds a step of ``aslp.train.backward``, the backward
+inside the program's own ``CtcTrainer.step``, between the span's CUDA
+events, over the spans pass's steps (harness/spans.py)."""
+
+from portbench.harness import spans
+
+
+def read(records):
+    return spans.part_ms(records, "aslp.train.backward")
